@@ -1,0 +1,455 @@
+"""Digital down-converter: frequency shift + staged rational resampling
+(port of the JAX package's ``ops/ddc.py``, modulated-taps path).
+
+The planners are numpy and give arrays equal to the reference's. NCO and
+modulated-tap angles come from int64 modular arithmetic on the host, so f32
+never sees a large argument (computing them in f32 on the device would break
+the <= 1 LSB int8 contract).
+
+Modulated taps: stage 1 filters the RAW input with complex taps
+g[j] = h[j] e^{-i inc j} and the NCO rotation runs at the decimated rate:
+  y1[m] = e^{i(phi0 + inc M m)} sum_j (h[j] e^{-i inc j}) x[mM-j].
+A reset slot keeps the shared raw-x stage-1 history (see reset_slot2).
+
+The chunked products here are f32 matrix products held to <= 1 LSB int8, so
+TF32 is switched off wherever a DDC state or a block step is made
+(``no_tf32``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rtl_sdr_scanner_tpu_torch.ops.window import kaiser
+from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_resamplers_factors
+
+# ---------------------------------------------------------------------------
+# Filter design (GR-compatible)
+# ---------------------------------------------------------------------------
+
+
+def firdes_low_pass(
+    gain: float, sampling_freq: float, cutoff: float, transition_width: float, beta: float = 7.0
+) -> np.ndarray:
+    """Kaiser-windowed sinc low-pass, GNU Radio firdes::low_pass semantics."""
+    attenuation = beta / 0.1102 + 8.7
+    ntaps = int(attenuation * sampling_freq / (22.0 * transition_width))
+    if ntaps % 2 == 0:
+        ntaps += 1
+    m = (ntaps - 1) // 2
+    w = kaiser(ntaps, beta)
+    n = np.arange(-m, m + 1, dtype=np.float64)
+    fw = 2.0 * np.pi * cutoff / sampling_freq
+    denom = np.where(n == 0, 1.0, n * np.pi)
+    taps = np.where(n == 0, fw / np.pi, np.sin(n * fw) / denom) * w
+    dc = taps[m] + 2.0 * np.sum(taps[m + 1 :])
+    return (taps * (gain / dc)).astype(np.float64)
+
+
+@functools.lru_cache(maxsize=64)
+def design_resampler_taps(interp: int, decim: int, fractional_bw: float = 0.4) -> np.ndarray:
+    """GNU Radio rational_resampler default filter (design_resampler_filter)."""
+    if interp == 1 and decim == 1:
+        return np.ones(1, dtype=np.float64)
+    halfband = 0.5
+    rate = interp / decim
+    if rate >= 1.0:
+        trans_width = halfband - fractional_bw
+        mid = halfband - trans_width / 2.0
+    else:
+        trans_width = rate * (halfband - fractional_bw)
+        mid = rate * halfband - trans_width / 2.0
+    return firdes_low_pass(interp, interp, mid, trans_width)
+
+
+# ---------------------------------------------------------------------------
+# Stage / chain plumbing
+# ---------------------------------------------------------------------------
+
+
+class StagePlan(NamedTuple):
+    interp: int
+    decim: int
+    ntaps: int
+    tail_len: int  # input-domain overlap-save tail: ceil((ntaps-1)/interp)
+    kernel: np.ndarray  # reversed taps left-padded to tail_len*interp + 1 (f32)
+    poly_kernel: np.ndarray  # [1, M, R] f32, kernel[0, r, q] = h_rev[q*M + r]
+    poly_rows: int  # R
+    # chunked-matmul form: input at offset Q inside a zero-padded buffer
+    # viewed as [.., n_chunks, C]; Z = chunks @ chunk_w has column order
+    # d*P + b and y[P*a + b] = sum_d Z[a + d, d*P + b]
+    chunk_c: int  # C (0 = form unavailable)
+    chunk_d: int  # D = number of chunk lags
+    chunk_q: int  # Q = aligned input offset
+    chunk_w: np.ndarray  # [C, D * (C//M)] f32
+
+
+def _plan_chunk_matmul(m: int, r_rows: int, h_rev: np.ndarray, tail_len: int):
+    """Pick chunk width C = M*P and build the [C, D*P] matrix (the JAX
+    package's choice, kept so the arrays compare equal)."""
+    cands = []
+    p = 128
+    while p >= 8:
+        c = m * p
+        if c <= 8192 and c % 128 == 0:
+            q = -(-tail_len // 128) * 128
+            s = q - tail_len
+            d = -(-(s + (p - 1) * m + r_rows * m) // c)
+            d = max(d, 1 + -(-q // c))
+            cands.append((c, p, d, q, s))
+        p //= 2
+    best = None
+    for cap in (128, 256, 512):
+        fitting = [t for t in cands if t[1] * t[2] <= cap]
+        if fitting:
+            best = max(fitting, key=lambda t: t[1])
+            break
+    if best is None:
+        return 0, 0, 0, np.zeros((0, 0), dtype=np.float32)
+    c, p, d, q, s = best
+    w_full = np.zeros((p, d * c))
+    for b in range(p):
+        w_full[b, s + b * m : s + b * m + r_rows * m] = h_rev
+    w2 = w_full.reshape(p, d, c).transpose(2, 1, 0).reshape(c, d * p)
+    return c, d, q, w2.astype(np.float32)
+
+
+def plan_stage(interp: int, decim: int) -> StagePlan:
+    taps = design_resampler_taps(interp, decim)
+    ntaps = len(taps)
+    tail_len = -(-(ntaps - 1) // interp)
+    pad = tail_len * interp - (ntaps - 1)
+    kernel = np.concatenate([np.zeros(pad), taps[::-1]]).astype(np.float32)
+
+    m = decim
+    r_rows = -(-(ntaps - 1) // m) + 1
+    h_rev = np.zeros(r_rows * m)
+    h_rev[:ntaps] = taps[::-1]
+    poly = np.zeros((1, m, r_rows), dtype=np.float32)
+    for q in range(r_rows):
+        for rr in range(m):
+            poly[0, rr, q] = h_rev[q * m + rr]
+    chunk_c, chunk_d, chunk_q, chunk_w = (
+        _plan_chunk_matmul(m, r_rows, h_rev, tail_len)
+        if interp == 1
+        else (0, 0, 0, np.zeros((0, 0), np.float32))
+    )
+    return StagePlan(
+        interp, decim, ntaps, tail_len, kernel, poly, r_rows, chunk_c, chunk_d, chunk_q, chunk_w
+    )
+
+
+def plan_chain(sample_rate: int, bandwidth: int, threshold: int = 125) -> List[StagePlan]:
+    """Stage plans from sample_rate down to bandwidth (recorder.cpp:29-33)."""
+    return [plan_stage(l, m) for l, m in get_resamplers_factors(sample_rate, bandwidth, threshold)]
+
+
+def chain_block_multiple(plans: Sequence[StagePlan]) -> int:
+    """Smallest block length every stage consumes integrally."""
+    need = 1
+    num, den = 1, 1
+    for p in plans:
+        num *= p.interp
+        den *= p.decim
+        g = math.gcd(num, den)
+        num //= g
+        den //= g
+        need = need * den // math.gcd(need, den)
+    return need
+
+
+def chain_output_length(plans: Sequence[StagePlan], n: int) -> int:
+    for p in plans:
+        if (n * p.interp) % p.decim != 0:
+            raise ValueError(f"{n} samples do not pass stage {p.interp}/{p.decim} integrally")
+        n = n * p.interp // p.decim
+    return n
+
+
+# ---------------------------------------------------------------------------
+# NCO tables (host-side exact math)
+# ---------------------------------------------------------------------------
+
+
+class NcoTables(NamedTuple):
+    """Per-slot rotation tables: angle(n) = coarse[n // Q] + fine[n % Q]
+    (int64 host math), applied as a product of two unit phasors."""
+
+    coarse_re: torch.Tensor  # [..., K, chunk//Q] f32
+    coarse_im: torch.Tensor
+    fine_re: torch.Tensor  # [..., K, Q] f32
+    fine_im: torch.Tensor
+    step: torch.Tensor  # [..., K] f32: (phase_inc * chunk) mod 2pi
+
+
+NCO_Q = 8192
+
+
+def _nco_q(chunk: int) -> int:
+    """Largest power-of-two divisor of chunk, capped at NCO_Q."""
+    q = 1
+    while q < NCO_Q and chunk % (q * 2) == 0:
+        q *= 2
+    return q
+
+
+def make_nco_tables(
+    shifts: np.ndarray, sample_rate: int, chunk: int, device: torch.device
+) -> NcoTables:
+    """Exact NCO angle tables for per-slot shifts [..., K]:
+    phase_inc = 2*pi*(-shift)/rate; angle(n) = phase_inc*n mod 2pi in int64."""
+    qsize = _nco_q(chunk)
+    shifts = np.asarray(shifts, dtype=np.int64)
+    smod = (-shifts) % sample_rate
+    two_pi_over_rate = 2.0 * np.pi / sample_rate
+
+    r = np.arange(qsize, dtype=np.int64)
+    fine = ((smod[..., None] * r) % sample_rate) * two_pi_over_rate
+    q = np.arange(chunk // qsize, dtype=np.int64) * qsize
+    coarse = ((smod[..., None] * q) % sample_rate) * two_pi_over_rate
+    step = ((smod * chunk) % sample_rate) * two_pi_over_rate
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+    return NcoTables(
+        coarse_re=f32(np.cos(coarse)),
+        coarse_im=f32(np.sin(coarse)),
+        fine_re=f32(np.cos(fine)),
+        fine_im=f32(np.sin(fine)),
+        step=f32(step),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device stages
+# ---------------------------------------------------------------------------
+
+
+def no_tf32() -> None:
+    """f32 products here are held to <= 1 LSB int8; TF32 would break that.
+    Process-wide: called once where a DDC state or a block step is made."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@functools.lru_cache(maxsize=32)
+def _stage_weight(interp: int, decim: int, device: torch.device) -> torch.Tensor:
+    """A stage's product weights on ``device``, uploaded once: the chunked
+    form's [C, D*P] matrix when planned, else the [1, M, R] polyphase kernel.
+    ``plan_stage`` is a function of (interp, decim) alone."""
+    plan = plan_stage(interp, decim)
+    return torch.from_numpy(plan.chunk_w if plan.chunk_c > 0 else plan.poly_kernel).to(device)
+
+
+def _stage_apply(
+    x: torch.Tensor, tail: torch.Tensor, plan: StagePlan
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decimating resampler stage on [B, 2, n] f32 -> [B, 2, n//M];
+    carries the overlap-save tail. Chunked-matmul form when planned, else
+    the polyphase conv. Interpolating stages are not ported yet."""
+    if plan.interp != 1:
+        raise NotImplementedError("interpolating resampler stages are not ported yet")
+    k, two, n = x.shape
+    full = torch.cat([tail, x], dim=-1)
+    new_tail = full[..., -plan.tail_len :]
+    out_len = n // plan.decim
+    w = _stage_weight(plan.interp, plan.decim, x.device)
+
+    if plan.chunk_c > 0:
+        m = plan.decim
+        c, d, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
+        p = c // m
+        a_tiles = -(-out_len // p)
+        n_chunks = a_tiles + d - 1
+        lhs = F.pad(full, (q - plan.tail_len, n_chunks * c - q - n)).reshape(k * two, n_chunks, c)
+        z = torch.matmul(lhs, w)  # [K2, n_chunks, D*P], column order d*P + b
+        acc = z[:, 0:a_tiles, 0:p]
+        for dd in range(1, d):
+            acc = acc + z[:, dd : dd + a_tiles, dd * p : (dd + 1) * p]
+        out = acc.reshape(k * two, a_tiles * p)[:, :out_len]
+        return out.reshape(k, two, out_len), new_tail
+
+    m, r_rows = plan.decim, plan.poly_rows
+    need = (out_len + r_rows - 1) * m
+    lhs = full.reshape(k * two, -1)
+    lhs = F.pad(lhs, (0, need - lhs.shape[-1]))
+    rows = lhs.reshape(k * two, -1, m).transpose(1, 2)  # [K2, M, rows]
+    out = F.conv1d(rows, w)
+    return out[:, 0, :out_len].reshape(k, two, out_len), new_tail
+
+
+class Ddc2State(NamedTuple):
+    """Streaming carry of the modulated-taps path, banded."""
+
+    phase: torch.Tensor  # [NB, K] f32 NCO phase at block start
+    x_tail: torch.Tensor  # [NB, 2, tail0] raw-x overlap-save tail
+    tails: Tuple[torch.Tensor, ...]  # stages 2+: [NB, K, 2, t]
+
+
+class ModTables(NamedTuple):
+    """Per-retune stage-1 modulated weights + decimated-rate NCO tables."""
+
+    w: torch.Tensor  # [NB, C, K*2*D*P] f32, column order (k, part, d*P + b)
+    rot: NcoTables  # decimated-rate output rotation, leaves [NB, K, ...]
+
+
+def init_ddc2_state(
+    plans: Sequence[StagePlan], n_bands: int, num_slots: int, device: torch.device
+) -> Ddc2State:
+    no_tf32()
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return Ddc2State(
+        phase=zeros(n_bands, num_slots),
+        x_tail=zeros(n_bands, 2, plans[0].tail_len),
+        tails=tuple(zeros(n_bands, num_slots, 2, p.tail_len) for p in plans[1:]),
+    )
+
+
+def reset_slot2(state: Ddc2State, band: int, slot: int) -> Ddc2State:
+    """Zero one slot's phase and stage-2+ tails; the shared raw-x stage-1
+    tail stays, so a new recording has no zero-history transient."""
+    phase = state.phase.clone()
+    phase[band, slot] = 0.0
+    tails = []
+    for t in state.tails:
+        t = t.clone()
+        t[band, slot] = 0.0
+        tails.append(t)
+    return Ddc2State(phase=phase, x_tail=state.x_tail, tails=tuple(tails))
+
+
+@functools.lru_cache(maxsize=16)
+def _modtap_scatter_index(m: int, r_rows: int, tail_len: int, c: int, d: int, q: int):
+    """numpy gather index [C, D*P]: w[:, k2, dp] = g_pad[idx], with the
+    sentinel slot r_rows*m for out-of-range taps and the chunked-matmul
+    column permutation already applied."""
+    p = c // m
+    s = q - tail_len
+    cols = np.arange(d * c)
+    rows = np.arange(p)[:, None]
+    t = cols[None, :] - s - rows * m
+    sentinel = r_rows * m
+    t = np.where((t >= 0) & (t < r_rows * m), t, sentinel)
+    idx = t.reshape(p, d, c).transpose(2, 1, 0).reshape(c, d * p)
+    return idx.astype(np.int32)
+
+
+def make_mod_tables(
+    plans: Sequence[StagePlan],
+    shifts: np.ndarray,
+    sample_rate: int,
+    chunk: int,
+    device: torch.device,
+) -> ModTables:
+    """Host-exact modulated-tap tables for per-slot shifts [..., K].
+
+    Tap angles and the decimated-rate rotation come from int64 host math;
+    the big weight matrix is gathered ON the device from the tiny
+    [..., K, 2, R*M] modulated-tap vectors."""
+    p0 = plans[0]
+    if not (p0.interp == 1 and p0.chunk_c > 0):
+        raise ValueError("modtap needs a chunked decimating stage 1")
+    m = p0.decim
+    shifts = np.asarray(shifts, dtype=np.int64)
+    smod = (-shifts) % sample_rate
+    ntaps = p0.ntaps
+    rm = p0.poly_rows * m
+
+    h_rev = np.zeros(rm)
+    h_rev[:ntaps] = np.asarray(design_resampler_taps(p0.interp, p0.decim))[::-1]
+    j = np.maximum(ntaps - 1 - np.arange(rm), 0)  # forward tap index
+    ang = ((smod[..., None] * j) % sample_rate) * (2.0 * np.pi / sample_rate)
+    g = np.stack([h_rev * np.cos(ang), -h_rev * np.sin(ang)], axis=-2)  # [..., K, 2, RM]
+    pad = np.zeros(g.shape[:-1] + (1,))
+    g_pad = torch.from_numpy(np.concatenate([g, pad], axis=-1).astype(np.float32)).to(device)
+
+    idx = _modtap_scatter_index(m, p0.poly_rows, p0.tail_len, p0.chunk_c, p0.chunk_d, p0.chunk_q)
+    w = g_pad[..., torch.from_numpy(idx).long().to(device)]  # [..., K, 2, C, D*P]
+    lead = w.shape[:-4]
+    k = w.shape[-4]
+    w = torch.movedim(w, -2, -4).reshape(*lead, p0.chunk_c, k * 2 * idx.shape[1])
+
+    rot = make_nco_tables(-((smod * m) % sample_rate), sample_rate, chunk // m, device)
+    return ModTables(w=w.contiguous(), rot=rot)
+
+
+def _modtap_stage1(
+    x: torch.Tensor,  # [NB, 2, chunk] f32 raw components
+    x_tail: torch.Tensor,  # [NB, 2, tail0]
+    w: torch.Tensor,  # [NB, C, K*2*D*P]
+    plan: StagePlan,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Complex-tap chunked-matmul stage 1: (y_re, y_im) [NB, K, out1] and
+    the new raw tail."""
+    nb, two, n = x.shape
+    m = plan.decim
+    c, d, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
+    p = c // m
+    out_len = n // m
+    a_tiles = -(-out_len // p)
+    n_chunks = a_tiles + d - 1
+    full = torch.cat([x_tail, x], dim=-1)
+    lhs = F.pad(full, (q - plan.tail_len, n_chunks * c - q - n)).reshape(nb, two * n_chunks, c)
+    z = torch.bmm(lhs, w).reshape(nb, two, n_chunks, k, 2, d * p)
+    acc = z[:, :, 0:a_tiles, :, :, 0:p]
+    for dd in range(1, d):
+        acc = acc + z[:, :, dd : dd + a_tiles, :, :, dd * p : (dd + 1) * p]
+    # [NB, xcomp, a, K, gcomp, P] -> [NB, xcomp, K, gcomp, out1]
+    acc = torch.movedim(acc, 2, 4).reshape(nb, two, k, 2, a_tiles * p)[..., :out_len]
+    y_re = acc[:, 0, :, 0] - acc[:, 1, :, 1]
+    y_im = acc[:, 0, :, 1] + acc[:, 1, :, 0]
+    return y_re, y_im, full[..., -plan.tail_len :]
+
+
+def ddc_chunk_modtap(
+    iq: torch.Tensor,  # [NB, chunk, 2] int8 cs8 or f32 pairs
+    state: Ddc2State,
+    tables: ModTables,
+    plans: Sequence[StagePlan],
+) -> Tuple[Ddc2State, torch.Tensor]:
+    """Modulated-taps DDC chunk over all bands; returns int8 [NB, K, out, 2].
+    TF32 is off from ``init_ddc2_state`` or the step's build on."""
+    nb, chunk = iq.shape[0], iq.shape[1]
+    k = state.phase.shape[-1]
+    p0 = plans[0]
+    out1 = chunk // p0.decim
+
+    if iq.dtype == torch.int8:
+        x = torch.movedim(iq.to(torch.float32) * (1.0 / 127.5), -1, 1)
+    else:
+        x = torch.movedim(iq, -1, 1)  # [NB, 2, chunk]
+
+    y_re, y_im, new_x_tail = _modtap_stage1(x, state.x_tail, tables.w, p0, k)
+
+    # decimated-rate output rotation: e^{i(phi0 + inc M m)}
+    rt = tables.rot
+    ph_re = torch.cos(state.phase)[..., None]  # [NB, K, 1]
+    ph_im = torch.sin(state.phase)[..., None]
+    c_re = ph_re * rt.coarse_re - ph_im * rt.coarse_im  # [NB, K, nq]
+    c_im = ph_re * rt.coarse_im + ph_im * rt.coarse_re
+    rot_re = (
+        c_re[..., None] * rt.fine_re[..., None, :] - c_im[..., None] * rt.fine_im[..., None, :]
+    ).reshape(nb, k, out1)
+    rot_im = (
+        c_re[..., None] * rt.fine_im[..., None, :] + c_im[..., None] * rt.fine_re[..., None, :]
+    ).reshape(nb, k, out1)
+    y = torch.stack(
+        [y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=2
+    ).reshape(nb * k, 2, out1)
+
+    new_tails = []
+    for plan, tail in zip(plans[1:], state.tails):
+        y, new_tail = _stage_apply(y, tail.reshape(nb * k, 2, -1), plan)
+        new_tails.append(new_tail.reshape(nb, k, 2, -1))
+
+    out = torch.clamp(torch.round(torch.movedim(y, 1, 2) * 127.0), -128, 127).to(torch.int8)
+    new_phase = torch.remainder(state.phase + rt.step, 2.0 * math.pi)
+    return (
+        Ddc2State(phase=new_phase, x_tail=new_x_tail, tails=tuple(new_tails)),
+        out.reshape(nb, k, -1, 2),
+    )
