@@ -4,24 +4,40 @@
 
 1. Builds the hand-written kernels from ``rtl_sdr_scanner_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/kernels``).
-2. Holds each kernel against its plain PyTorch version on the card: the PSD
-   within 0.02 dB on every bin within 60 dB of its frame's peak (median
-   |diff| <= 1e-3 dB), the selection bit-exact in bf16 and f32; then times
-   kernel, plain version and library call at the main path's shapes.
-3. Drives the main path, ``make_banded_fused_step``, at full width: 24 bands
-   x 45 frames x fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz,
-   the PSD and selection kernels on and bf16 selection, for 6 blocks from a
-   device-resident ring of synthetic cs8. Band 5 carries an FM signal keyed
-   on after the 2 s noise-learning window; the run must report the noise
-   floor learned, that signal detected in its band only, and a recording.
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes each path gives it: the PSD within 0.02 dB on every bin within
+   60 dB of its frame's peak (median |diff| <= 1e-3 dB) and the selection
+   bit-exact in bf16 and f32, at each path's fft, decimation and
+   submargin; the decimating FIR within 2e-5 * max|y| (f32 sum order) with
+   the new tail exact, at each path's decimating stages and at M = 125 and
+   32. Then times kernel, plain version, library call and bound: PSD and
+   selection at path 1's shapes, the FIR at path 2's.
+3. Path 1: ``make_banded_fused_step`` at full width, 24 bands x 45 frames x
+   fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz (the
+   modulated-taps DDC; its decimating stage 2 through the FIR kernel),
+   default Tunables, 6 blocks from a device-resident ring of synthetic
+   cs8. Band 5 carries an FM signal keyed on after the 2 s noise-learning
+   window; the run must report the noise floor learned, that signal
+   detected in its band only, and a recording.
+4. Path 2: the same step at an RTL-SDR deployment, 24 bands x 75 frames x
+   fft 16384 (decim 2) at 2.4 Msps with 2 slots at the reference's default
+   32 kHz: the v1 DDC, one decimation-only stage (1, 75) through the FIR
+   kernel, 2 chunks a block; group 219 takes the wide-window vote. Same
+   checks, plus slot 0 of the signal band (tuned to the signal) >= 10 dB
+   above slot 0 of a quiet band.
+5. Interpolating stages on the card (DDC only, 4 bands, 2 chunks): 2.0 Msps
+   -> 32 kHz (v1, stage (2, 125)) and 10 Msps -> 32 kHz (modulated taps,
+   stage 2 (2, 25)), each within 1 LSB of the same call on the CPU.
 
-Every failure raises. The last lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
-prints no result.
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after. Every failure raises. The last lines are the card's name
+and power limit, the kernels' JSON record and ``{"ok": true, "device":
+{...}}``. Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -33,22 +49,39 @@ from pathlib import Path
 import numpy as np
 import torch
 
-RATE = 20_480_000
-FRAMES = 45
-BANDS = 24
-SLOTS = 2
-BLOCKS = 6
 TOP_K = 64
 KEY_SLOTS = 16
 LEVEL = 8.0
-SIGNAL_BAND = 5
-SIGNAL_OFFSET_HZ = 250_000
-SIGNAL_FROM_BLOCK = 3  # block 3 starts at 2592 ms, after the 2000 ms learning
 CHECK_ROWS = 45 * 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PSD_TOL_DB = 0.02
 PSD_MEDIAN_TOL_DB = 1e-3
+FIR_REL_TOL = 2e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One deployment driven at full width: a ring of ``blocks`` blocks,
+    band ``signal_band`` carrying an FM signal from ``signal_from_block``
+    on (after the 2 s noise learning); slot 0 of every band tuned to it."""
+
+    name: str
+    rate: int
+    frames: int  # per block, as the runtime sizes it for the DDC chain
+    bandwidth: int  # recording rate (min_sample_rate)
+    other_shift: int  # slot 1's shift
+    bands: int = 24
+    slots: int = 2
+    blocks: int = 6
+    signal_band: int = 5
+    signal_offset_hz: int = 250_000
+    signal_from_block: int = 3
+
+
+# block 3 starts at 2592 ms (path 1) and 3072 ms (path 2)
+PATH1 = Geometry("path 1 (20.48 Msps, modulated-taps DDC)", 20_480_000, 45, 16_000, -1_000_000)
+PATH2 = Geometry("path 2 (2.4 Msps -> 32 kHz, v1 DDC)", 2_400_000, 75, 32_000, -600_000)
 
 
 def log(*args):
@@ -77,18 +110,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, flops: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and f32 operations over the f32 peak."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def noise_cs8(n: int, gen: torch.Generator, dev) -> torch.Tensor:
     """[n, 2] int8 complex white noise, 0.01 rms per component."""
     x = torch.randn((n, 2), generator=gen, device=dev) * (0.01 * 127.0)
     return torch.clamp(torch.round(x), -128, 127).to(torch.int8)
 
 
-def fm_cs8(start: int, n: int, dev) -> torch.Tensor:
-    """[n, 2] f32 FM at +250 kHz: 800 Hz tone, 3 kHz deviation, 0.4 amplitude,
-    in cs8 units. Band-wide on purpose: the 21-bin smoothing would dilute a
-    pure tone ~13 dB."""
-    t = (torch.arange(n, device=dev, dtype=torch.float64) + start) / RATE
-    phase = 2 * math.pi * SIGNAL_OFFSET_HZ * t + (3000.0 / 800.0) * (1 - torch.cos(2 * math.pi * 800 * t))
+def fm_cs8(geo: Geometry, start: int, n: int, dev) -> torch.Tensor:
+    """[n, 2] f32 FM at the signal offset: 800 Hz tone, 3 kHz deviation, 0.4
+    amplitude, in cs8 units. Band-wide on purpose: the 21-bin smoothing
+    would dilute a pure tone ~13 dB."""
+    t = (torch.arange(n, device=dev, dtype=torch.float64) + start) / geo.rate
+    phase = 2 * math.pi * geo.signal_offset_hz * t + (3000.0 / 800.0) * (1 - torch.cos(2 * math.pi * 800 * t))
     return torch.stack([torch.cos(phase), torch.sin(phase)], dim=-1).float() * (0.4 * 127.0)
 
 
@@ -97,23 +137,43 @@ def random_cs8(shape, gen: torch.Generator, dev) -> torch.Tensor:
     return torch.randint(-100, 100, shape, generator=gen, device=dev, dtype=torch.int8)
 
 
-def make_ring(cfg, dev) -> list:
-    """BLOCKS device-resident blocks [BANDS, F, fft*decim, 2] int8."""
+def make_ring(geo: Geometry, cfg, dev) -> list:
+    """geo.blocks device-resident blocks [bands, F, fft*decim, 2] int8."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     group = cfg.fft_size * cfg.decimator_factor
-    n = FRAMES * group
+    n = geo.frames * group
     ring = []
-    for b in range(BLOCKS):
-        block = torch.empty((BANDS, n, 2), dtype=torch.int8, device=dev)
-        for band in range(BANDS):
+    for b in range(geo.blocks):
+        block = torch.empty((geo.bands, n, 2), dtype=torch.int8, device=dev)
+        for band in range(geo.bands):
             block[band] = noise_cs8(n, gen, dev)
-            if band == SIGNAL_BAND and b >= SIGNAL_FROM_BLOCK:
-                x = block[band].float() + fm_cs8(b * n, n, dev)
+            if band == geo.signal_band and b >= geo.signal_from_block:
+                x = block[band].float() + fm_cs8(geo, b * n, n, dev)
                 block[band] = torch.clamp(torch.round(x), -128, 127).to(torch.int8)
-        ring.append(block.reshape(BANDS, FRAMES, group, 2))
+        ring.append(block.reshape(geo.bands, geo.frames, group, 2))
     torch.cuda.synchronize()
     return ring
+
+
+def configs(geo: Geometry):
+    """(ScanConfig, DdcConfig, group size) of one geometry, default Tunables."""
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
+
+    cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
+    ddc_cfg = ddc_pipeline.DdcConfig.create(geo.rate, geo.bandwidth, geo.slots, cfg.block_samples)
+    return cfg, ddc_cfg, int(np.ceil(geo.bandwidth / cfg.step_hz))
+
+
+def fir_stages(ddc_cfg) -> list:
+    """(plan, input samples a row) of each stage one chunk sends through the
+    FIR kernel: every decimation-only stage but a modulated-taps stage 1."""
+    stages, n = [], ddc_cfg.chunk
+    for i, plan in enumerate(ddc_cfg.plans):
+        if plan.interp == 1 and not (i == 0 and ddc_cfg.modtap):
+            stages.append((plan, n))
+        n = n * plan.interp // plan.decim
+    return stages
 
 
 def selection_rows(fft: int, dtype, dev) -> torch.Tensor:
@@ -132,17 +192,12 @@ def selection_rows(fft: int, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(rows).to(dev).to(dtype)
 
 
-def check_kernels(cfg, dev, card: str) -> list:
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
-    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
+def check_psd(cfg, gen, dev) -> float:
+    """PSD kernel against its plain version on CHECK_ROWS rows at one
+    path's fft and decimation; returns the max |diff| (dB) that is held."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel
 
-    fft, decim = cfg.fft_size, cfg.decimator_factor
-    rate = float(cfg.sample_rate)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    records = []
-
-    # ---- PSD: correctness at [45*4, fft*decim, 2], timing at the main path's [24*45, ...]
+    fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
     iq = random_cs8((CHECK_ROWS, fft * decim, 2), gen, dev)
     got = psd_kernel.psd_frames_int8(iq, rate, fft, decim)
     want = psd_kernel.psd_frames_int8_plain(iq, rate, fft, decim)
@@ -153,37 +208,20 @@ def check_kernels(cfg, dev, card: str) -> list:
     diff = (got - want).abs()
     psd_max = diff[near].max().item()
     psd_med = diff[near].median().item()
-    log(f"psd kernel vs plain [{CHECK_ROWS}, {fft * decim}, 2]: max {psd_max:.3g} dB, "
+    log(f"psd kernel vs plain [{CHECK_ROWS}, {fft * decim}, 2] (fft {fft}, decim {decim}): max {psd_max:.3g} dB, "
         f"median {psd_med:.3g} dB on bins within 60 dB of the peak; all-bin max {diff.max().item():.3g} dB")
     if psd_max > PSD_TOL_DB or psd_med > PSD_MEDIAN_TOL_DB:
-        raise RuntimeError(f"psd kernel disagrees: max {psd_max} dB, median {psd_med} dB")
+        raise RuntimeError(f"psd kernel disagrees at fft {fft}: max {psd_max} dB, median {psd_med} dB")
+    return psd_max
 
-    rows = BANDS * FRAMES
-    big = random_cs8((rows, fft * decim, 2), gen, dev)
-    win = torch.from_numpy(shifted_window(fft)).to(dev)
-    frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
-    ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim), 20)
-    plain_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 5)
-    library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
-    bytes_moved = rows * fft * (2 + 4)  # int8 pairs of the selected frame in, f32 dB out
-    flops = rows * 5 * fft * math.log2(fft)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    log(f"psd [{rows}, {fft * decim}, 2]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.fft.fft alone {library_ms:.3f} ms, bound {bound_ms:.3f} ms (bytes) on {card}")
-    records.append(dict(
-        name="psd_frames_int8", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/psd_kernel.cu",
-        replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None,
-        max_abs_err=psd_max, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
-        library_ms=library_ms,
-    ))
-    del big, frames_c
 
-    # ---- selection: bit-exact in bf16 and f32, timing on the main path's bf16 rows
-    group_size = int(np.ceil(16000 / cfg.step_hz))
-    submargin = group_size // 2 + group_size % 2
+def check_selection(fft: int, submargin: int, dev) -> float:
+    """Selection kernel bit-exact against its plain version in bf16 and f32
+    on CHECK_ROWS rows at one path's fft and submargin; returns 0.0."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
+
     level = torch.tensor(LEVEL, device=dev)
-    sel_err = 0.0
+    err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         t = selection_rows(fft, dtype, dev)
         got = select_kernel.fused_selection(t, level, TOP_K, 16, submargin)
@@ -192,50 +230,152 @@ def check_kernels(cfg, dev, card: str) -> list:
         for name, g, w in zip(("top_val", "top_idx", "sep_val", "sep_idx", "count"), got, want):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 bad = (g != w).nonzero()[:5].tolist()
-                raise RuntimeError(f"selection kernel {dtype} {name} disagrees at {bad}")
-            sel_err = max(sel_err, (g.float() - w.float()).abs().max().item())
-        log(f"selection kernel vs plain [{CHECK_ROWS}, {fft}] {dtype}: bit-exact")
+                raise RuntimeError(f"selection kernel {dtype} {name} disagrees at fft {fft}: {bad}")
+            err = max(err, (g.float() - w.float()).abs().max().item())
+        log(f"selection kernel vs plain [{CHECK_ROWS}, {fft}] submargin {submargin} {dtype}: bit-exact")
+    return err
+
+
+def check_psd_and_selection(geos, dev, card: str) -> list:
+    """PSD and selection against their plain versions at every path's
+    shapes; timed at the first path's (path 1: 1080 rows at fft 131072)."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
+    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    psd_err = sel_err = 0.0
+    for geo in geos:
+        cfg, _, group_size = configs(geo)
+        psd_err = max(psd_err, check_psd(cfg, gen, dev))
+        sel_err = max(sel_err, check_selection(cfg.fft_size, group_size // 2 + group_size % 2, dev))
+
+    geo = geos[0]
+    cfg, _, group_size = configs(geo)
+    fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
+    records = []
+    rows = geo.bands * geo.frames
+    big = random_cs8((rows, fft * decim, 2), gen, dev)
+    win = torch.from_numpy(shifted_window(fft)).to(dev)
+    frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
+    ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim), 20)
+    plain_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 5)
+    library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
+    # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
+    bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
+    log(f"psd [{rows}, {fft * decim}, 2]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.fft.fft alone {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) on {card}")
+    records.append(dict(
+        name="psd_frames_int8", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/psd_kernel.cu",
+        replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None,
+        max_abs_err=psd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms,
+    ))
+    del big, frames_c
+
+    submargin = group_size // 2 + group_size % 2
+    level = torch.tensor(LEVEL, device=dev)
     t = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
     ms = cuda_ms(lambda: select_kernel.fused_selection(t, level, TOP_K, 16, submargin), 20)
     plain_ms = cuda_ms(lambda: select_kernel.fused_selection_plain(t, level, TOP_K, 16, submargin), 3)
-    bytes_moved = rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4)
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
     log(f"selection [{rows}, {fft}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms (bytes) on {card}")
+        f"bound {bound_ms:.3f} ms ({bound_by}) on {card}")
     records.append(dict(
         name="fused_selection", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/select_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/select_kernel.py:189", launches=None,
-        max_abs_err=sel_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        max_abs_err=sel_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
     ))
     return records
 
 
-class MainPath:
-    """The main path at full width: configs, the step, a ring of synthetic
-    cs8 on the card, and the carried state."""
+def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
+    """The decimating FIR against its plain version at every stage a path
+    sends through it (path 1: stage 2 (1, 40) on 34,560 samples a chunk;
+    path 2: (1, 75) on 1,228,800; 48 band x slot rows x 2 components) and at
+    M = 125 and 32 (16384 outputs a row). Each path's stage is timed; the
+    record holds ``timed``'s, with plain, library and bound beside it."""
+    import torch.nn.functional as F
 
-    def __init__(self, dev):
-        from rtl_sdr_scanner_tpu_torch.constants import Tunables
+    from rtl_sdr_scanner_tpu_torch.ops import ddc
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel
+
+    ddc.no_tf32()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = timed.bands * timed.slots
+    cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
+    cases += [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
+    err, record = 0.0, None
+    for geo, plan, n in cases:
+        m, out_len = plan.decim, n // plan.decim
+        x = torch.randn((rows, 2, n), generator=gen, device=dev)
+        tail = torch.randn((rows, 2, plan.tail_len), generator=gen, device=dev)
+        got, got_tail = fir_kernel.stage_apply_fir(x, tail, plan)
+        want, want_tail = fir_kernel.stage_apply_fir_plain(x, tail, plan)
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"fir kernel vs plain [{rows}, 2, {n}] M={m}: max |diff| {d:.3g} "
+            f"({d / scale:.3g} of max |y|), tail {'exact' if torch.equal(got_tail, want_tail) else 'DIFFERS'}")
+        if not (torch.isfinite(got).all() and d <= FIR_REL_TOL * scale and torch.equal(got_tail, want_tail)):
+            raise RuntimeError(f"fir kernel disagrees at M={m}: max |diff| {d}, max |y| {scale}")
+        err = max(err, d)
+        if geo is None:
+            del x, tail, got, want
+            continue
+        ms = cuda_ms(lambda: fir_kernel.stage_apply_fir(x, tail, plan), 20)
+        if geo is not timed:
+            log(f"fir [{rows}, 2, {n}] M={m} ({geo.name}): kernel {ms:.3f} ms on {card}")
+            del x, tail, got, want
+            continue
+        plain_ms = cuda_ms(lambda: fir_kernel.stage_apply_fir_plain(x, tail, plan), 5)
+        poly_rows = fir_kernel._full_rows(x, tail, m, plan.poly_rows).transpose(1, 2).contiguous()
+        w = torch.from_numpy(plan.poly_kernel).to(dev)
+        library_ms = cuda_ms(lambda: F.conv1d(poly_rows, w), 20)
+        del poly_rows
+        n = x.shape[-1]
+        # x and the tail read once, y and the new tail written once, f32;
+        # 2 operations per tap and output
+        bytes_moved = 4 * (rows * 2 * (n + 2 * plan.tail_len + out_len) + m * plan.poly_rows)
+        flops = 2.0 * rows * 2 * out_len * plan.poly_rows * m
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"F.conv1d on the polyphase view {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
+        record = dict(
+            name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
+            replaces="rtl_sdr_scanner_tpu/ops/pallas/fir_kernel.py:98", launches=None,
+            max_abs_err=None, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
+        )
+        del x, tail, got, want
+    record["max_abs_err"] = err
+    return record
+
+
+class MainPath:
+    """One geometry at full width: configs, the step with default Tunables,
+    a ring of synthetic cs8 on the card, and the carried state."""
+
+    def __init__(self, dev, geo: Geometry = PATH1):
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 
-        self.dev = dev
-        self.cfg = cfg = scan_pipeline.ScanConfig.create(
-            RATE, FRAMES, Tunables(use_pallas_psd=True, use_pallas_select=True)
-        )
-        self.ddc_cfg = ddc_pipeline.DdcConfig.create(RATE, 16_000, SLOTS, cfg.block_samples)
-        self.group_size = int(np.ceil(16000 / cfg.step_hz))
+        self.dev, self.geo = dev, geo
+        self.cfg, self.ddc_cfg, self.group_size = configs(geo)
+        cfg = self.cfg
         self.step = fused_step.make_banded_fused_step(cfg, self.ddc_cfg, self.group_size, TOP_K, device=dev)
         t0 = time.perf_counter()
-        self.ring = make_ring(cfg, dev)
-        log(f"ring: {BLOCKS} blocks of [{BANDS}, {FRAMES}, {cfg.fft_size * cfg.decimator_factor}, 2] "
+        self.ring = make_ring(geo, cfg, dev)
+        log(f"ring: {geo.blocks} blocks of [{geo.bands}, {geo.frames}, {cfg.fft_size * cfg.decimator_factor}, 2] "
             f"int8 on the card in {time.perf_counter() - t0:.1f} s")
         self.state = [
-            scan_pipeline.init_scan_state(cfg, BANDS, 0, device=dev),
-            scan_pipeline.init_spectro_acc(cfg, BANDS, device=dev),
-            ddc_pipeline.init_state(self.ddc_cfg, BANDS, device=dev),
+            scan_pipeline.init_scan_state(cfg, geo.bands, 0, device=dev),
+            scan_pipeline.init_spectro_acc(cfg, geo.bands, device=dev),
+            ddc_pipeline.init_state(self.ddc_cfg, geo.bands, device=dev),
         ]
-        shifts = np.tile(np.array([SIGNAL_OFFSET_HZ, -1_000_000], dtype=np.int64), (BANDS, 1))
+        shifts = np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (geo.bands, 1))
         self.tables = ddc_pipeline.make_tables(self.ddc_cfg, shifts, device=dev)
         self.shared = [
             torch.full((KEY_SLOTS,), -1, dtype=torch.int32, device=dev),  # keys
@@ -245,71 +385,127 @@ class MainPath:
         ]
 
     def now(self, b: int) -> torch.Tensor:
-        ms = (b * FRAMES + 1 + np.arange(FRAMES)) * self.cfg.frame_interval_ms
-        return torch.from_numpy(ms.astype(np.int32)).to(self.dev).expand(BANDS, FRAMES).contiguous()
+        f = self.geo.frames
+        ms = (b * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms
+        return torch.from_numpy(ms.astype(np.int32)).to(self.dev).expand(self.geo.bands, f).contiguous()
 
     def run_block(self, b: int):
-        """One block through the step (ring slot b % BLOCKS); returns FusedOutputs."""
+        """One block through the step (ring slot b % blocks); returns FusedOutputs."""
         *self.state, outs = self.step(
-            *self.state, self.ring[b % BLOCKS], self.now(b), *self.shared, self.tables
+            *self.state, self.ring[b % self.geo.blocks], self.now(b), *self.shared, self.tables
         )
         return outs
 
 
-def run_main_path(dev, card: str) -> dict:
-    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
+def kernel_wrappers() -> dict:
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel, psd_kernel, select_kernel
 
-    path = MainPath(dev)
+    return {
+        "psd_frames_int8": psd_kernel.psd_frames_int8,
+        "fused_selection": select_kernel.fused_selection,
+        "stage_apply_fir": fir_kernel.stage_apply_fir,
+    }
+
+
+def run_path(dev, card: str, geo: Geometry) -> dict:
+    """Drive one geometry for geo.blocks blocks with the launch counts set to
+    0 just before; check the counts (PSD and selection once a block, the FIR
+    once a chunk for each stage it takes), then what came out; return the
+    counts."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    log(f"---- {geo.name}")
+    path = MainPath(dev, geo)
     cfg, ddc_cfg, group_size = path.cfg, path.ddc_cfg, path.group_size
+    log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {geo.frames}, DDC stages "
+        f"{[(p.interp, p.decim) for p in ddc_cfg.plans]} ({'modulated taps' if ddc_cfg.modtap else 'v1'}), "
+        f"{ddc_cfg.num_chunks} chunks of {ddc_cfg.chunk}, group {group_size}")
+    wrappers = kernel_wrappers()
     packed, block_ms = [], []
     torch.cuda.synchronize()
-    psd_kernel.psd_frames_int8.launches = 0
-    select_kernel.fused_selection.launches = 0
-    for b in range(BLOCKS):
+    for fn in wrappers.values():
+        fn.launches = 0
+    for b in range(geo.blocks):
         t0 = time.perf_counter()
         outs = path.run_block(b)
         torch.cuda.synchronize()
         block_ms.append((time.perf_counter() - t0) * 1e3)
         packed.append(outs.packed.cpu().numpy())
-    launches = {
-        "psd_frames_int8": psd_kernel.psd_frames_int8.launches,
-        "fused_selection": select_kernel.fused_selection.launches,
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"launches over {geo.blocks} blocks: {launches}")
+    want_launches = {
+        "psd_frames_int8": 1,
+        "fused_selection": 1,
+        "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
     }
-    log(f"launches over {BLOCKS} blocks: {launches}")
-    for name, n in launches.items():
-        if n != BLOCKS:
-            raise RuntimeError(f"{name} launched {n} times in {BLOCKS} blocks")
+    for name, per_block in want_launches.items():
+        if launches[name] != per_block * geo.blocks:
+            raise RuntimeError(f"{name} launched {launches[name]} times in {geo.blocks} blocks")
 
     # ---- what came out is right
     rec = outs.recording
-    want_shape = (BANDS, SLOTS, ddc_cfg.out_per_block, 2)
+    want_shape = (geo.bands, geo.slots, ddc_cfg.out_per_block, 2)
     if tuple(rec.shape) != want_shape or rec.dtype != torch.int8:
         raise RuntimeError(f"recording {tuple(rec.shape)} {rec.dtype}, want {want_shape} int8")
-    if not rec.any() or not rec[SIGNAL_BAND, 0].any():
+    if not rec.any() or not rec[geo.signal_band, 0].any():
         raise RuntimeError("recording is all zero where the signal is")
-    planted = cfg.fft_size // 2 + round(SIGNAL_OFFSET_HZ / cfg.step_hz)
+    planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
     hits = {}
-    for b in range(SIGNAL_FROM_BLOCK, BLOCKS):
-        for band in range(BANDS):
-            out = scan_pipeline.unpack_compact(packed[b][band], FRAMES, TOP_K, KEY_SLOTS)
+    for b in range(geo.signal_from_block, geo.blocks):
+        for band in range(geo.bands):
+            out = scan_pipeline.unpack_compact(packed[b][band], geo.frames, TOP_K, KEY_SLOTS)
             cand_idx, cand_val, _, cand_count, _, _, ready = out
             if not np.isfinite(packed[b][band]).all() or not ready:
                 raise RuntimeError(f"block {b} band {band}: non-finite output or noise not learned")
             live = cand_val >= LEVEL
             if live.any():
                 hits.setdefault(band, []).append(np.abs(cand_idx[live] - planted).min())
-    log(f"bands with candidates above {LEVEL} dB in blocks {SIGNAL_FROM_BLOCK}..{BLOCKS - 1}: "
+    log(f"bands with candidates above {LEVEL} dB in blocks {geo.signal_from_block}..{geo.blocks - 1}: "
         f"{ {k: int(min(v)) for k, v in hits.items()} } (bins from the planted {planted})")
-    if set(hits) != {SIGNAL_BAND} or min(hits[SIGNAL_BAND]) > group_size:
-        raise RuntimeError(f"planted signal not detected in band {SIGNAL_BAND} only: {hits}")
+    if set(hits) != {geo.signal_band} or min(hits[geo.signal_band]) > group_size:
+        raise RuntimeError(f"planted signal not detected in band {geo.signal_band} only: {hits}")
+    power = rec.float().square().sum(dim=-1).mean(dim=-1)  # [bands, slots]
+    quiet = (geo.signal_band + 1) % geo.bands
+    gain_db = 10 * math.log10(power[geo.signal_band, 0].item() / max(power[quiet, 0].item(), 1e-3))
+    log(f"recording {want_shape} int8: slot 0 power {power[geo.signal_band, 0].item():.1f} in band "
+        f"{geo.signal_band}, {power[quiet, 0].item():.3g} in quiet band {quiet} ({gain_db:.1f} dB apart)")
+    if gain_db < 10.0:
+        raise RuntimeError(f"signal slot only {gain_db:.1f} dB above a quiet band's")
 
     steady = block_ms[1:]
     ms = float(np.mean(steady))
-    rate = BANDS * cfg.block_samples / (ms / 1e3)
-    log(f"main path: {ms:.1f} ms per block (blocks 1..{BLOCKS - 1}; first {block_ms[0]:.1f} ms), "
-        f"{rate / 1e6:.1f} M samples/s through scan + {SLOTS}-slot DDC at {BANDS} bands, on {card}")
+    rate = geo.bands * cfg.block_samples / (ms / 1e3)
+    log(f"{geo.name}: {ms:.1f} ms per block (blocks 1..{geo.blocks - 1}; first {block_ms[0]:.1f} ms), "
+        f"{rate / 1e6:.1f} M samples/s through scan + {geo.slots}-slot DDC at {geo.bands} bands "
+        f"(real time {geo.bands * geo.rate / 1e6:.1f} M), on {card}")
+    del path
+    torch.cuda.empty_cache()
     return launches
+
+
+def check_interpolating_stages(dev) -> None:
+    """DDC only, 4 bands x 2 slots, 2 chunks: chains with an interpolating
+    stage on the card against the same calls on the CPU, within 1 LSB."""
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
+
+    cpu = torch.device("cpu")
+    for rate, chunk in ((2_000_000, 125 * 8192), (10_000_000, 625 * 1024)):
+        cfg = ddc_pipeline.DdcConfig.create(rate, 32_000, 2, 2 * chunk, chunk_target=chunk)
+        shifts = np.array([[250_000, -400_000]] * 4, dtype=np.int64) + np.arange(4)[:, None] * 1_000
+        gen = np.random.default_rng(rate // 1000)
+        iq = torch.from_numpy(gen.integers(-100, 100, size=(4, cfg.block_samples, 2), dtype=np.int8))
+        outs = []
+        for d in (cpu, dev):
+            state = ddc_pipeline.init_state(cfg, 4, device=d)
+            tables = ddc_pipeline.make_tables(cfg, shifts, device=d)
+            _, out = ddc_pipeline._ddc_block_banded(cfg, state, iq.to(d), tables)
+            outs.append(out.cpu().numpy().astype(np.int32))
+        diff = np.abs(outs[1] - outs[0])
+        log(f"{rate / 1e6:g} Msps -> 32 kHz, stages {[(p.interp, p.decim) for p in cfg.plans]} "
+            f"({'modulated taps' if cfg.modtap else 'v1'}), out {outs[1].shape}: card vs CPU "
+            f"max {diff.max()} LSB, {(diff > 0).mean():.2%} of samples differ")
+        if diff.max() > 1 or not outs[1].any():
+            raise RuntimeError(f"interpolating chain at {rate}: card and CPU differ by {diff.max()} LSB")
 
 
 def main() -> int:
@@ -327,24 +523,29 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
-    from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
     log(f"card: {card}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     lib_path = build.build(verbose=True)
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
 
-    cfg = ScanConfig.create(RATE, FRAMES)
-    records = check_kernels(cfg, dev, card)
-    launches = run_main_path(dev, card)
+    records = check_psd_and_selection((PATH1, PATH2), dev, card)
+    records.append(check_fir((PATH1, PATH2), PATH2, dev, card))
+    launches = {"path1": run_path(dev, card, PATH1), "path2": run_path(dev, card, PATH2)}
+    check_interpolating_stages(dev)
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(counts[r["name"]] for counts in launches.values())
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
+        if r["launches"] == 0:
+            raise RuntimeError(f"{r['name']} never launched on the main paths")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -23,10 +23,10 @@ class Tunables:
     dense_detection: bool = False
     # selection sweeps read bf16 copies of the rows; reported values stay f32
     detection_bf16: bool = True
-    # hand-written PSD kernel (ops/cuda/psd_kernel.py) for int8 ingest
-    use_pallas_psd: bool = False
-    # hand-written selection kernel (ops/cuda/select_kernel.py)
-    use_pallas_select: bool = False
+    # No kernel switches: the reference's use_pallas_psd / use_pallas_select /
+    # use_pallas_fir have no counterpart. Each kernel's wrapper picks its
+    # route by the tensor's device (CPU: the plain version; CUDA: the kernel,
+    # or it raises).
 
 
 DEFAULT = Tunables()

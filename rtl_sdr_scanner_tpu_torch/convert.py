@@ -17,7 +17,7 @@ import torch
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanState
 from rtl_sdr_scanner_tpu_torch.ops.averager import AveragerState
-from rtl_sdr_scanner_tpu_torch.ops.ddc import Ddc2State, ModTables, NcoTables
+from rtl_sdr_scanner_tpu_torch.ops.ddc import Ddc2State, DdcState, ModTables, NcoTables
 from rtl_sdr_scanner_tpu_torch.ops.noise import NoiseState
 
 
@@ -50,6 +50,28 @@ def spectro_acc(acc: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
     return to_tensor(acc, device).to(torch.float32)
 
 
+def ddc_state(
+    phase: np.ndarray, tails: Sequence[np.ndarray], device: DeviceLike = None
+) -> DdcState:
+    """The v1 carry, in whatever layout it comes (folded [NB*K, ...] or one band)."""
+    return DdcState(
+        phase=to_tensor(phase, device), tails=tuple(to_tensor(t, device) for t in tails)
+    )
+
+
+def nco_tables(
+    coarse_re: np.ndarray,
+    coarse_im: np.ndarray,
+    fine_re: np.ndarray,
+    fine_im: np.ndarray,
+    step: np.ndarray,
+    device: DeviceLike = None,
+) -> NcoTables:
+    """The v1 NCO tables (e.g. ``nco_tables(**tables._asdict())``)."""
+    t = lambda a: to_tensor(a, device)
+    return NcoTables(t(coarse_re), t(coarse_im), t(fine_re), t(fine_im), t(step))
+
+
 def ddc2_state(
     phase: np.ndarray, x_tail: np.ndarray, tails: Sequence[np.ndarray], device: DeviceLike = None
 ) -> Ddc2State:
@@ -64,7 +86,4 @@ def mod_tables(
     w: np.ndarray, rot: Mapping[str, np.ndarray], device: DeviceLike = None
 ) -> ModTables:
     """rot: coarse_re/coarse_im/fine_re/fine_im/step of the NCO tables."""
-    return ModTables(
-        w=to_tensor(w, device),
-        rot=NcoTables(**{name: to_tensor(rot[name], device) for name in NcoTables._fields}),
-    )
+    return ModTables(w=to_tensor(w, device), rot=nco_tables(**rot, device=device))

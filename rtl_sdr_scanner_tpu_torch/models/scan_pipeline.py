@@ -27,7 +27,7 @@ from rtl_sdr_scanner_tpu_torch.ops.averager import (
 )
 from rtl_sdr_scanner_tpu_torch.ops.detect import K_SEP, CompactOutputs, compact_detection
 from rtl_sdr_scanner_tpu_torch.ops.noise import NoiseState, init_noise_state, noise_block
-from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, pairs_to_complex, psd_frames
+from rtl_sdr_scanner_tpu_torch.ops.psd import pairs_to_complex, psd_frames
 from rtl_sdr_scanner_tpu_torch.ops.smooth import sliding_average
 from rtl_sdr_scanner_tpu_torch.ops.spectrogram import accumulate_frames, spectrogram_output_size
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_fft
@@ -46,9 +46,7 @@ class ScanConfig:
     grouping_x: int = 21
     grouping_y: int = 21
     noise_learning_ms: int = 2000
-    use_pallas_psd: bool = False  # the hand-written PSD kernel (int8 ingest)
     detection_bf16: bool = False
-    use_pallas_select: bool = False  # the hand-written selection kernel
 
     @classmethod
     def create(
@@ -73,9 +71,7 @@ class ScanConfig:
             grouping_x=tunables.grouping_x,
             grouping_y=tunables.grouping_y,
             noise_learning_ms=tunables.noise_learning_time_ms,
-            use_pallas_psd=tunables.use_pallas_psd,
             detection_bf16=tunables.detection_bf16,
-            use_pallas_select=tunables.use_pallas_select,
         )
 
     @property
@@ -123,18 +119,18 @@ def init_spectro_acc(cfg: ScanConfig, n_bands: int, device: DeviceLike = None) -
 def _frames_power(cfg: ScanConfig, iq: torch.Tensor) -> torch.Tensor:
     """[NB, F, fft*decim, 2] int8 cs8 or f32 pairs -> [NB, F, fft] PSD dB.
 
-    With the kernel switch on, every input off the CPU goes to the kernel's
-    wrapper, which raises on what the kernel does not take (f32 pairs)."""
+    int8 ingest is the function the PSD kernel computes, so it always goes
+    to the kernel's wrapper (CPU: the plain version; CUDA: the kernel, or it
+    raises). f32-pair ingest is another function, which the JAX package
+    leaves to XLA too: it keeps the plain FFT chain on every device."""
     nb, f = iq.shape[:2]
-    if cfg.use_pallas_psd and (iq.dtype == torch.int8 or iq.device.type != "cpu"):
+    if iq.dtype == torch.int8:
         from rtl_sdr_scanner_tpu_torch.ops.cuda.psd_kernel import psd_frames_int8
 
         flat = iq.reshape(nb * f, *iq.shape[2:])
         power = psd_frames_int8(flat, float(cfg.sample_rate), cfg.fft_size, cfg.decimator_factor)
         return power.reshape(nb, f, cfg.fft_size)
-    iq = iq[:, :, : cfg.fft_size]  # Decimator first: dequant only what the FFT eats
-    x = dequantize_cs8(iq) if iq.dtype == torch.int8 else pairs_to_complex(iq)
-    return psd_frames(x, float(cfg.sample_rate))
+    return psd_frames(pairs_to_complex(iq[:, :, : cfg.fft_size]), float(cfg.sample_rate))
 
 
 def unpack_compact(packed: np.ndarray, frames: int, top_k: int, key_slots: int):
@@ -192,7 +188,6 @@ def _compact_scan_block(
             group_size,
             top_k,
             bf16=cfg.detection_bf16,
-            pallas_select=cfg.use_pallas_select,
         )
     with record_function("scan.spectrogram"):
         spectro_acc = spectro_acc * spectro_keep + accumulate_frames(power, cfg.spectro_size)

@@ -34,6 +34,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fir_decimate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

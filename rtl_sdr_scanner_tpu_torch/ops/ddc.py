@@ -1,15 +1,23 @@
 """Digital down-converter: frequency shift + staged rational resampling
-(port of the JAX package's ``ops/ddc.py``, modulated-taps path).
+(port of the JAX package's ``ops/ddc.py``: the v1 path and the
+modulated-taps path).
 
 The planners are numpy and give arrays equal to the reference's. NCO and
 modulated-tap angles come from int64 modular arithmetic on the host, so f32
 never sees a large argument (computing them in f32 on the device would break
 the <= 1 LSB int8 contract).
 
+v1 (NCO + resampler cascade): the full-rate stream is rotated per slot from
+the two-level NCO tables, then every stage runs in turn through
+``_stage_apply``: decimation-only stages go to the decimating-FIR kernel's
+wrapper (``ops/cuda/fir_kernel``), interpolating stages to a zero-stuffed
+conv.
+
 Modulated taps: stage 1 filters the RAW input with complex taps
 g[j] = h[j] e^{-i inc j} and the NCO rotation runs at the decimated rate:
   y1[m] = e^{i(phi0 + inc M m)} sum_j (h[j] e^{-i inc j}) x[mM-j].
-A reset slot keeps the shared raw-x stage-1 history (see reset_slot2).
+Stages 2+ run through ``_stage_apply`` as in v1. A reset slot keeps the
+shared raw-x stage-1 history (see reset_slot2).
 
 The chunked products here are f32 matrix products held to <= 1 LSB int8, so
 TF32 is switched off wherever a DDC state or a block step is made
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtl_sdr_scanner_tpu_torch.ops.cuda.fir_kernel import stage_apply_fir
 from rtl_sdr_scanner_tpu_torch.ops.window import kaiser
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_resamplers_factors
 
@@ -81,18 +90,18 @@ class StagePlan(NamedTuple):
     kernel: np.ndarray  # reversed taps left-padded to tail_len*interp + 1 (f32)
     poly_kernel: np.ndarray  # [1, M, R] f32, kernel[0, r, q] = h_rev[q*M + r]
     poly_rows: int  # R
-    # chunked-matmul form: input at offset Q inside a zero-padded buffer
-    # viewed as [.., n_chunks, C]; Z = chunks @ chunk_w has column order
-    # d*P + b and y[P*a + b] = sum_d Z[a + d, d*P + b]
+    # chunked-matmul form of a decimating stage 1 (the modulated-taps path):
+    # input at offset Q inside a zero-padded buffer viewed as
+    # [.., n_chunks, C]; Z = chunks @ W has column order d*P + b and
+    # y[P*a + b] = sum_d Z[a + d, d*P + b]
     chunk_c: int  # C (0 = form unavailable)
     chunk_d: int  # D = number of chunk lags
     chunk_q: int  # Q = aligned input offset
-    chunk_w: np.ndarray  # [C, D * (C//M)] f32
 
 
-def _plan_chunk_matmul(m: int, r_rows: int, h_rev: np.ndarray, tail_len: int):
-    """Pick chunk width C = M*P and build the [C, D*P] matrix (the JAX
-    package's choice, kept so the arrays compare equal)."""
+def _plan_chunk_matmul(m: int, r_rows: int, tail_len: int):
+    """Pick chunk width C = M*P, lags D and offset Q (the JAX package's
+    choice, kept so the plans compare equal)."""
     cands = []
     p = 128
     while p >= 8:
@@ -111,13 +120,9 @@ def _plan_chunk_matmul(m: int, r_rows: int, h_rev: np.ndarray, tail_len: int):
             best = max(fitting, key=lambda t: t[1])
             break
     if best is None:
-        return 0, 0, 0, np.zeros((0, 0), dtype=np.float32)
-    c, p, d, q, s = best
-    w_full = np.zeros((p, d * c))
-    for b in range(p):
-        w_full[b, s + b * m : s + b * m + r_rows * m] = h_rev
-    w2 = w_full.reshape(p, d, c).transpose(2, 1, 0).reshape(c, d * p)
-    return c, d, q, w2.astype(np.float32)
+        return 0, 0, 0
+    c, _, d, q, _ = best
+    return c, d, q
 
 
 def plan_stage(interp: int, decim: int) -> StagePlan:
@@ -135,14 +140,8 @@ def plan_stage(interp: int, decim: int) -> StagePlan:
     for q in range(r_rows):
         for rr in range(m):
             poly[0, rr, q] = h_rev[q * m + rr]
-    chunk_c, chunk_d, chunk_q, chunk_w = (
-        _plan_chunk_matmul(m, r_rows, h_rev, tail_len)
-        if interp == 1
-        else (0, 0, 0, np.zeros((0, 0), np.float32))
-    )
-    return StagePlan(
-        interp, decim, ntaps, tail_len, kernel, poly, r_rows, chunk_c, chunk_d, chunk_q, chunk_w
-    )
+    chunk_c, chunk_d, chunk_q = _plan_chunk_matmul(m, r_rows, tail_len) if interp == 1 else (0, 0, 0)
+    return StagePlan(interp, decim, ntaps, tail_len, kernel, poly, r_rows, chunk_c, chunk_d, chunk_q)
 
 
 def plan_chain(sample_rate: int, bandwidth: int, threshold: int = 125) -> List[StagePlan]:
@@ -237,49 +236,140 @@ def no_tf32() -> None:
 
 
 @functools.lru_cache(maxsize=32)
-def _stage_weight(interp: int, decim: int, device: torch.device) -> torch.Tensor:
-    """A stage's product weights on ``device``, uploaded once: the chunked
-    form's [C, D*P] matrix when planned, else the [1, M, R] polyphase kernel.
-    ``plan_stage`` is a function of (interp, decim) alone."""
-    plan = plan_stage(interp, decim)
-    return torch.from_numpy(plan.chunk_w if plan.chunk_c > 0 else plan.poly_kernel).to(device)
+def _interp_weight(interp: int, decim: int, device: torch.device) -> torch.Tensor:
+    """An interpolating stage's [1, 1, tail_len*L + 1] reversed taps on
+    ``device``, uploaded once (``plan_stage`` is a function of (interp, decim))."""
+    return torch.from_numpy(plan_stage(interp, decim).kernel.reshape(1, 1, -1)).to(device)
 
 
 def _stage_apply(
     x: torch.Tensor, tail: torch.Tensor, plan: StagePlan
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decimating resampler stage on [B, 2, n] f32 -> [B, 2, n//M];
-    carries the overlap-save tail. Chunked-matmul form when planned, else
-    the polyphase conv. Interpolating stages are not ported yet."""
-    if plan.interp != 1:
-        raise NotImplementedError("interpolating resampler stages are not ported yet")
+    """One resampler stage on [B, 2, n] f32 -> [B, 2, n*L//M]; carries the
+    overlap-save tail. Decimation-only stages go to the FIR kernel's wrapper.
+    Interpolating stages run the causal zero-stuffed FIR
+    y[m] = sum_j h[j] * up(x)[m*M - j]."""
+    if plan.interp == 1:
+        return stage_apply_fir(x, tail, plan)
     k, two, n = x.shape
     full = torch.cat([tail, x], dim=-1)
-    new_tail = full[..., -plan.tail_len :]
-    out_len = n // plan.decim
-    w = _stage_weight(plan.interp, plan.decim, x.device)
-
-    if plan.chunk_c > 0:
-        m = plan.decim
-        c, d, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
-        p = c // m
-        a_tiles = -(-out_len // p)
-        n_chunks = a_tiles + d - 1
-        lhs = F.pad(full, (q - plan.tail_len, n_chunks * c - q - n)).reshape(k * two, n_chunks, c)
-        z = torch.matmul(lhs, w)  # [K2, n_chunks, D*P], column order d*P + b
-        acc = z[:, 0:a_tiles, 0:p]
-        for dd in range(1, d):
-            acc = acc + z[:, dd : dd + a_tiles, dd * p : (dd + 1) * p]
-        out = acc.reshape(k * two, a_tiles * p)[:, :out_len]
-        return out.reshape(k, two, out_len), new_tail
-
-    m, r_rows = plan.decim, plan.poly_rows
-    need = (out_len + r_rows - 1) * m
-    lhs = full.reshape(k * two, -1)
-    lhs = F.pad(lhs, (0, need - lhs.shape[-1]))
-    rows = lhs.reshape(k * two, -1, m).transpose(1, 2)  # [K2, M, rows]
-    out = F.conv1d(rows, w)
+    new_tail = full[..., -plan.tail_len :].contiguous()
+    out_len = n * plan.interp // plan.decim
+    # the reference's dilated conv: full[i] sits at i*L of the stuffed row
+    # and output o reads up[o*M : o*M + tail_len*L + 1] against the reversed
+    # taps; every output in range reads stuffed samples only
+    ell = plan.interp
+    up = full.new_zeros((k * two, (n + plan.tail_len) * ell))
+    up[:, ::ell] = full.reshape(k * two, -1)
+    out = F.conv1d(up[:, None, :], _interp_weight(ell, plan.decim, x.device), stride=plan.decim)
     return out[:, 0, :out_len].reshape(k, two, out_len), new_tail
+
+
+# ---------------------------------------------------------------------------
+# v1: NCO rotation + resampler cascade
+# ---------------------------------------------------------------------------
+
+
+class DdcState(NamedTuple):
+    """Streaming carry of the v1 path for K slots. Banded, the leaves fold
+    bands into rows: [NB*K, ...], row band*K + slot (the JAX package's
+    ``fold_banded`` layout)."""
+
+    phase: torch.Tensor  # [K] f32 NCO phase at block start (radians, mod 2pi)
+    tails: Tuple[torch.Tensor, ...]  # per stage [K, 2, tail_len] f32 (re/im)
+
+
+def init_ddc_state(plans: Sequence[StagePlan], num_slots: int, device: torch.device) -> DdcState:
+    no_tf32()
+    return DdcState(
+        phase=torch.zeros((num_slots,), dtype=torch.float32, device=device),
+        tails=tuple(
+            torch.zeros((num_slots, 2, p.tail_len), dtype=torch.float32, device=device)
+            for p in plans
+        ),
+    )
+
+
+def reset_slot(state: DdcState, slot: int) -> DdcState:
+    """Zero one row's carry (recording start/stop; recorder.cpp:58-87)."""
+    phase = state.phase.clone()
+    phase[slot] = 0.0
+    tails = []
+    for t in state.tails:
+        t = t.clone()
+        t[slot] = 0.0
+        tails.append(t)
+    return DdcState(phase=phase, tails=tuple(tails))
+
+
+def _rotation(phase: torch.Tensor, rt: NcoTables, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """e^{i(phase + angle(j))} for j < n as (re, im) [..., K, n]: two complex
+    products of unit table entries; only the block-start phases need cos/sin."""
+    ph_re = torch.cos(phase)[..., None]
+    ph_im = torch.sin(phase)[..., None]
+    c_re = ph_re * rt.coarse_re - ph_im * rt.coarse_im  # [..., K, nq]
+    c_im = ph_re * rt.coarse_im + ph_im * rt.coarse_re
+    f_re = rt.fine_re[..., None, :]
+    f_im = rt.fine_im[..., None, :]
+    lead = phase.shape
+    rot_re = (c_re[..., None] * f_re - c_im[..., None] * f_im).reshape(*lead, n)
+    rot_im = (c_re[..., None] * f_im + c_im[..., None] * f_re).reshape(*lead, n)
+    return rot_re, rot_im
+
+
+def _components(iq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[NB, chunk, 2] int8 cs8 / f32 pairs, or [NB, chunk] complex ->
+    (re, im) f32 [NB, chunk]."""
+    if iq.dtype == torch.int8:
+        x = iq.to(torch.float32) * (1.0 / 127.5)
+        return x[..., 0], x[..., 1]
+    if iq.is_complex():
+        return iq.real, iq.imag
+    return iq[..., 0], iq[..., 1]
+
+
+def ddc_chunk_banded(
+    iq: torch.Tensor,  # [NB, chunk, 2] int8 / f32 pairs, or [NB, chunk] complex
+    state: DdcState,  # folded [NB*K, ...] leaves
+    tables: NcoTables,  # folded [NB*K, ...] leaves
+    plans: Sequence[StagePlan],
+) -> Tuple[DdcState, torch.Tensor]:
+    """v1 DDC chunk over all bands; returns int8 [NB, K, out, 2].
+
+    Bands fold into the batch rows, so each stage is one call over
+    [NB*K, 2, n]; ``_stage_apply``'s plan decides the route. TF32 is off
+    from ``init_ddc_state`` or the step's build on."""
+    nb, chunk = iq.shape[0], iq.shape[1]
+    k = state.phase.shape[0] // nb
+    fold = lambda t: t.reshape(nb, k, *t.shape[1:])
+    rot_re, rot_im = _rotation(fold(state.phase), NcoTables(*map(fold, tables)), chunk)
+    x_re, x_im = _components(iq)
+    x_re, x_im = x_re[:, None, :], x_im[:, None, :]
+    y = torch.stack(
+        [x_re * rot_re - x_im * rot_im, x_re * rot_im + x_im * rot_re], dim=2
+    ).reshape(nb * k, 2, chunk)
+    del rot_re, rot_im
+
+    new_tails = []
+    for plan, tail in zip(plans, state.tails):
+        y, new_tail = _stage_apply(y, tail, plan)
+        new_tails.append(new_tail)
+
+    out = torch.clamp(torch.round(torch.movedim(y, 1, 2) * 127.0), -128, 127).to(torch.int8)
+    new_phase = torch.remainder(state.phase + tables.step, 2.0 * math.pi)
+    return DdcState(phase=new_phase, tails=tuple(new_tails)), out.reshape(nb, k, -1, 2)
+
+
+def ddc_chunk(
+    iq: torch.Tensor,  # [chunk, 2] int8 / f32 pairs, or [chunk] complex
+    state: DdcState,  # [K, ...] leaves
+    tables: NcoTables,  # [K, ...] leaves
+    plans: Sequence[StagePlan],
+) -> Tuple[DdcState, torch.Tensor]:
+    """One chunk through K rotator+resampler slots of one band (the shared
+    full-rate source feeds every slot); returns int8 [K, out, 2]."""
+    state, out = ddc_chunk_banded(iq[None], state, tables, plans)
+    return state, out[0]
 
 
 class Ddc2State(NamedTuple):
@@ -403,11 +493,11 @@ def _modtap_stage1(
     acc = torch.movedim(acc, 2, 4).reshape(nb, two, k, 2, a_tiles * p)[..., :out_len]
     y_re = acc[:, 0, :, 0] - acc[:, 1, :, 1]
     y_im = acc[:, 0, :, 1] + acc[:, 1, :, 0]
-    return y_re, y_im, full[..., -plan.tail_len :]
+    return y_re, y_im, full[..., -plan.tail_len :].contiguous()
 
 
 def ddc_chunk_modtap(
-    iq: torch.Tensor,  # [NB, chunk, 2] int8 cs8 or f32 pairs
+    iq: torch.Tensor,  # [NB, chunk, 2] int8 cs8 / f32 pairs, or [NB, chunk] complex
     state: Ddc2State,
     tables: ModTables,
     plans: Sequence[StagePlan],
@@ -419,25 +509,12 @@ def ddc_chunk_modtap(
     p0 = plans[0]
     out1 = chunk // p0.decim
 
-    if iq.dtype == torch.int8:
-        x = torch.movedim(iq.to(torch.float32) * (1.0 / 127.5), -1, 1)
-    else:
-        x = torch.movedim(iq, -1, 1)  # [NB, 2, chunk]
-
+    x = torch.stack(_components(iq), dim=1)  # [NB, 2, chunk]
     y_re, y_im, new_x_tail = _modtap_stage1(x, state.x_tail, tables.w, p0, k)
 
     # decimated-rate output rotation: e^{i(phi0 + inc M m)}
     rt = tables.rot
-    ph_re = torch.cos(state.phase)[..., None]  # [NB, K, 1]
-    ph_im = torch.sin(state.phase)[..., None]
-    c_re = ph_re * rt.coarse_re - ph_im * rt.coarse_im  # [NB, K, nq]
-    c_im = ph_re * rt.coarse_im + ph_im * rt.coarse_re
-    rot_re = (
-        c_re[..., None] * rt.fine_re[..., None, :] - c_im[..., None] * rt.fine_im[..., None, :]
-    ).reshape(nb, k, out1)
-    rot_im = (
-        c_re[..., None] * rt.fine_im[..., None, :] + c_im[..., None] * rt.fine_re[..., None, :]
-    ).reshape(nb, k, out1)
+    rot_re, rot_im = _rotation(state.phase, rt, out1)  # [NB, K, out1]
     y = torch.stack(
         [y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=2
     ).reshape(nb * k, 2, out1)

@@ -235,12 +235,10 @@ def compact_detection(
     group_size: int,
     top_k: int,
     bf16: bool = False,
-    pallas_select: bool = False,
 ) -> CompactOutputs:
     """bf16=True is the tolerance mode: the selection sweeps read bf16 copies
-    of the rows, every reported value stays f32. ``pallas_select`` routes the
-    selection through the hand-written kernel (``ops/cuda/select_kernel``),
-    the counterpart of the JAX package's Pallas selection switch."""
+    of the rows, every reported value stays f32. The selection always goes
+    through the hand-written kernel's wrapper (``ops/cuda/select_kernel``)."""
     nb, f, fft = avg.shape
     half = group_size // 2
     level = start_level.to(torch.float32)
@@ -248,15 +246,11 @@ def compact_detection(
     masked = torch.where(valid_mask, avg, MASKED)
     sel = masked.to(torch.bfloat16) if bf16 else masked
     submargin = group_size // 2 if group_size % 2 == 0 else group_size // 2 + 1
-    from rtl_sdr_scanner_tpu_torch.ops.cuda.select_kernel import (
-        fused_selection,
-        fused_selection_plain,
-    )
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.select_kernel import fused_selection
 
-    # with the switch on, the wrapper takes every row set: on the card it
-    # launches the kernel or raises on a shape the kernel does not take
-    select = fused_selection if pallas_select else fused_selection_plain
-    top_val, top_idx, sep_val, sep_idx, cand_count = select(
+    # CPU rows take the plain version; on the card the wrapper launches the
+    # kernel or raises on a shape the kernel does not take
+    top_val, top_idx, sep_val, sep_idx, cand_count = fused_selection(
         sel.reshape(nb * f, fft), level, top_k, K_SEP, submargin
     )
     cand_idx = torch.cat([top_idx, sep_idx], dim=1).reshape(nb, f, -1)

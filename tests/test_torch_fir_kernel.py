@@ -1,0 +1,86 @@
+"""Decimating FIR stage: the port's plain version against the JAX package's
+Pallas kernel (interpret mode, where the M % 128 gate is lifted) and the
+route the port's v1 DDC takes for each plan. The CUDA kernel is held
+against the plain version in tests/test_torch_on_card.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rtl_sdr_scanner_tpu.ops import ddc as jddc
+from rtl_sdr_scanner_tpu.ops.pallas.fir_kernel import stage_apply_pallas
+from rtl_sdr_scanner_tpu_torch.ops import ddc as tddc
+from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel as tfir
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize(
+    "interp,decim,n",
+    [(1, 32, 32 * 2048), (1, 40, 40 * 1024), (1, 8, 8 * 4096), (1, 75, 75 * 1024), (1, 125, 125 * 512)],
+)
+def test_plain_matches_pallas(interp, decim, n):
+    """<= 2e-5 * max (f32 sum order, the JAX package's bar for its kernel
+    against XLA), the new tail exact, over two calls carrying the tail."""
+    plan = jddc.plan_stage(interp, decim)
+    rng = np.random.default_rng(decim)
+    tail = rng.standard_normal((2, 2, plan.tail_len)).astype(np.float32)
+    jtail, ttail = jnp.asarray(tail), torch.from_numpy(tail)
+    for _ in range(2):
+        x = rng.standard_normal((2, 2, n)).astype(np.float32)
+        jy, jtail = stage_apply_pallas(jnp.asarray(x), jtail, plan, interpret=True)
+        ty, ttail = tfir.stage_apply_fir(torch.from_numpy(x), ttail, tddc.plan_stage(interp, decim))
+        want = np.asarray(jy)
+        assert ty.shape == want.shape == (2, 2, n // decim)
+        assert np.abs(ty.numpy() - want).max() <= 2e-5 * np.abs(want).max()
+        np.testing.assert_array_equal(ttail.numpy(), np.asarray(jtail))
+
+
+def test_plain_with_a_chunk_shorter_than_the_tail():
+    """n < tail_len: the new tail takes the old tail's end, then x."""
+    plan = tddc.plan_stage(1, 75)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 2, 75 * 8)).astype(np.float32)
+    tail = rng.standard_normal((1, 2, plan.tail_len)).astype(np.float32)
+    jy, jtail = jddc._stage_apply(jnp.asarray(x), jnp.asarray(tail), plan)
+    ty, ttail = tfir.stage_apply_fir_plain(torch.from_numpy(x), torch.from_numpy(tail), plan)
+    np.testing.assert_array_equal(ttail.numpy(), np.asarray(jtail))
+    want = np.asarray(jy)
+    assert np.abs(ty.numpy() - want).max() <= 2e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("interp,decim", [(1, 75), (5, 4), (16, 125)])
+def test_v1_stage_route_matches_jax(interp, decim):
+    """The route both DDC paths take for a plan (``_stage_apply``): the FIR
+    wrapper for a decimation-only stage, the zero-stuffed conv for an
+    interpolating one. Both equal JAX's _stage_apply (the XLA form of the
+    same function)."""
+    plan = tddc.plan_stage(interp, decim)
+    rng = np.random.default_rng(interp * 1000 + decim)
+    x = rng.standard_normal((3, 2, decim * 64)).astype(np.float32)
+    tail = rng.standard_normal((3, 2, plan.tail_len)).astype(np.float32)
+    ty, ttail = tddc._stage_apply(torch.from_numpy(x), torch.from_numpy(tail), plan)
+    jy, jtail = jddc._stage_apply(jnp.asarray(x), jnp.asarray(tail), jddc.plan_stage(interp, decim))
+    want = np.asarray(jy)
+    assert ty.shape == want.shape
+    assert np.abs(ty.numpy() - want).max() <= 2e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(ttail.numpy(), np.asarray(jtail))
+
+
+def test_kernel_geometry():
+    """The kernel's weights for every decimation a real chain has (threshold
+    125): W [M, R] zero-padded to Rp, a multiple of the register tile."""
+    for m in (8, 25, 32, 40, 75, 125):
+        w = tfir._weights(m, torch.device("cpu"))
+        plan = tddc.plan_stage(1, m)
+        assert w.shape == (m, -(-plan.poly_rows // tfir.QB) * tfir.QB)
+        np.testing.assert_array_equal(w[:, : plan.poly_rows].numpy(), plan.poly_kernel[0])
+        assert not w[:, plan.poly_rows :].any()
+
+
+def test_wrapper_counts_nothing_on_the_cpu():
+    plan = tddc.plan_stage(1, 8)
+    before = tfir.stage_apply_fir.launches
+    tfir.stage_apply_fir(torch.zeros((1, 2, 64)), torch.zeros((1, 2, plan.tail_len)), plan)
+    assert tfir.stage_apply_fir.launches == before

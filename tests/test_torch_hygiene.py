@@ -67,12 +67,17 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     cfg = scan_pipeline.ScanConfig.create(256_000, 10)
     ddc = ddc_pipeline.DdcConfig.create(256_000, 16_000, 2, cfg.block_samples)
+    v1 = ddc_pipeline.DdcConfig.create(2_400_000, 32_000, 2, 75 * 2048)
     calls = [
         lambda: scan_pipeline.init_scan_state(cfg, 1),
         lambda: scan_pipeline.init_spectro_acc(cfg, 1),
         lambda: ddc_pipeline.init_state(ddc, 1),
+        lambda: ddc_pipeline.init_state(v1),
         lambda: ddc_pipeline.make_tables(ddc, np.zeros((1, 2), dtype=np.int64)),
+        lambda: ddc_pipeline.make_tables(v1, np.zeros((2,), dtype=np.int64)),
+        lambda: ddc_pipeline.make_ddc_step(v1),
         lambda: fused_step.make_banded_fused_step(cfg, ddc, 64),
+        lambda: fused_step.make_fused_step(cfg, ddc, 64),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

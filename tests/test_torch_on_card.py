@@ -13,8 +13,8 @@ import torch
 
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
-from rtl_sdr_scanner_tpu_torch.ops import detect
-from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
+from rtl_sdr_scanner_tpu_torch.ops import ddc, detect
+from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel, psd_kernel, select_kernel
 
 pytestmark = pytest.mark.cuda
 DECIM = 3
@@ -28,15 +28,15 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("fft", [1024, 8192, 131072])
-def test_psd_kernel_matches_plain(fft, dev):
+@pytest.mark.parametrize("fft,decim", [(1024, DECIM), (8192, DECIM), (131072, DECIM), (16384, 2)])
+def test_psd_kernel_matches_plain(fft, decim, dev):
     rng = np.random.default_rng(fft)
-    iq = torch.from_numpy(rng.integers(-100, 100, size=(4, fft * DECIM, 2), dtype=np.int8)).to(dev)
+    iq = torch.from_numpy(rng.integers(-100, 100, size=(4, fft * decim, 2), dtype=np.int8)).to(dev)
     before = psd_kernel.psd_frames_int8.launches
-    got = psd_kernel.psd_frames_int8(iq, 256000.0, fft, DECIM)
+    got = psd_kernel.psd_frames_int8(iq, 256000.0, fft, decim)
     torch.cuda.synchronize()
     assert psd_kernel.psd_frames_int8.launches == before + 1
-    want = psd_kernel.psd_frames_int8_plain(iq, 256000.0, fft, DECIM)
+    want = psd_kernel.psd_frames_int8_plain(iq, 256000.0, fft, decim)
     # bins within 60 dB of their frame's peak: radix-2 f32 FFT vs cuFFT
     near = want >= want.amax(dim=1, keepdim=True) - 60.0
     diff = (got - want).abs()[near]
@@ -55,20 +55,59 @@ def test_psd_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_switched_on_kernels_raise_on_what_they_do_not_take(dev):
-    """With a kernel switch on, the card never runs the plain version in its
-    place: input the kernel does not take raises."""
+    """The card never runs a plain version in a kernel's place: input the
+    kernel does not take raises (there are no switches: every route on the
+    card is a kernel's)."""
     fft, f = 1536, 2  # not a whole number of the selection kernel's 1024-bin segments
     rows = torch.zeros((1, f, fft), device=dev)
     with pytest.raises(ValueError):
         detect.compact_detection(
             rows, rows, torch.zeros((1, 10, fft), device=dev),
             torch.full((4,), -1, dtype=torch.int32, device=dev), torch.ones(fft, dtype=torch.bool, device=dev),
-            torch.tensor(LEVEL, device=dev), 21, 8, pallas_select=True,
+            torch.tensor(LEVEL, device=dev), 21, 8,
         )
-    cfg = scan_pipeline.ScanConfig.create(256_000, f, Tunables(use_pallas_psd=True))
-    pairs = torch.zeros((1, f, cfg.fft_size * cfg.decimator_factor, 2), device=dev)
+    cfg = scan_pipeline.ScanConfig.create(256_000, f)
+    pairs = torch.zeros((f, cfg.fft_size * cfg.decimator_factor, 2), device=dev)
     with pytest.raises(ValueError):
-        scan_pipeline._frames_power(cfg, pairs)
+        psd_kernel.psd_frames_int8(pairs, 256000.0, cfg.fft_size, cfg.decimator_factor)
+    plan = ddc.plan_stage(2, 125)  # interpolating: the FIR kernel is decimation-only
+    with pytest.raises(ValueError):
+        fir_kernel.stage_apply_fir(
+            torch.zeros((1, 2, 1250), device=dev), torch.zeros((1, 2, plan.tail_len), device=dev), plan
+        )
+    plan = ddc.plan_stage(1, 75)
+    with pytest.raises(ValueError):  # not contiguous
+        fir_kernel.stage_apply_fir(
+            torch.zeros((1, 1500, 2), device=dev).transpose(1, 2),
+            torch.zeros((1, 2, plan.tail_len), device=dev), plan,
+        )
+    plan = ddc.plan_stage(1, 400)  # a window larger than a block's shared memory
+    with pytest.raises(RuntimeError):
+        fir_kernel.stage_apply_fir(
+            torch.zeros((1, 2, 4000), device=dev), torch.zeros((1, 2, plan.tail_len), device=dev), plan
+        )
+
+
+@pytest.mark.parametrize("decim", [8, 32, 75, 125])
+def test_fir_kernel_matches_plain(decim, dev):
+    """<= 2e-5 * max against the plain version (f32 sum order), the new
+    tail exact, over two calls carrying the tail; 6 rows of a ragged last
+    tile (out_len not a multiple of the kernel's 288-output tile)."""
+    ddc.no_tf32()
+    plan = ddc.plan_stage(1, decim)
+    rng = np.random.default_rng(decim)
+    tail = torch.from_numpy(rng.standard_normal((3, 2, plan.tail_len)).astype(np.float32)).to(dev)
+    ptail = tail
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((3, 2, decim * 1000)).astype(np.float32)).to(dev)
+        before = fir_kernel.stage_apply_fir.launches
+        got, tail = fir_kernel.stage_apply_fir(x, tail, plan)
+        torch.cuda.synchronize()
+        assert fir_kernel.stage_apply_fir.launches == before + 1
+        want, ptail = fir_kernel.stage_apply_fir_plain(x, ptail, plan)
+        assert got.shape == want.shape == (3, 2, 1000)
+        assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
+        assert torch.equal(tail, ptail)
 
 
 def _rows(fft, rng):
@@ -89,6 +128,7 @@ def _rows(fft, rng):
     (2048, 8, 4, 17),
     (8192, 64, 16, 52),
     (131072, 64, 16, 52),
+    (16384, 64, 16, 110),  # the RTL-SDR path: group 219
 ])
 def test_selection_kernel_bit_exact(fft, top_k, k_sep, submargin, dtype, dev):
     t = torch.from_numpy(_rows(fft, np.random.default_rng(fft))).to(dtype).to(dev)
@@ -124,50 +164,72 @@ def _tone_blocks(cfg, blocks, nb, seed):
     return np.ascontiguousarray(iq), tones
 
 
-def test_main_path_on_card_matches_cpu(dev):
-    """The banded fused step with both kernels on the card against the same
-    step on the CPU (plain versions), at fft 1024."""
-    rate, nb, blocks, top_k = 256_000, 2, 4, 64
-    cfg = scan_pipeline.ScanConfig.create(
-        rate, 10, Tunables(noise_learning_time_ms=300, use_pallas_psd=True, use_pallas_select=True)
-    )
-    ddc = ddc_pipeline.DdcConfig.create(rate, 16_000, 2, cfg.block_samples)
+def _card_against_cpu(dev, rate, bw, frames):
+    """The banded fused step with default Tunables on the card against the
+    same step on the CPU (plain versions), 2 bands x 4 blocks; returns the
+    card's launches of each kernel over the 4 blocks."""
+    nb, blocks, top_k = 2, 4, 64
+    cfg = scan_pipeline.ScanConfig.create(rate, frames, Tunables(noise_learning_time_ms=300))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, bw, 2, cfg.block_samples)
     group_size = int(np.ceil(16000 / cfg.step_hz))
     iq, tones = _tone_blocks(cfg, blocks, nb, seed=3)
     valid = np.zeros(cfg.fft_size, dtype=bool)
     valid[tones] = True
     keys = (tones - 10 - group_size // 2).astype(np.int32)
     shifts = np.tile((tones[:1] - cfg.fft_size // 2) * rate // cfg.fft_size, (nb, 2)).astype(np.int64)
+    kernels = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
 
     runs = {}
     for d in (torch.device("cpu"), dev):
-        step = fused_step.make_banded_fused_step(cfg, ddc, group_size, top_k, device=d)
+        step = fused_step.make_banded_fused_step(cfg, ddc_cfg, group_size, top_k, device=d)
         state = [
             scan_pipeline.init_scan_state(cfg, nb, 0, device=d),
             scan_pipeline.init_spectro_acc(cfg, nb, device=d),
-            ddc_pipeline.init_state(ddc, nb, device=d),
+            ddc_pipeline.init_state(ddc_cfg, nb, device=d),
         ]
-        tables = ddc_pipeline.make_tables(ddc, shifts, device=d)
+        tables = ddc_pipeline.make_tables(ddc_cfg, shifts, device=d)
         shared = [torch.from_numpy(keys).to(d), torch.from_numpy(valid).to(d),
                   torch.tensor(LEVEL, device=d), torch.tensor(1.0, device=d)]
         outs = []
+        before = [k.launches for k in kernels]
         for b in range(blocks):
-            now = ((b * 10 + 1 + np.arange(10)) * cfg.frame_interval_ms).astype(np.int32)
-            now = torch.from_numpy(np.broadcast_to(now, (nb, 10)).copy()).to(d)
+            now = ((b * frames + 1 + np.arange(frames)) * cfg.frame_interval_ms).astype(np.int32)
+            now = torch.from_numpy(np.broadcast_to(now, (nb, frames)).copy()).to(d)
             *state, out = step(*state, torch.from_numpy(iq[b]).to(d), now, *shared, tables)
             outs.append((out.packed.cpu().numpy(), out.recording.cpu().numpy()))
-        runs[d.type] = (outs, state[1].cpu().numpy())
+        runs[d.type] = (outs, state[1].cpu().numpy(), [k.launches - n for k, n in zip(kernels, before)])
 
+    assert runs["cpu"][2] == [0, 0, 0]
     for (cp, cr), (gp, gr) in zip(runs["cpu"][0], runs["cuda"][0]):
         for band in range(nb):
-            c = scan_pipeline.unpack_compact(cp[band], 10, top_k, len(keys))
-            g = scan_pipeline.unpack_compact(gp[band], 10, top_k, len(keys))
+            c = scan_pipeline.unpack_compact(cp[band], frames, top_k, len(keys))
+            g = scan_pipeline.unpack_compact(gp[band], frames, top_k, len(keys))
             for i, (x, y) in enumerate(zip(c, g)):
                 if i in (1, 4):  # cand_val, key_val: FFT order differences
                     np.testing.assert_allclose(y, x, atol=1e-3)
                 else:
                     np.testing.assert_array_equal(y, x)
         assert np.abs(cr.astype(np.int32) - gr.astype(np.int32)).max() <= 1
-    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], atol=1e-3 * 10 * blocks)
-    last = scan_pipeline.unpack_compact(runs["cuda"][0][-1][0][0], 10, top_k, len(keys))
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], atol=1e-3 * frames * blocks)
+    last = scan_pipeline.unpack_compact(runs["cuda"][0][-1][0][0], frames, top_k, len(keys))
     assert last[-1] and last[0][-1, 0] == tones[0]
+    return runs["cuda"][2]
+
+
+def test_main_path_on_card_matches_cpu(dev):
+    """Modulated-taps DDC at fft 1024: the PSD and selection kernels."""
+    assert _card_against_cpu(dev, 256_000, 16_000, 10)[:2] == [4, 4]
+
+
+def test_v1_step_on_card_launches_all_three_kernels(dev):
+    """v1 DDC (240 kHz -> 3.2 kHz, stage (1, 75), one chunk per block) with
+    default Tunables: the PSD, selection and FIR kernels each launch once a
+    block, and the card equals the CPU."""
+    assert _card_against_cpu(dev, 240_000, 3_200, 75) == [4, 4, 4]
+
+
+def test_modtap_stage_2_on_card_goes_through_the_fir_kernel(dev):
+    """Modulated taps (512 kHz -> 3.2 kHz: stage (1, 10), then (1, 16)):
+    the decimating stage 2 launches the FIR kernel once a block, and the
+    card equals the CPU."""
+    assert _card_against_cpu(dev, 512_000, 3_200, 10) == [4, 4, 4]

@@ -45,7 +45,10 @@ def test_plan_chain_equal(rate, bw):
     got = tddc.plan_chain(rate, bw)
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        for name in w._fields:
+        # chunk_w is the JAX package's chunked-matmul stage weight; the port
+        # sends every decimation-only stage through its FIR kernel instead
+        assert set(w._fields) - set(g._fields) == {"chunk_w"}
+        for name in g._fields:
             a, b = getattr(g, name), getattr(w, name)
             if isinstance(b, np.ndarray):
                 assert a.dtype == b.dtype, name
@@ -89,11 +92,13 @@ def test_mod_tables_equal(rate, block):
 @pytest.mark.parametrize("rate,frames", [(256_000, 10), (2_048_000, 10), (20_480_000, 45)])
 def test_configs_equal(rate, frames):
     for bf16 in (False, True):
-        kw = dict(detection_bf16=bf16, use_pallas_select=True)
-        want = jsp.ScanConfig.create(rate, frames, JaxTunables(**kw))
-        got = tsp.ScanConfig.create(rate, frames, Tunables(**kw))
+        want = jsp.ScanConfig.create(rate, frames, JaxTunables(detection_bf16=bf16, use_pallas_select=True))
+        got = tsp.ScanConfig.create(rate, frames, Tunables(detection_bf16=bf16))
         want_fields = dataclasses.asdict(want)
         assert want_fields.pop("power_bf16") is False  # not ported yet
+        # the port has no kernel switches: its wrappers choose by device
+        want_fields.pop("use_pallas_psd")
+        want_fields.pop("use_pallas_select")
         assert dataclasses.asdict(got) == want_fields
     block = want.block_samples
     jd = jdp.DdcConfig.create(rate, 16_000, 2, block)
@@ -111,3 +116,18 @@ def test_headline_geometry():
     ddc = tdp.DdcConfig.create(20_480_000, 16_000, 2, cfg.block_samples)
     assert [(p.decim, p.chunk_c, p.chunk_d) for p in ddc.plans] == [(32, 2048, 2), (40, 2560, 2)]
     assert (ddc.chunk, ddc.num_chunks, ddc.out_per_block, ddc.modtap) == (1_105_920, 16, 13_824, True)
+
+
+def test_rtl_sdr_recorder_geometry():
+    """The v1 path's deployment: an RTL-SDR at 2.4 Msps recording at the
+    reference's default 32 kHz. The runtime grows 16 frames to 75 so the
+    block divides the chain; the single stage (1, 75) has no chunked form,
+    so the DDC runs v1; group 219 > 127 takes the wide-window vote."""
+    cfg = tsp.ScanConfig.create(2_400_000, 75)
+    assert (cfg.fft_size, cfg.decimator_factor, cfg.block_samples) == (16384, 2, 2_457_600)
+    ddc = tdp.DdcConfig.create(2_400_000, 32_000, 2, cfg.block_samples)
+    assert [(p.interp, p.decim, p.ntaps, p.poly_rows, p.chunk_c) for p in ddc.plans] == [(1, 75, 2463, 34, 0)]
+    assert (ddc.chunk, ddc.num_chunks, ddc.out_per_block, ddc.modtap) == (1_228_800, 2, 32_768, False)
+    assert int(np.ceil(32000 / cfg.step_hz)) == 219
+    jd = jdp.DdcConfig.create(2_400_000, 32_000, 2, cfg.block_samples)
+    assert (jd.chunk, jd.num_chunks, jd.modtap) == (ddc.chunk, ddc.num_chunks, ddc.modtap)

@@ -60,10 +60,11 @@ def test_frame_select_and_pairs_match():
 
 @pytest.mark.parametrize("int8", [True, False])
 def test_frames_power_with_the_kernel_switch_on_the_cpu(int8):
-    """On the CPU the switched-on PSD runs the plain version for cs8 and the
-    pairs chain for f32 pairs, as the JAX package's XLA route does."""
+    """On the CPU the PSD (which has no switch now: cs8 always goes to the
+    kernel's wrapper) runs the plain version for cs8 and the pairs chain
+    for f32 pairs, as the JAX package's XLA route does."""
     cfg = jsp.ScanConfig.create(256_000, 3)
-    tcfg = tsp.ScanConfig.create(256_000, 3, Tunables(use_pallas_psd=True))
+    tcfg = tsp.ScanConfig.create(256_000, 3, Tunables())
     rng = np.random.default_rng(11)
     shape = (3, cfg.fft_size * cfg.decimator_factor, 2)
     iq = _iq(3, cfg.fft_size, 11) if int8 else (0.3 * rng.standard_normal(shape)).astype(np.float32)
