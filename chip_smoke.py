@@ -8,10 +8,14 @@
    shapes each path gives it: the PSD within 0.02 dB on every bin within
    60 dB of its frame's peak (median |diff| <= 1e-3 dB) and the selection
    bit-exact in bf16 and f32, at each path's fft, decimation and
-   submargin; the decimating FIR within 2e-5 * max|y| (f32 sum order) with
-   the new tail exact, at each path's decimating stages and at M = 125 and
-   32. Then times kernel, plain version, library call and bound: PSD and
-   selection at path 1's shapes, the FIR at path 2's.
+   submargin; the PSD also at the ends of each of its forms (one block a
+   frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
+   262144), decimations 1-3, odd frame counts; the decimating FIR within
+   2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
+   decimating stages and at M = 125 and 32. Then times kernel, plain
+   version, library call and bound for every kernel at both paths' shapes
+   (``ms_by_path`` and the like in the record; the top-level numbers are
+   path 1's for PSD and selection, path 2's for the FIR).
 3. Path 1: ``make_banded_fused_step`` at full width, 24 bands x 45 frames x
    fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz (the
    modulated-taps DDC; its decimating stage 2 through the FIR kernel),
@@ -66,6 +70,7 @@ class Geometry:
     band ``signal_band`` carrying an FM signal from ``signal_from_block``
     on (after the 2 s noise learning); slot 0 of every band tuned to it."""
 
+    key: str  # its name in the JSON record
     name: str
     rate: int
     frames: int  # per block, as the runtime sizes it for the DDC chain
@@ -80,8 +85,10 @@ class Geometry:
 
 
 # block 3 starts at 2592 ms (path 1) and 3072 ms (path 2)
-PATH1 = Geometry("path 1 (20.48 Msps, modulated-taps DDC)", 20_480_000, 45, 16_000, -1_000_000)
-PATH2 = Geometry("path 2 (2.4 Msps -> 32 kHz, v1 DDC)", 2_400_000, 75, 32_000, -600_000)
+PATH1 = Geometry("path1", "path 1 (20.48 Msps, modulated-taps DDC)", 20_480_000, 45, 16_000, -1_000_000)
+PATH2 = Geometry("path2", "path 2 (2.4 Msps -> 32 kHz, v1 DDC)", 2_400_000, 75, 32_000, -600_000)
+# (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes
+PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3))
 
 
 def log(*args):
@@ -192,13 +199,26 @@ def selection_rows(fft: int, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(rows).to(dev).to(dtype)
 
 
-def check_psd(cfg, gen, dev) -> float:
-    """PSD kernel against its plain version on CHECK_ROWS rows at one
-    path's fft and decimation; returns the max |diff| (dB) that is held."""
+def psd_form(fft: int) -> str:
+    """Which form of the PSD kernel takes fft, as the library reports it."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import build, psd_kernel
+
+    lib = build.library()
+    logs = [n.bit_length() - 1 for n in psd_kernel._split_n(fft)]
+    if lib.psd_scratch_bytes(*logs):
+        return "scratch form"
+    clusters = lib.psd_max_active_clusters(*logs)
+    if clusters < 0:
+        raise RuntimeError(f"psd kernel: cudaOccupancyMaxActiveClusters failed at fft {fft}: {-clusters}")
+    return f"cluster form, {clusters} clusters resident" if clusters else "one block a frame"
+
+
+def check_psd(fft: int, decim: int, rows: int, gen, dev, rate: float = 2.048e7) -> float:
+    """PSD kernel against its plain version on ``rows`` random frames;
+    returns the max |diff| (dB) that is held."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel
 
-    fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
-    iq = random_cs8((CHECK_ROWS, fft * decim, 2), gen, dev)
+    iq = random_cs8((rows, fft * decim, 2), gen, dev)
     got = psd_kernel.psd_frames_int8(iq, rate, fft, decim)
     want = psd_kernel.psd_frames_int8_plain(iq, rate, fft, decim)
     torch.cuda.synchronize()
@@ -208,8 +228,9 @@ def check_psd(cfg, gen, dev) -> float:
     diff = (got - want).abs()
     psd_max = diff[near].max().item()
     psd_med = diff[near].median().item()
-    log(f"psd kernel vs plain [{CHECK_ROWS}, {fft * decim}, 2] (fft {fft}, decim {decim}): max {psd_max:.3g} dB, "
-        f"median {psd_med:.3g} dB on bins within 60 dB of the peak; all-bin max {diff.max().item():.3g} dB")
+    log(f"psd kernel vs plain [{rows}, {fft * decim}, 2] (fft {fft}, decim {decim}; {psd_form(fft)}): "
+        f"max {psd_max:.3g} dB, median {psd_med:.3g} dB on bins within 60 dB of the peak; "
+        f"all-bin max {diff.max().item():.3g} dB")
     if psd_max > PSD_TOL_DB or psd_med > PSD_MEDIAN_TOL_DB:
         raise RuntimeError(f"psd kernel disagrees at fft {fft}: max {psd_max} dB, median {psd_med} dB")
     return psd_max
@@ -238,7 +259,9 @@ def check_selection(fft: int, submargin: int, dev) -> float:
 
 def check_psd_and_selection(geos, dev, card: str) -> list:
     """PSD and selection against their plain versions at every path's
-    shapes; timed at the first path's (path 1: 1080 rows at fft 131072)."""
+    shapes (and the PSD at each of its forms' ends), then each timed at
+    every path's shapes: rows = bands x frames a block. The records' top
+    level holds the first path's numbers, ``*_by_path`` every path's."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
     from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
 
@@ -247,55 +270,67 @@ def check_psd_and_selection(geos, dev, card: str) -> list:
     psd_err = sel_err = 0.0
     for geo in geos:
         cfg, _, group_size = configs(geo)
-        psd_err = max(psd_err, check_psd(cfg, gen, dev))
+        psd_err = max(psd_err, check_psd(cfg.fft_size, cfg.decimator_factor, CHECK_ROWS, gen, dev,
+                                         float(cfg.sample_rate)))
         sel_err = max(sel_err, check_selection(cfg.fft_size, group_size // 2 + group_size % 2, dev))
+    for fft, decim, rows in PSD_FORM_CASES:
+        psd_err = max(psd_err, check_psd(fft, decim, rows, gen, dev))
 
-    geo = geos[0]
-    cfg, _, group_size = configs(geo)
-    fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
-    records = []
-    rows = geo.bands * geo.frames
-    big = random_cs8((rows, fft * decim, 2), gen, dev)
-    win = torch.from_numpy(shifted_window(fft)).to(dev)
-    frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
-    ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim), 20)
-    plain_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 5)
-    library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
-    # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
-    bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
-    log(f"psd [{rows}, {fft * decim}, 2]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.fft.fft alone {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) on {card}")
-    records.append(dict(
+    psd = dict(
         name="psd_frames_int8", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/psd_kernel.cu",
-        replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None,
-        max_abs_err=psd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms,
-    ))
-    del big, frames_c
-
-    submargin = group_size // 2 + group_size % 2
-    level = torch.tensor(LEVEL, device=dev)
-    t = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
-    ms = cuda_ms(lambda: select_kernel.fused_selection(t, level, TOP_K, 16, submargin), 20)
-    plain_ms = cuda_ms(lambda: select_kernel.fused_selection_plain(t, level, TOP_K, 16, submargin), 3)
-    bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
-    log(f"selection [{rows}, {fft}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}) on {card}")
-    records.append(dict(
+        replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None, max_abs_err=psd_err,
+    )
+    sel = dict(
         name="fused_selection", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/select_kernel.cu",
-        replaces="rtl_sdr_scanner_tpu/ops/pallas/select_kernel.py:189", launches=None,
-        max_abs_err=sel_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None,
-    ))
-    return records
+        replaces="rtl_sdr_scanner_tpu/ops/pallas/select_kernel.py:189", launches=None, max_abs_err=sel_err,
+    )
+    for geo in geos:
+        cfg, _, group_size = configs(geo)
+        fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
+        rows = geo.bands * geo.frames
+        big = random_cs8((rows, fft * decim, 2), gen, dev)
+        win = torch.from_numpy(shifted_window(fft)).to(dev)
+        frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
+        ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim), 20)
+        plain_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 5)
+        library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
+        # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
+        bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
+        log(f"psd [{rows}, {fft * decim}, 2] ({geo.name}; {psd_form(fft)}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, torch.fft.fft alone {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"on {card}")
+        record_time(psd, geo, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+        del big, frames_c
+
+        submargin = group_size // 2 + group_size % 2
+        level = torch.tensor(LEVEL, device=dev)
+        t = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
+        ms = cuda_ms(lambda: select_kernel.fused_selection(t, level, TOP_K, 16, submargin), 20)
+        plain_ms = cuda_ms(lambda: select_kernel.fused_selection_plain(t, level, TOP_K, 16, submargin), 3)
+        bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
+        log(f"selection [{rows}, {fft}] bf16 ({geo.name}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) on {card}")
+        record_time(sel, geo, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del t
+    return [psd, sel]
+
+
+def record_time(record: dict, geo: Geometry, **numbers) -> None:
+    """Put one path's timings in a kernel's record: under ``<key>_by_path``
+    for every path, and at the top level for the first path recorded."""
+    for key, value in numbers.items():
+        record.setdefault(key, value)
+        record.setdefault(f"{key}_by_path", {})[geo.key] = value
 
 
 def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
     """The decimating FIR against its plain version at every stage a path
     sends through it (path 1: stage 2 (1, 40) on 34,560 samples a chunk;
     path 2: (1, 75) on 1,228,800; 48 band x slot rows x 2 components) and at
-    M = 125 and 32 (16384 outputs a row). Each path's stage is timed; the
-    record holds ``timed``'s, with plain, library and bound beside it."""
+    M = 125 and 32 (16384 outputs a row). Each path's stage is timed, with
+    plain, library and bound beside it; the record's top level holds
+    ``timed``'s."""
     import torch.nn.functional as F
 
     from rtl_sdr_scanner_tpu_torch.ops import ddc
@@ -307,7 +342,7 @@ def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
     rows = timed.bands * timed.slots
     cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
     cases += [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
-    err, record = 0.0, None
+    err, times = 0.0, {}
     for geo, plan, n in cases:
         m, out_len = plan.decim, n // plan.decim
         x = torch.randn((rows, 2, n), generator=gen, device=dev)
@@ -322,36 +357,33 @@ def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
         if not (torch.isfinite(got).all() and d <= FIR_REL_TOL * scale and torch.equal(got_tail, want_tail)):
             raise RuntimeError(f"fir kernel disagrees at M={m}: max |diff| {d}, max |y| {scale}")
         err = max(err, d)
+        del got, want
         if geo is None:
-            del x, tail, got, want
             continue
         ms = cuda_ms(lambda: fir_kernel.stage_apply_fir(x, tail, plan), 20)
-        if geo is not timed:
-            log(f"fir [{rows}, 2, {n}] M={m} ({geo.name}): kernel {ms:.3f} ms on {card}")
-            del x, tail, got, want
-            continue
         plain_ms = cuda_ms(lambda: fir_kernel.stage_apply_fir_plain(x, tail, plan), 5)
         poly_rows = fir_kernel._full_rows(x, tail, m, plan.poly_rows).transpose(1, 2).contiguous()
         w = torch.from_numpy(plan.poly_kernel).to(dev)
         library_ms = cuda_ms(lambda: F.conv1d(poly_rows, w), 20)
         del poly_rows
-        n = x.shape[-1]
         # x and the tail read once, y and the new tail written once, f32;
         # 2 operations per tap and output
         bytes_moved = 4 * (rows * 2 * (n + 2 * plan.tail_len + out_len) + m * plan.poly_rows)
         flops = 2.0 * rows * 2 * out_len * plan.poly_rows * m
         bound_ms, bound_by = bound(bytes_moved, flops)
-        log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"F.conv1d on the polyphase view {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
-        record = dict(
-            name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
-            replaces="rtl_sdr_scanner_tpu/ops/pallas/fir_kernel.py:98", launches=None,
-            max_abs_err=None, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms,
-        )
-        del x, tail, got, want
-    record["max_abs_err"] = err
+        log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows} ({geo.name}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, F.conv1d on the polyphase view {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
+        times[geo.key] = (geo, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by))
+        del x, tail
+    record = dict(
+        name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
+        replaces="rtl_sdr_scanner_tpu/ops/pallas/fir_kernel.py:98", launches=None, max_abs_err=err,
+    )
+    for key in sorted(times, key=lambda k: k != timed.key):  # the timed path first: the top level
+        geo, numbers = times[key]
+        record_time(record, geo, **numbers)
     return record
 
 
@@ -359,7 +391,7 @@ class MainPath:
     """One geometry at full width: configs, the step with default Tunables,
     a ring of synthetic cs8 on the card, and the carried state."""
 
-    def __init__(self, dev, geo: Geometry = PATH1):
+    def __init__(self, dev, geo: Geometry):
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 
         self.dev, self.geo = dev, geo
@@ -538,7 +570,7 @@ def main() -> int:
 
     records = check_psd_and_selection((PATH1, PATH2), dev, card)
     records.append(check_fir((PATH1, PATH2), PATH2, dev, card))
-    launches = {"path1": run_path(dev, card, PATH1), "path2": run_path(dev, card, PATH2)}
+    launches = {geo.key: run_path(dev, card, geo) for geo in (PATH1, PATH2)}
     check_interpolating_stages(dev)
     for r in records:
         r["launches"] = sum(counts[r["name"]] for counts in launches.values())

@@ -7,28 +7,81 @@
 // radix FFT; on this card the function is bound by memory instead. At the
 // main-path shape (fft 131072, decim 3) one frame must read 262,144 B of int8
 // and write 524,288 B of f32: 1080 frames per block (24 bands x 45) move
-// 0.85 GB, 0.25 ms at 3.35 TB/s.
+// 0.85 GB, 0.25 ms at 3.35 TB/s; a radix FFT's 5 N log2 N operations take
+// 0.18 ms at the f32 peak, so the operations are close behind.
 //
-// Design: the four-step split N = N1*N2 (N1 >= N2, as _split_n) done as two
-// passes of radix-2 FFTs in shared memory, with a complex f32 scratch in
-// global memory between them:
-//   pass 1: one block per (frame, 16 columns n2) loads its int8 pairs (rows of
-//           16 consecutive pairs), dequantizes and windows them, runs sixteen
-//           N1-point FFTs, multiplies by exp(-2 pi i k1 n2 / N) and writes
-//           C[k1][n2] to the scratch;
-//   pass 2: one block per (frame, 16 rows k1) loads C[k1][:], runs sixteen
-//           N2-point FFTs and writes the dB of X[k2*N1 + k1].
-// The scratch round trip costs 2 MiB of traffic per 131072-point frame, on
-// top of the 0.75 MiB the function must move; a cluster / distributed shared
-// memory form that keeps the intermediate on chip is later work. Twiddles
-// come from sincospif, whose arguments are exact in f32 (integer over a
-// power of two), so no table is read from memory.
+// Every form runs the four-step split N = N1*N2 (N1 >= N2, as _split_n):
+// column FFTs of length N1 over n1 for each n2, the twiddle
+// exp(-2 pi i k1 n2 / N), row FFTs of length N2 over n2 for each k1, and
+// X[k1 + N1*k2] out. Which form runs is fixed by the fft size alone:
+//
+// * On-chip forms, fft <= 2^17 (psd_onchip). A frame never leaves the chip
+//   between the two halves of its DFT, so device memory sees only the
+//   compulsory int8 in and f32 out (and the window, which stays in L2).
+//   - fft <= 2^14: one block per frame; the whole frame (<= 128 KB of
+//     complex f32) sits in its shared memory. This is the RTL-SDR path
+//     (fft 16384).
+//   - 2^15 <= fft <= 2^17: one thread-block cluster per frame, of N/8192
+//     blocks (16 at fft 131072: above the portable 8, so the launch asks for
+//     it), 8192 points and 64 KB a block. Each block runs the column FFTs of
+//     its N2/C columns; after cluster.sync() each block reads its N1/C rows
+//     from the other blocks' shared memory (distributed shared memory) with
+//     the twiddle, as the first pass of its row FFTs, syncs the cluster again
+//     (nobody overwrites what another may still read) and runs the rest of
+//     the row FFTs. dB rows go out with k1 contiguous.
+//   Each FFT is two Stockham (self-sorting) passes of radix 32, 16 or 8 for
+//   128-512 points, not radix-2 stages: a thread holds 32 points in
+//   registers, does its butterflies there, and shared memory is touched only
+//   between passes. The first column pass reads device memory and the last
+//   row pass writes it, so a frame crosses shared memory three times. The
+//   sequences of a block are interleaved (element i of sequence b at
+//   i*stride + b), so passes run lanes along b, contiguous; the exchange
+//   runs lanes along n2 (distributed shared memory moves whole sectors), and
+//   its writes stay conflict-free through an xor swizzle of the row layout.
+//   No bit-reversed scatter remains.
+//   Twiddles: sincospif on exact arguments (an integer over a power of two)
+//   once per butterfly, its powers by a running complex product (<= 30
+//   roundings, ~1e-6 relative: ~1e-3 dB at bins 60 dB below a frame's peak);
+//   no table is read from memory. f32 on the CUDA cores: a TF32 tensor-core
+//   DFT would not hold 0.02 dB at deep nulls.
+//   What bounds it: a block loads, transforms and stores in turn, so an SM
+//   overlaps one frame's memory phases with another's FFT only where two
+//   blocks fit it (8192 points, 64 KB and <= 128 registers a thread: the
+//   cluster form). Past that, the exchange's distributed-shared-memory reads,
+//   the shared-memory passes' bandwidth and the instruction count (the FFT's
+//   operations are ~70% of the byte bound's time at fft 131072) keep it
+//   above the byte bound; PERF.md has the split.
+//
+// * Scratch form, fft > 2^17 (2^18..2^20: wideband front ends at the 250 Hz
+//   step). The cluster form stops at 2^17 = 16 blocks of 8192 points (a
+//   cluster holds at most 16 blocks; 2^19 would not fit 16 blocks' shared
+//   memory at all), so two passes of radix-2 FFTs in shared memory pass a
+//   complex f32 scratch in global memory between them:
+//     pass 1: one block per (frame, 16 columns n2) loads its int8 pairs,
+//             dequantizes and windows them, runs sixteen N1-point FFTs,
+//             multiplies by the twiddle and writes C[k1][n2] to the scratch;
+//     pass 2: one block per (frame, 16 rows k1) loads C[k1][:], runs sixteen
+//             N2-point FFTs and writes the dB of X[k2*N1 + k1].
+//   Its scratch round trip costs 2 x 8 B per point on top of the 6 B the
+//   function must move. The wrapper asks psd_scratch_bytes() whether a size
+//   needs the scratch; the on-chip forms take none.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+// ---- on-chip forms
+constexpr int kLogPerThread = 5;  // a thread holds 32 complex points
+constexpr int kPerThread = 1 << kLogPerThread;
+constexpr int kSingleMaxLog = 14;  // one block per frame up to fft 16384
+constexpr int kClusterBlockLog = 13;  // above: 8192 points a block, two blocks an SM
+constexpr int kOnChipMaxLog = 17;  // a cluster of 16 blocks, the most the card places
+
+// ---- scratch form
 constexpr int kThreads = 256;
 constexpr int kCols = 16;  // pass 1: n2 columns per block
 constexpr int kRows = 16;  // pass 2: k1 rows per block
@@ -40,6 +93,422 @@ __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+__host__ __device__ constexpr int bitrev_c(int x, int bits) {
+  return bits == 0 ? 0 : ((x & 1) << (bits - 1)) | bitrev_c(x >> 1, bits - 1);
+}
+
+__host__ __device__ constexpr int log2_c(int x) { return x <= 1 ? 0 : 1 + log2_c(x / 2); }
+
+// cos(pi k / 16) for k in [0, 8]
+__host__ __device__ constexpr float cos_pi16(int k) {
+  return k == 0 ? 1.0f
+       : k == 1 ? 0.98078528040323043f
+       : k == 2 ? 0.92387953251128674f
+       : k == 3 ? 0.83146961230254524f
+       : k == 4 ? 0.70710678118654752f
+       : k == 5 ? 0.55557023301960218f
+       : k == 6 ? 0.38268343236508978f
+       : k == 7 ? 0.19509032201612825f
+                : 0.0f;
+}
+
+// x * exp(-2 pi i M / 32), M in [0, 16).
+template <int M>
+__device__ __forceinline__ float2 rot32(float2 x) {
+  constexpr float h = 0.70710678118654752f;
+  if constexpr (M == 0) {
+    return x;
+  } else if constexpr (M == 8) {
+    return make_float2(x.y, -x.x);
+  } else if constexpr (M == 4) {
+    return make_float2((x.x + x.y) * h, (x.y - x.x) * h);
+  } else if constexpr (M == 12) {
+    return make_float2((x.y - x.x) * h, -(x.x + x.y) * h);
+  } else {
+    constexpr float c = M <= 8 ? cos_pi16(M) : -cos_pi16(16 - M);
+    constexpr float s = M <= 8 ? cos_pi16(8 - M) : cos_pi16(M - 8);
+    return cmul(x, make_float2(c, -s));
+  }
+}
+
+// Radix-2 decimation-in-frequency stages of an R-point DFT in registers,
+// butterfly I of the stage whose pairs lie H apart, then the next; all
+// indices are template constants, so v never leaves registers.
+template <int R, int H, int I = 0>
+__device__ __forceinline__ void dif_stages(float2* v) {
+  if constexpr (I < R / 2) {
+    constexpr int s = (I / H) * 2 * H, p = I % H;
+    const float2 a = v[s + p], b = v[s + p + H];
+    v[s + p] = cadd(a, b);
+    v[s + p + H] = rot32<p * (16 / H)>(csub(a, b));  // W_{2H}^p
+    dif_stages<R, H, I + 1>(v);
+  } else if constexpr (H > 1) {
+    dif_stages<R, H / 2, 0>(v);
+  }
+}
+
+// t[K] = v[bitrev(K)] for K < R, the index a template constant.
+template <int R, int K = 0>
+__device__ __forceinline__ void bitrev_copy(const float2* v, float2* t) {
+  if constexpr (K < R) {
+    constexpr int src = bitrev_c(K, log2_c(R));
+    t[K] = v[src];
+    bitrev_copy<R, K + 1>(v, t);
+  }
+}
+
+// In-register R-point DFT (R = 4, 8, 16 or 32), natural order in and out: the
+// DIF stages leave X[k] at v[bitrev(k)], undone as a renaming.
+template <int R>
+__device__ __forceinline__ void dft_regs(float2* v) {
+  dif_stages<R, R / 2>(v);
+  float2 t[R];
+  bitrev_copy<R>(v, t);
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = t[k];
+}
+
+// log2 of the radix of the next Stockham pass when 2^rem of the length is
+// left: 16 -> 16; 32 -> 32; 64 -> 8, 8; 128 -> 16, 8; 256 -> 16, 16;
+// 512 -> 32, 16.
+__host__ __device__ constexpr int next_radix_log(int rem) {
+  return (rem == 4 || rem == 7 || rem == 8) ? 4 : (rem == 5 || rem == 9) ? 5 : (rem == 2 ? 2 : 3);
+}
+
+// Item k of thread t in a phase of NT threads over 2^LOG_B interleaved
+// sequences: w = t + k*NT, sequence w mod B, position w / B. Where B divides
+// NT the sequence is the thread's own and the position steps by NT/B, so
+// every address below is a per-thread base plus a constant.
+template <int LOG_B, int NT>
+__device__ __forceinline__ int seq_of(int t, int k) {
+  if constexpr (NT % (1 << LOG_B) == 0) return t & ((1 << LOG_B) - 1);
+  else return (t + k * NT) & ((1 << LOG_B) - 1);
+}
+template <int LOG_B, int NT>
+__device__ __forceinline__ int pos_of(int t, int k) {
+  if constexpr (NT % (1 << LOG_B) == 0) return (t >> LOG_B) + k * (NT >> LOG_B);
+  else return (t + k * NT) >> LOG_B;
+}
+
+// exp(-2 pi i m / 2^LOG_N) for 0 <= m < 2^LOG_N: an exact sincospif argument.
+template <int LOG_N>
+__device__ __forceinline__ float2 twiddle(int m) {
+  float2 w;
+  sincospif(-2.0f * (float)m / (float)(1 << LOG_N), &w.y, &w.x);
+  return w;
+}
+
+// Where a Stockham pass reads its points (load<R, Q>(j, b, v): the R points
+// i = j + r Q of sequence b) and writes its results (store(i, b, x)).
+// kShared: the pass must sync() between reading and writing (the source is
+// shared memory the pass overwrites), or after writing (the next pass reads).
+// kAlongJ: neighbouring lanes take neighbouring butterflies j of a sequence
+// (else neighbouring sequences b).
+
+// Shared memory, element i of sequence b at s[i * STRIDE + b'], where
+// b' = b xor ((i >> LOG_SW) mod 16) if LOG_SW >= 0 (else b' = b): the swizzle
+// that lets lanes along j write i = j R + r (LOG_SW = log2 R) without bank
+// conflicts, while lanes along b stay conflict-free.
+template <int STRIDE, int LOG_SW = -1>
+struct Smem {
+  enum : bool { kShared = true, kAlongJ = false, kFetch = false };
+  float2* s;
+  __device__ __forceinline__ int at(int i, int b) const {
+    if constexpr (LOG_SW >= 0) return i * STRIDE + (b ^ ((i >> LOG_SW) & 15));
+    else return i * STRIDE + b;
+  }
+  template <int R, int Q>
+  __device__ __forceinline__ void load(int j, int b, float2* v) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = s[at(j + r * Q, b)];
+  }
+  __device__ __forceinline__ void store(int i, int b, float2 x) const { s[at(i, b)] = x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// The column FFTs' input straight from device memory: element n1 of column
+// b is the frame's pair n1*N2 + b, over 127.5, times the window (which stays
+// in L2). x and w point at the block's first column. A pass that reads it
+// first fetch()es all its points (every load in flight at once: nothing
+// else runs on the SM meanwhile), then converts them.
+template <int N2>
+struct FrameIn {
+  enum : bool { kShared = false, kAlongJ = false, kFetch = true };
+  const char2* x;
+  const float* w;
+  template <int R, int Q>
+  __device__ __forceinline__ void fetch(int j, int b, char2* iq, float* win) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      iq[r] = x[(j + r * Q) * N2 + b];
+      win[r] = w[(j + r * Q) * N2 + b];
+    }
+  }
+  __device__ __forceinline__ static float2 convert(char2 iq, float win) {
+    const float sc = win * (1.0f / 127.5f);
+    return make_float2((float)iq.x * sc, (float)iq.y * sc);
+  }
+};
+
+// The row FFTs' input: element n2 of row b (k1 = k1_0 + b) is Y[k1][n2],
+// which the block of rank n2 / BA holds at k1*SA + n2 mod BA, times the
+// four-step twiddle exp(-2 pi i k1 n2 / N): for the R points of a butterfly
+// exp(-2 pi i k1 j / N) times the r-th power of exp(-2 pi i k1 Q / N), a
+// running product. Lanes run along n2, so that a warp reads runs of
+// consecutive columns from one block (distributed shared memory moves whole
+// sectors; lanes along k1 would each fetch their own). sync() waits until
+// every block of the cluster has read.
+template <int LOG_N, int LOG_BA, int SA, bool kClustered>
+struct ExchangeIn {
+  enum : bool { kShared = true, kAlongJ = true, kFetch = false };
+  float2* s;
+  int k1_0;
+  template <int R, int Q>
+  __device__ __forceinline__ void load(int j, int b, float2* v) const {
+    const int k1 = k1_0 + b;
+    const float2 step = twiddle<LOG_N>(k1 * Q);
+    float2 tw = twiddle<LOG_N>(k1 * j);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n2 = j + r * Q;
+      const float2* src = s + k1 * SA + (n2 & ((1 << LOG_BA) - 1));
+      if constexpr (kClustered) src = cg::this_cluster().map_shared_rank(src, (unsigned)(n2 >> LOG_BA));
+      v[r] = cmul(*src, tw);
+      tw = cmul(tw, step);
+    }
+  }
+  __device__ __forceinline__ void sync() const {
+    if constexpr (kClustered) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  }
+};
+
+// The row FFTs' output: element k2 of row b is X[k1 + N1 k2] (k1 = k1_0 + b),
+// written as 10 log10(max(|X|^2, 1e-30) / rate); o points at X[k1_0].
+// (inv_rate = 1/rate: a product, not a division per bin.)
+template <int N1>
+struct DbOut {
+  enum : bool { kShared = false, kAlongJ = false, kFetch = false };
+  float* o;
+  float inv_rate;
+  __device__ __forceinline__ void store(int k2, int b, float2 y) const {
+    const float p = y.x * y.x + y.y * y.y;
+    o[k2 * N1 + b] = 10.0f * log10f(fmaxf(p, 1e-30f) * inv_rate);
+  }
+};
+
+// One radix-R Stockham pass over the block's 2^LOG_B sequences of length
+// 2^LOG_L, after passes whose radices multiply to NS = 2^LOG_NS. Butterfly
+// (b, j) reads i = j + r L/R, multiplies by exp(-2 pi i (j mod NS) r / (NS R)),
+// and writes i = (j / NS) NS R + (j mod NS) + r NS. A thread takes 32/R
+// butterflies, all read before it writes any.
+template <int R, int LOG_L, int LOG_B, int LOG_NS, int NT, class In, class Out>
+__device__ __forceinline__ void stockham_pass(const In& in, const Out& out) {
+  constexpr int K = kPerThread / R, LOG_Q = LOG_L - log2_c(R), Q = 1 << LOG_Q, NS = 1 << LOG_NS;
+  const int t = threadIdx.x;
+  // butterfly j of sequence b for item k
+  const auto bj = [t](int k, int& b, int& j) {
+    if constexpr (In::kAlongJ) {
+      j = seq_of<LOG_Q, NT>(t, k);
+      b = pos_of<LOG_Q, NT>(t, k);
+    } else {
+      b = seq_of<LOG_B, NT>(t, k);
+      j = pos_of<LOG_B, NT>(t, k);
+    }
+  };
+  float2 v[kPerThread];
+  if constexpr (In::kFetch) {
+    char2 iq[kPerThread];
+    float win[kPerThread];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      int b, j;
+      bj(k, b, j);
+      in.template fetch<R, Q>(j, b, iq + k * R, win + k * R);
+    }
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) v[i] = In::convert(iq[i], win[i]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      int b, j;
+      bj(k, b, j);
+      in.template load<R, Q>(j, b, v + k * R);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if constexpr (NS > 1) {  // powers of w1 by a running product: <= R-2 roundings
+      // (no branch on jn == 0, where w1 = 1 exactly: a branch around the
+      // loop sends v to local memory)
+      int b, j;
+      bj(k, b, j);
+      const int jn = j & (NS - 1);
+      float2 w1, w;
+      sincospif(-2.0f * (float)jn / (float)(NS * R), &w1.y, &w1.x);
+      w = w1;
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        v[k * R + r] = cmul(v[k * R + r], w);
+        w = cmul(w, w1);
+      }
+    }
+    dft_regs<R>(v + k * R);
+  }
+  if constexpr (In::kShared) in.sync();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int b, j;
+    bj(k, b, j);
+    const int jn = j & (NS - 1);
+    const int d = (j - jn) * R + jn;
+#pragma unroll
+    for (int r = 0; r < R; ++r) out.store(d + r * NS, b, v[k * R + r]);
+  }
+  if constexpr (Out::kShared) __syncthreads();
+}
+
+// FFTs of the block's 2^LOG_B sequences of length 2^LOG_L (16 <= L <= 512
+// here), natural order in and out: the first pass reads from `first`, the
+// last writes to `last`, the others go through `mid` (next_radix_log).
+template <int LOG_L, int LOG_B, int NT, int LOG_NS = 0, class First, class Mid, class Last>
+__device__ __forceinline__ void stockham_fft(const First& first, const Mid& mid, const Last& last) {
+  if constexpr (LOG_NS < LOG_L) {
+    constexpr int rem = LOG_L - LOG_NS;
+    constexpr int lr = next_radix_log(rem);
+    static_assert(rem >= 2, "no radix-2 pass");
+    constexpr bool is_first = LOG_NS == 0, is_last = LOG_NS + lr == LOG_L;
+    if constexpr (is_first && is_last) {
+      stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(first, last);
+    } else if constexpr (is_first) {
+      stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(first, mid);
+    } else if constexpr (is_last) {
+      stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(mid, last);
+    } else {
+      stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(mid, mid);
+    }
+    stockham_fft<LOG_L, LOG_B, NT, LOG_NS + lr>(first, mid, last);
+  }
+}
+
+// The on-chip geometry of fft 2^LOG_N: C = 2^LOG_C blocks a frame, the
+// four-step split N1 x N2, the column phase's BA = N2/C columns at stride SA
+// and the row phase's BC = N1/C rows at stride BC (swizzled by the row
+// FFT's first radix R1); NT threads. The exchange reads runs of Q1 = N2/R1
+// columns from BC rows; where a run is shorter than a half-warp's 16 lanes,
+// SA = BA + 8 keeps two rows of a half-warp on other banks.
+template <int LOG_N>
+struct OnChip {
+  static constexpr int LOG_C = LOG_N > kSingleMaxLog ? LOG_N - kClusterBlockLog : 0;
+  static constexpr int LOG_N1 = (LOG_N + 1) / 2, LOG_N2 = LOG_N / 2;
+  static constexpr int N1 = 1 << LOG_N1, N2 = 1 << LOG_N2;
+  static constexpr int LOG_BA = LOG_N2 - LOG_C, LOG_BC = LOG_N1 - LOG_C;
+  static constexpr int LOG_R1 = next_radix_log(LOG_N2), Q1 = N2 >> LOG_R1;
+  static constexpr int BA = 1 << LOG_BA, BC = 1 << LOG_BC, SA = BA + (Q1 < 16 ? 8 : 0);
+  static constexpr int NT = 1 << (LOG_N - LOG_C - kLogPerThread);
+  static constexpr int MIN_BLOCKS = LOG_N - LOG_C <= kClusterBlockLog ? 2 : 1;  // a SM
+  static constexpr size_t SMEM = sizeof(float2) * (N1 * SA > N2 * BC ? N1 * SA : N2 * BC);
+  static_assert(BC >= 16, "the row swizzle needs 16 rows");
+};
+
+// One frame per block (fft <= 2^14) or per cluster of C blocks along x
+// (block rank c); gridDim.y = frames, blockDim.x = NT.
+//   column phase: FFTs over n1 of the block's columns n2 in [c*BA, (c+1)*BA),
+//     the first pass reading the int8 pairs from device memory, the result
+//     Y[k1][n2] left at smem[k1*SA + n2 - c*BA];
+//   row phase: FFTs over n2 of the block's rows k1 in [c*BC, (c+1)*BC), the
+//     first pass reading Y from the cluster's blocks (distributed shared
+//     memory) with the twiddle, the last writing dB to device memory.
+template <int LOG_N>
+__global__ void __launch_bounds__(OnChip<LOG_N>::NT, OnChip<LOG_N>::MIN_BLOCKS)
+psd_onchip(const char2* __restrict__ iq, const float* __restrict__ win, float* __restrict__ out,
+           int decim, float rate) {
+  using G = OnChip<LOG_N>;
+  constexpr bool kClustered = G::LOG_C > 0;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  int c = 0;
+  if constexpr (kClustered) c = (int)cg::this_cluster().block_rank();
+
+  // the Decimator keeps the first N pairs of each N*decim group
+  const FrameIn<G::N2> in{iq + ((frame * decim) << LOG_N) + c * G::BA, win + c * G::BA};
+  stockham_fft<G::LOG_N1, G::LOG_BA, G::NT>(in, Smem<G::SA>{smem}, Smem<G::SA>{smem});
+  if constexpr (kClustered) cg::this_cluster().sync();  // every block's columns are done
+
+  const ExchangeIn<LOG_N, G::LOG_BA, G::SA, kClustered> ex{smem, c * G::BC};
+  const DbOut<G::N1> db{out + (frame << LOG_N) + c * G::BC, 1.0f / rate};
+  stockham_fft<G::LOG_N2, G::LOG_BC, G::NT>(ex, Smem<G::BC, G::LOG_R1>{smem}, db);
+}
+
+using OnChipKernel = void (*)(const char2*, const float*, float*, int, float);
+
+// The kernel of fft 2^LOG_N and what its launch needs from OnChip.
+struct OnChipLaunch {
+  OnChipKernel fn;
+  size_t smem;
+  int log_c, threads;
+};
+
+template <int LOG_N>
+OnChipLaunch onchip_launch() {
+  using G = OnChip<LOG_N>;
+  return {psd_onchip<LOG_N>, G::SMEM, G::LOG_C, G::NT};
+}
+
+OnChipLaunch onchip_launch(int log_n) {
+  switch (log_n) {
+    case 8: return onchip_launch<8>();
+    case 9: return onchip_launch<9>();
+    case 10: return onchip_launch<10>();
+    case 11: return onchip_launch<11>();
+    case 12: return onchip_launch<12>();
+    case 13: return onchip_launch<13>();
+    case 14: return onchip_launch<14>();
+    case 15: return onchip_launch<15>();
+    case 16: return onchip_launch<16>();
+    case 17: return onchip_launch<17>();
+    default: return {nullptr, 0, 0, 0};
+  }
+}
+
+// Launch configuration of an on-chip form: dynamic shared memory set, and
+// for fft > 2^14 the cluster dimension (attr must outlive cfg's use) and,
+// for 16 blocks, leave to exceed the portable cluster size.
+cudaError_t onchip_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, OnChipKernel* fn,
+                          int frames, int log_n, cudaStream_t s) {
+  const OnChipLaunch l = onchip_launch(log_n);
+  *fn = l.fn;
+  if (*fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (err != cudaSuccess) return err;
+  if (l.log_c > 3) {  // 16 blocks: above the portable 8
+    err = cudaFuncSetAttribute(*fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(1u << l.log_c, (unsigned)frames, 1);
+  cfg->blockDim = dim3((unsigned)l.threads, 1, 1);
+  cfg->dynamicSmemBytes = l.smem;
+  cfg->stream = s;
+  if (l.log_c > 0) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = 1u << l.log_c;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+  }
+  return cudaSuccess;
+}
+
+// ---- scratch form (fft > 2^17)
 
 // tw[p] = exp(-2 pi i p / n) for p < n/2
 __device__ void fill_twiddles(float2* tw, int n) {
@@ -145,15 +614,8 @@ psd_pass2(const float2* __restrict__ scratch, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// iq: [frames, fft*decim, 2] int8; win: [fft] f32 (Hamming * (-1)^n);
-// scratch: [frames, fft] complex f32; out: [frames, fft] f32.
-// fft = 2^(log_n1 + log_n2) with 16 <= 2^log_n2 <= 2^log_n1.
-extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, void* out,
-                               int frames, int log_n1, int log_n2, int decim, float rate,
-                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int launch_scratch(const void* iq, const void* win, void* scratch, void* out, int frames,
+                   int log_n1, int log_n2, int decim, float rate, cudaStream_t s) {
   const int n1 = 1 << log_n1, n2 = 1 << log_n2;
   const int sm1 = (int)((n1 / 2 + (size_t)n1 * kCols) * sizeof(float2));
   const int sm2 = (int)((n2 / 2 + (size_t)kRows * n2) * sizeof(float2));
@@ -165,5 +627,54 @@ extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, v
       (const char2*)iq, (const float*)win, (float2*)scratch, log_n1, log_n2, decim);
   psd_pass2<<<dim3(n1 / kRows, frames), kThreads, sm2, s>>>(
       (const float2*)scratch, (float*)out, log_n1, log_n2, rate);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of global scratch one frame needs: 0 for the on-chip forms
+// (fft <= 2^17), a complex f32 frame for the scratch form.
+extern "C" int psd_scratch_bytes(int log_n1, int log_n2) {
+  return log_n1 + log_n2 > kOnChipMaxLog ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
+}
+
+// Clusters of the cluster form that the card holds at once
+// (cudaOccupancyMaxActiveClusters); 0 where the size takes another form, a
+// negative CUDA error code on failure.
+extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
+  const int log_n = log_n1 + log_n2;
+  if (log_n <= kSingleMaxLog || log_n > kOnChipMaxLog) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  OnChipKernel fn;
+  cudaError_t err = onchip_config(&cfg, &attr, &fn, 1, log_n, 0);
+  int clusters = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// iq: [frames, fft*decim, 2] int8; win: [fft] f32 (Hamming * (-1)^n);
+// scratch: psd_scratch_bytes() per frame, or null where that is 0;
+// out: [frames, fft] f32. fft = 2^(log_n1 + log_n2) with
+// 16 <= 2^log_n2 <= 2^log_n1 <= 1024 and log_n1 - log_n2 <= 1 (_split_n).
+// Returns cudaGetLastError(); a launch the card refuses (a cluster it cannot
+// place) is returned, never rerouted.
+extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, void* out,
+                               int frames, int log_n1, int log_n2, int decim, float rate,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int log_n = log_n1 + log_n2;
+  if (log_n > kOnChipMaxLog) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_scratch(iq, win, scratch, out, frames, log_n1, log_n2, decim, rate, s);
+  }
+  if (log_n1 != (log_n + 1) / 2) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  OnChipKernel fn;
+  cudaError_t err = onchip_config(&cfg, &attr, &fn, frames, log_n, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, fn, (const char2*)iq, (const float*)win, (float*)out, decim, rate);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

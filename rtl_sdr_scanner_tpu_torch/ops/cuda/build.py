@@ -30,9 +30,12 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of the library's entry points (each returns cudaGetLastError)
+# C signatures of the library's entry points (the launchers return
+# cudaGetLastError; the psd_ queries return a count)
 SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "psd_scratch_bytes": [_I, _I],
+    "psd_max_active_clusters": [_I, _I],
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fir_decimate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -2,8 +2,10 @@
 and its plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas/psd_kernel.py``
-(``psd_frames_int8_pallas``). The kernel's note says what bounds it on the
-card and what its two-pass design does about it.
+(``psd_frames_int8_pallas``). The kernel's note says which form runs for
+which fft (on chip up to 2^17: one block or one thread-block cluster per
+frame; a global scratch above), what bounds each and what its design does
+about it.
 """
 
 from __future__ import annotations
@@ -65,14 +67,17 @@ def psd_frames_int8(
 
     lib = library()
     dev = iq_int8.device
+    log_n1, log_n2 = n1.bit_length() - 1, n2.bit_length() - 1
     out = torch.empty((frames, fft_size), dtype=torch.float32, device=dev)
-    scratch = torch.empty((frames, fft_size, 2), dtype=torch.float32, device=dev)
+    # the library says which sizes take a device-memory intermediate (its
+    # scratch form only); the on-chip forms get none
+    scratch_bytes = lib.psd_scratch_bytes(log_n1, log_n2)
+    scratch = torch.empty((frames, scratch_bytes), dtype=torch.uint8, device=dev) if scratch_bytes else None
     win = _window(fft_size, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.psd_frames_int8(
-        iq_int8.data_ptr(), win.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        frames, n1.bit_length() - 1, n2.bit_length() - 1, decim,
-        float(sample_rate), stream,
+        iq_int8.data_ptr(), win.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), frames, log_n1, log_n2, decim, float(sample_rate), stream,
     )
     check(rc, "psd_frames_int8")
     psd_frames_int8.launches += 1

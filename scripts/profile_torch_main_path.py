@@ -1,10 +1,13 @@
 """Where one block of the port's main path spends its time on the card.
 
-    python3 scripts/profile_torch_main_path.py [--blocks 3]
+    python3 scripts/profile_torch_main_path.py [--path 1|2] [--blocks 3]
 
-Same geometry and data as chip_smoke.py (24 bands x 45 frames x fft 131072
-at 20.48 Msps, 2 DDC slots, both kernels on, bf16 selection). Runs the
-blocks under torch.profiler and prints, per block:
+Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
+fft 131072 at 20.48 Msps with 2 modulated-taps DDC slots; path 2, the
+RTL-SDR deployment, 24 bands x 75 frames x fft 16384 at 2.4 Msps with 2 v1
+DDC slots at 32 kHz. Default Tunables (every kernel, bf16 selection).
+Runs blocks 3.. of the path under torch.profiler (after 3 warm-up blocks)
+and prints, per block:
 - each stage of the step: the device-side span of each profiler range
   the step itself opens (``fused_step.STAGES``). Kernels launched through
   ctypes are not attributed to a host range, so the span is the measure;
@@ -31,6 +34,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", type=int, choices=(1, 2), default=1, help="chip_smoke.py's path to drive")
     ap.add_argument("--blocks", type=int, default=3, help="blocks to average over")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -41,7 +45,8 @@ def main() -> int:
 
     card = cs.card_line()
     build.library()
-    path = cs.MainPath(torch.device("cuda", 0))
+    geo = cs.PATH1 if args.path == 1 else cs.PATH2
+    path = cs.MainPath(torch.device("cuda", 0), geo)
     for b in range(3):  # warm up: allocator, cuFFT/cuBLAS plans, noise learning under way
         path.run_block(b)
     torch.cuda.synchronize()
@@ -66,7 +71,7 @@ def main() -> int:
             kernels[e.name][0] += ms
             kernels[e.name][1] += 1
 
-    print(f"per-stage device span, ms per block, mean of blocks 3..{2 + args.blocks} ({card}):")
+    print(f"{geo.name}: per-stage device span, ms per block, mean of blocks 3..{2 + args.blocks} ({card}):")
     for name in STAGES:
         print(f"  {span[name]:9.3f}  {name}" if name in span else f"  not measured  {name}")
     print(f"  {sum(span.values()):9.3f}  sum")

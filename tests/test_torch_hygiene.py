@@ -12,7 +12,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "rtl_sdr_scanner_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"]
+CARD_SCRIPTS = [ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py"]
+SOURCES = (
+    sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS
+)
 
 
 def _modules():
@@ -98,3 +101,14 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS, ids=lambda p: p.name)
+def test_card_scripts_refuse_without_a_card(script):
+    """The port's measurement scripts fail on a missing card; they never
+    fall back to timing the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2
+    assert "needs an NVIDIA GPU" in out.stderr

@@ -28,10 +28,21 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("fft,decim", [(1024, DECIM), (8192, DECIM), (131072, DECIM), (16384, 2)])
-def test_psd_kernel_matches_plain(fft, decim, dev):
-    rng = np.random.default_rng(fft)
-    iq = torch.from_numpy(rng.integers(-100, 100, size=(4, fft * decim, 2), dtype=np.int8)).to(dev)
+@pytest.mark.parametrize("fft,decim,frames", [
+    (256, 1, 5),  # one block a frame: its smallest
+    (1024, DECIM, 4),
+    (8192, DECIM, 4),
+    (16384, 2, 4),  # one block a frame: its largest (the RTL-SDR path)
+    (16384, 1, 7),
+    (32768, DECIM, 5),  # a cluster a frame: its smallest
+    (65536, 2, 3),
+    (131072, DECIM, 4),  # a cluster a frame: its largest (path 1)
+    (131072, 1, 3),
+    (262144, 2, 3),  # the scratch form
+])
+def test_psd_kernel_matches_plain(fft, decim, frames, dev):
+    rng = np.random.default_rng(fft + frames)
+    iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
     before = psd_kernel.psd_frames_int8.launches
     got = psd_kernel.psd_frames_int8(iq, 256000.0, fft, decim)
     torch.cuda.synchronize()
@@ -42,6 +53,27 @@ def test_psd_kernel_matches_plain(fft, decim, dev):
     diff = (got - want).abs()[near]
     assert diff.max().item() <= 0.02
     assert diff.median().item() <= 1e-3
+
+
+def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
+    """fft <= 2^17 stays on chip (one block or one cluster a frame, no
+    device-memory intermediate); only the scratch form above needs one."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    for log in range(8, 21):
+        logs = [n.bit_length() - 1 for n in psd_kernel._split_n(1 << log)]
+        assert (lib.psd_scratch_bytes(*logs) > 0) == (log > 17)
+        assert (lib.psd_max_active_clusters(*logs) > 0) == (15 <= log <= 17)
+    fft, frames = 131072, 8
+    iq = torch.zeros((frames, fft * DECIM, 2), dtype=torch.int8, device=dev)
+    psd_kernel.psd_frames_int8(iq, 256000.0, fft, DECIM)  # the window, cached
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = psd_kernel.psd_frames_int8(iq, 256000.0, fft, DECIM)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - before == out.numel() * out.element_size()
 
 
 def test_psd_kernel_rejects_what_it_does_not_take(dev):
