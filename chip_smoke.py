@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # everything below
+    python3 chip_smoke.py --kernels-only [--root DIR]
 
 1. Builds the hand-written kernels from ``rtl_sdr_scanner_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/kernels``).
@@ -12,10 +13,7 @@
    frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
    262144), decimations 1-3, odd frame counts; the decimating FIR within
    2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
-   decimating stages and at M = 125 and 32. Then times kernel, plain
-   version, library call and bound for every kernel at both paths' shapes
-   (``ms_by_path`` and the like in the record; the top-level numbers are
-   path 1's for PSD and selection, path 2's for the FIR).
+   decimating stages and at M = 125 and 32.
 3. Path 1: ``make_banded_fused_step`` at full width, 24 bands x 45 frames x
    fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz (the
    modulated-taps DDC; its decimating stage 2 through the FIR kernel),
@@ -32,15 +30,29 @@
 5. Interpolating stages on the card (DDC only, 4 bands, 2 chunks): 2.0 Msps
    -> 32 kHz (v1, stage (2, 125)) and 10 Msps -> 32 kHz (modulated taps,
    stage 2 (2, 25)), each within 1 LSB of the same call on the CPU.
+6. Times kernel, plain version, library call and bound for every kernel at
+   both paths' shapes (``ms_by_path`` and the like in the record; the
+   top-level numbers are path 1's for PSD and selection, path 2's for the
+   FIR). ``ms`` is the wrapper's pace (CUDA events around back-to-back
+   calls), ``device_ms`` the kernel's own device time (torch.profiler's
+   kernel records), ``host_us`` the host time a wrapper call takes to
+   enqueue. It comes last: once the profiler has traced, every later
+   launch of the process is slower.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after. Every failure raises. The last lines are the card's name
 and power limit, the kernels' JSON record and ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
+
+``--kernels-only`` runs steps 1, 2 and 6 and ends with the kernels' record;
+``--root DIR`` takes the package from another checkout (an older tree
+unpacked under ``build/``), so that two trees' kernels are timed by the
+same code on the same card: old, new, new, old.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -59,6 +71,7 @@ LEVEL = 8.0
 CHECK_ROWS = 45 * 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 PSD_TOL_DB = 0.02
 PSD_MEDIAN_TOL_DB = 1e-3
 FIR_REL_TOL = 2e-5
@@ -117,10 +130,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float):
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time a call of the kernels whose name holds ``kernel``,
+    from torch.profiler's kernel records over reps calls (after a warm-up
+    call): the kernel alone, whatever the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if not us:
+        raise RuntimeError(f"the profiler saw no launch of *{kernel}* in {reps} calls")
+    # mean a record times records a call: a record the profiler dropped
+    # (it happens, rarely) leaves the mean as it is
+    return sum(us) / len(us) * max(1, round(len(us) / reps)) / 1e3
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time a call takes to return (enqueue only: reps launches
+    stay far below the launch queue's depth, so the card never holds the
+    host back)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def timings(fn, plain, reps: int, kernel: str, plain_reps: int) -> dict:
+    """The wrapper's pace, its kernel's device time and its host time, and
+    the plain version's pace, in ms (host in µs)."""
+    return dict(ms=cuda_ms(fn, reps), device_ms=device_ms(fn, reps, kernel), host_us=host_us(fn, reps),
+                plain_ms=cuda_ms(plain, plain_reps))
+
+
+def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS):
     """(bound ms, what bounds it): the larger of bytes over the memory rate
-    and f32 operations over the f32 peak."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    and the operations over the peak rate of their type (f32 by default)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -257,14 +311,10 @@ def check_selection(fft: int, submargin: int, dev) -> float:
     return err
 
 
-def check_psd_and_selection(geos, dev, card: str) -> list:
+def check_psd_and_selection(geos, dev):
     """PSD and selection against their plain versions at every path's
-    shapes (and the PSD at each of its forms' ends), then each timed at
-    every path's shapes: rows = bands x frames a block. The records' top
-    level holds the first path's numbers, ``*_by_path`` every path's."""
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
-    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
-
+    shapes (and the PSD at each of its forms' ends); returns the PSD's and
+    the selection's max |diff|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     psd_err = sel_err = 0.0
@@ -275,7 +325,18 @@ def check_psd_and_selection(geos, dev, card: str) -> list:
         sel_err = max(sel_err, check_selection(cfg.fft_size, group_size // 2 + group_size % 2, dev))
     for fft, decim, rows in PSD_FORM_CASES:
         psd_err = max(psd_err, check_psd(fft, decim, rows, gen, dev))
+    return psd_err, sel_err
 
+
+def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float) -> list:
+    """PSD and selection timed at every path's shapes: rows = bands x frames
+    a block. The records' top level holds the first path's numbers,
+    ``*_by_path`` every path's."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
+    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
     psd = dict(
         name="psd_frames_int8", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/psd_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None, max_abs_err=psd_err,
@@ -291,29 +352,33 @@ def check_psd_and_selection(geos, dev, card: str) -> list:
         big = random_cs8((rows, fft * decim, 2), gen, dev)
         win = torch.from_numpy(shifted_window(fft)).to(dev)
         frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
-        ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim), 20)
-        plain_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 5)
+        t = timings(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim),
+                    lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 20, "psd_", 5)
         library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
         # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
         bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
-        log(f"psd [{rows}, {fft * decim}, 2] ({geo.name}; {psd_form(fft)}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, torch.fft.fft alone {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-            f"on {card}")
-        record_time(psd, geo, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                    bound_by=bound_by)
+        log(f"psd [{rows}, {fft * decim}, 2] ({geo.name}; {psd_form(fft)}): {fmt(t)}, torch.fft.fft alone "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
+        record_time(psd, geo, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         del big, frames_c
 
         submargin = group_size // 2 + group_size % 2
         level = torch.tensor(LEVEL, device=dev)
-        t = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
-        ms = cuda_ms(lambda: select_kernel.fused_selection(t, level, TOP_K, 16, submargin), 20)
-        plain_ms = cuda_ms(lambda: select_kernel.fused_selection_plain(t, level, TOP_K, 16, submargin), 3)
+        spec = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
+        t = timings(lambda: select_kernel.fused_selection(spec, level, TOP_K, 16, submargin),
+                    lambda: select_kernel.fused_selection_plain(spec, level, TOP_K, 16, submargin), 20,
+                    "selection_kernel", 3)
         bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
-        log(f"selection [{rows}, {fft}] bf16 ({geo.name}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}) on {card}")
-        record_time(sel, geo, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-        del t
+        log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"on {card}")
+        record_time(sel, geo, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del spec
     return [psd, sel]
+
+
+def fmt(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms a call (device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us), "
+            f"plain {t['plain_ms']:.3f} ms")
 
 
 def record_time(record: dict, geo: Geometry, **numbers) -> None:
@@ -324,27 +389,29 @@ def record_time(record: dict, geo: Geometry, **numbers) -> None:
         record.setdefault(f"{key}_by_path", {})[geo.key] = value
 
 
-def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
+def fir_cases(geos):
+    """(geometry, plan, samples a row) of every stage a path sends through
+    the FIR kernel, then M = 125 and 32 at 16384 outputs a row (no path)."""
+    from rtl_sdr_scanner_tpu_torch.ops import ddc
+
+    cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
+    return cases + [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
+
+
+def check_fir(geos, rows: int, dev) -> float:
     """The decimating FIR against its plain version at every stage a path
     sends through it (path 1: stage 2 (1, 40) on 34,560 samples a chunk;
     path 2: (1, 75) on 1,228,800; 48 band x slot rows x 2 components) and at
-    M = 125 and 32 (16384 outputs a row). Each path's stage is timed, with
-    plain, library and bound beside it; the record's top level holds
-    ``timed``'s."""
-    import torch.nn.functional as F
-
+    M = 125 and 32; returns the max |diff|."""
     from rtl_sdr_scanner_tpu_torch.ops import ddc
     from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel
 
     ddc.no_tf32()
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    rows = timed.bands * timed.slots
-    cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
-    cases += [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
-    err, times = 0.0, {}
-    for geo, plan, n in cases:
-        m, out_len = plan.decim, n // plan.decim
+    err = 0.0
+    for _, plan, n in fir_cases(geos):
+        m = plan.decim
         x = torch.randn((rows, 2, n), generator=gen, device=dev)
         tail = torch.randn((rows, 2, plan.tail_len), generator=gen, device=dev)
         got, got_tail = fir_kernel.stage_apply_fir(x, tail, plan)
@@ -357,25 +424,44 @@ def check_fir(geos, timed: Geometry, dev, card: str) -> dict:
         if not (torch.isfinite(got).all() and d <= FIR_REL_TOL * scale and torch.equal(got_tail, want_tail)):
             raise RuntimeError(f"fir kernel disagrees at M={m}: max |diff| {d}, max |y| {scale}")
         err = max(err, d)
-        del got, want
+        del got, want, x, tail
+    return err
+
+
+def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
+    """Each path's FIR stage timed, with plain, library and bound beside
+    it; the record's top level holds ``timed``'s."""
+    import torch.nn.functional as F
+
+    from rtl_sdr_scanner_tpu_torch.ops import ddc
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel
+
+    ddc.no_tf32()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = timed.bands * timed.slots
+    times = {}
+    for geo, plan, n in fir_cases(geos):
         if geo is None:
             continue
-        ms = cuda_ms(lambda: fir_kernel.stage_apply_fir(x, tail, plan), 20)
-        plain_ms = cuda_ms(lambda: fir_kernel.stage_apply_fir_plain(x, tail, plan), 5)
+        m, out_len = plan.decim, n // plan.decim
+        x = torch.randn((rows, 2, n), generator=gen, device=dev)
+        tail = torch.randn((rows, 2, plan.tail_len), generator=gen, device=dev)
+        t = timings(lambda: fir_kernel.stage_apply_fir(x, tail, plan),
+                    lambda: fir_kernel.stage_apply_fir_plain(x, tail, plan), 20, "fir_decimate", 5)
         poly_rows = fir_kernel._full_rows(x, tail, m, plan.poly_rows).transpose(1, 2).contiguous()
         w = torch.from_numpy(plan.poly_kernel).to(dev)
         library_ms = cuda_ms(lambda: F.conv1d(poly_rows, w), 20)
         del poly_rows
         # x and the tail read once, y and the new tail written once, f32;
-        # 2 operations per tap and output
+        # 2 operations per tap and output, three TF32 tensor-core passes
         bytes_moved = 4 * (rows * 2 * (n + 2 * plan.tail_len + out_len) + m * plan.poly_rows)
-        flops = 2.0 * rows * 2 * out_len * plan.poly_rows * m
-        bound_ms, bound_by = bound(bytes_moved, flops)
-        log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows} ({geo.name}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, F.conv1d on the polyphase view {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) on {card}")
-        times[geo.key] = (geo, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by))
+        flops = 3 * 2.0 * rows * 2 * out_len * plan.poly_rows * m
+        bound_ms, bound_by = bound(bytes_moved, flops, TF32_FLOPS)
+        log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows} ({geo.name}): {fmt(t)}, F.conv1d on the "
+            f"polyphase view {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} "
+            f"MB, {flops / 1e9:.2f} GFLOP TF32) on {card}")
+        times[geo.key] = (geo, dict(**t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
         del x, tail
     record = dict(
         name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
@@ -541,6 +627,11 @@ def check_interpolating_stages(dev) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true", help="hold and time the kernels, drive no path")
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
+                    help="checkout whose package to run (default: this script's)")
+    args = ap.parse_args()
     # the run uses one card: show it only the first, before CUDA starts, so
     # that the device count it reports is the count it used
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -550,7 +641,7 @@ def main() -> int:
     if torch.cuda.device_count() != 1:
         print("chip_smoke: needs exactly one visible card (CUDA_VISIBLE_DEVICES)", file=sys.stderr)
         return 2
-    root = Path(__file__).resolve().parent
+    root = args.root.resolve()
     if not (root / "rtl_sdr_scanner_tpu_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
@@ -560,7 +651,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
-    log(f"card: {card}")
+    log(f"card: {card}; package from {root}")
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -568,10 +659,20 @@ def main() -> int:
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
 
-    records = check_psd_and_selection((PATH1, PATH2), dev, card)
-    records.append(check_fir((PATH1, PATH2), PATH2, dev, card))
-    launches = {geo.key: run_path(dev, card, geo) for geo in (PATH1, PATH2)}
-    check_interpolating_stages(dev)
+    geos = (PATH1, PATH2)
+    psd_err, sel_err = check_psd_and_selection(geos, dev)
+    fir_err = check_fir(geos, PATH2.bands * PATH2.slots, dev)
+    if not args.kernels_only:
+        # the paths before any timing: the profiler's tracing, once started,
+        # slows every later launch of the process
+        launches = {geo.key: run_path(dev, card, geo) for geo in geos}
+        check_interpolating_stages(dev)
+    records = time_psd_and_selection(geos, dev, card, psd_err, sel_err)
+    records.append(time_fir(geos, PATH2, dev, card, fir_err))
+    if args.kernels_only:
+        log(card)
+        log(json.dumps({"kernels": records}))
+        return 0
     for r in records:
         r["launches"] = sum(counts[r["name"]] for counts in launches.values())
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}

@@ -36,8 +36,8 @@ SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "psd_scratch_bytes": [_I, _I],
     "psd_max_active_clusters": [_I, _I],
-    "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "fir_decimate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

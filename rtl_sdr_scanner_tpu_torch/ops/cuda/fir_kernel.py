@@ -18,9 +18,10 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
-QB = 8  # tap rows per register tile of the kernel (kQB); R is padded to it
+RP = 40  # taps padded to the kernel's 5 n-tiles of 8 (R <= 34 for every decimation)
 
 
 def _full_rows(x: torch.Tensor, tail: torch.Tensor, m: int, r_rows: int) -> torch.Tensor:
@@ -54,17 +55,49 @@ def stage_apply_fir_plain(
     return y.reshape(b, two, out_len), _new_tail(x, tail)
 
 
-@functools.lru_cache(maxsize=32)
-def _weights(decim: int, device: torch.device) -> torch.Tensor:
-    """W as [M, Rp], zero-padded to a multiple of QB tap rows, on device,
-    uploaded once (``plan_stage`` is a function of (interp, decim) alone)."""
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties
+    away from zero): the low 13 mantissa bits become zero."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_weights(decim: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(W_hi, W_lo), each [Mp, RP] f32 with Mp = 8 * ceil(M / 8): W zero-padded
+    to the kernel's product shape, W_hi = tf32(W), W_lo = tf32(W - W_hi).
+    W - W_hi is exact in f32; its TF32 rounding drops at most two of W's 24
+    significant bits (the kernel's third pass, x_hi * W_lo, needs a TF32
+    operand)."""
     from rtl_sdr_scanner_tpu_torch.ops.ddc import plan_stage
 
     poly = plan_stage(1, decim).poly_kernel[0]  # [M, R]
-    rp = -(-poly.shape[1] // QB) * QB
-    w = torch.zeros((decim, rp), dtype=torch.float32)
-    w[:, : poly.shape[1]] = torch.from_numpy(poly)
-    return w.to(device)
+    w = np.zeros((-(-decim // 8) * 8, RP), dtype=np.float32)
+    w[:decim, : poly.shape[1]] = poly
+    hi = tf32_round(w)
+    return hi, tf32_round(w - hi)
+
+
+def pack_fragments(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """[Mp, RP] halves -> [Mp / 8, RP / 8, 32, 4]: for k-step kk, n-tile nt
+    and lane l (group g = l // 4, thread t = l % 4), the B operands of
+    ``mma.m16n8k8`` TF32, W[kk*8 + t][nt*8 + g] and W[kk*8 + t + 4][nt*8 + g],
+    of W_hi then of W_lo."""
+    ks, nt = hi.shape[0] // 8, RP // 8
+    lane = np.arange(32)
+    t, g = lane % 4, lane // 4
+
+    def operands(w):
+        w4 = w.reshape(ks, 8, nt, 8).transpose(0, 2, 1, 3)  # [kk, nt, k in step, n in tile]
+        return w4[:, :, t, g], w4[:, :, t + 4, g]  # each [kk, nt, 32]
+
+    return np.ascontiguousarray(np.stack([*operands(hi), *operands(lo)], axis=-1))
+
+
+@functools.lru_cache(maxsize=32)
+def _weights(decim: int, device: torch.device) -> torch.Tensor:
+    """The kernel's B fragments of W_hi and W_lo on device, uploaded once
+    (``plan_stage`` is a function of (interp, decim) alone)."""
+    return torch.from_numpy(pack_fragments(*split_weights(decim))).to(device)
 
 
 def stage_apply_fir(
@@ -74,8 +107,8 @@ def stage_apply_fir(
 
     On a CUDA tensor this launches the kernel (and counts the launch in
     ``stage_apply_fir.launches``); on a CPU tensor it runs the plain version.
-    Sizes the kernel does not take (too many rows, a window larger than a
-    block's shared memory) come back as a launch error, which raises.
+    Sizes the kernel does not take (a window larger than a block's shared
+    memory) come back as a launch error, which raises.
     """
     if x.device.type == "cpu":
         return stage_apply_fir_plain(x, tail, plan)
@@ -99,14 +132,15 @@ def stage_apply_fir(
     lib = library()
     out_len = n // m
     y = torch.empty((b, two, out_len), dtype=torch.float32, device=x.device)
+    new_tail = torch.empty((b, two, t), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fir_decimate(
-        x.data_ptr(), tail.data_ptr(), w.data_ptr(), y.data_ptr(),
-        b * two, n, t, m, w.shape[1], out_len, stream,
+        x.data_ptr(), tail.data_ptr(), w.data_ptr(), y.data_ptr(), new_tail.data_ptr(),
+        b * two, n, t, m, plan.poly_rows, out_len, stream,
     )
     check(rc, "fir_decimate")
     stage_apply_fir.launches += 1
-    return y, _new_tail(x, tail)
+    return y, new_tail
 
 
 stage_apply_fir.launches = 0

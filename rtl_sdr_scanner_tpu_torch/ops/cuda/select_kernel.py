@@ -21,7 +21,38 @@ from rtl_sdr_scanner_tpu_torch.ops.detect import (
     top_k_exact,
 )
 
-SEG_W = 1024  # bins per segment of the kernel's table
+GROUPS = 32  # groups of leaves in the kernel's table (one a lane of its warp)
+LEAF_MIN = 32  # bins a leaf at least (one a lane)
+FFT_MULTIPLE = GROUPS * LEAF_MIN  # fft must be a multiple: whole groups of whole leaves
+MAX_LEAVES = 1024  # leaves widen (doubling) while a row has more
+MAX_K_SEP = 32  # margin winners: the kernel tests a bin against the zones, a lane a zone
+
+
+def leaf_width(fft: int) -> int:
+    """Bins a leaf of the kernel's two-level table for rows of ``fft`` bins:
+    32 (one a lane), doubled while the row has more than MAX_LEAVES leaves
+    and the leaves still form whole groups (fft 131072: 128)."""
+    width = LEAF_MIN
+    while fft // width > MAX_LEAVES and (fft // width) % (2 * GROUPS) == 0:
+        width *= 2
+    return width
+
+
+def check_args(rows: torch.Tensor, top_k: int, k_sep: int, submargin: int) -> None:
+    """Raise ValueError on what the kernel does not take."""
+    if rows.dtype not in (torch.float32, torch.bfloat16) or rows.ndim != 2:
+        raise ValueError(f"fused_selection: want [R, fft] f32/bf16, got {rows.dtype} {tuple(rows.shape)}")
+    fft = rows.shape[1]
+    if fft % FFT_MULTIPLE != 0 or not 1 <= top_k <= fft or not 1 <= k_sep <= MAX_K_SEP or submargin < 0:
+        raise ValueError(
+            f"fused_selection: fft {fft} must be a multiple of {FFT_MULTIPLE}, 1 <= top_k <= fft, "
+            f"1 <= k_sep <= {MAX_K_SEP}, submargin >= 0"
+        )
+    if not rows.is_contiguous() or rows.data_ptr() % 16 != 0:
+        raise ValueError("fused_selection: rows must be contiguous and 16-byte aligned")
+
+
+_NEG = {dtype: float(torch.tensor(SUPPRESSED, dtype=dtype)) for dtype in (torch.float32, torch.bfloat16)}
 
 Selection = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -48,13 +79,8 @@ def fused_selection(
         return fused_selection_plain(rows, start_level, top_k, k_sep, submargin)
     if rows.device.type != "cuda":
         raise ValueError(f"fused_selection: unsupported device {rows.device}")
-    if rows.dtype not in (torch.float32, torch.bfloat16) or rows.ndim != 2:
-        raise ValueError(f"fused_selection: want [R, fft] f32/bf16, got {rows.dtype} {tuple(rows.shape)}")
+    check_args(rows, top_k, k_sep, submargin)
     n_rows, fft = rows.shape
-    if fft % SEG_W != 0 or fft < top_k or not rows.is_contiguous():
-        raise ValueError(f"fused_selection: fft {fft} must be a multiple of {SEG_W}, rows contiguous")
-    if 2 * submargin + 1 > SEG_W:
-        raise ValueError("fused_selection: the suppression zone must span <= 2 segments")
     level = start_level.to(device=rows.device, dtype=torch.float32).reshape(1).contiguous()
     from rtl_sdr_scanner_tpu_torch.ops.cuda.build import check, library
 
@@ -65,12 +91,11 @@ def fused_selection(
     sep_val = torch.empty((n_rows, k_sep), dtype=rows.dtype, device=dev)
     sep_idx = torch.empty((n_rows, k_sep), dtype=torch.int32, device=dev)
     count = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    neg = float(torch.tensor(SUPPRESSED, dtype=rows.dtype))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_selection(
         rows.data_ptr(), int(rows.dtype == torch.bfloat16), level.data_ptr(),
         top_val.data_ptr(), top_idx.data_ptr(), sep_val.data_ptr(), sep_idx.data_ptr(),
-        count.data_ptr(), n_rows, fft, top_k, k_sep, submargin, neg, stream,
+        count.data_ptr(), n_rows, fft, leaf_width(fft), top_k, k_sep, submargin, _NEG[rows.dtype], stream,
     )
     check(rc, "fused_selection")
     fused_selection.launches += 1

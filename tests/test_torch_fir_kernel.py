@@ -68,15 +68,54 @@ def test_v1_stage_route_matches_jax(interp, decim):
     np.testing.assert_array_equal(ttail.numpy(), np.asarray(jtail))
 
 
+DECIMS = (8, 25, 32, 40, 75, 125)  # every decimation of a real chain (threshold 125)
+
+
 def test_kernel_geometry():
-    """The kernel's weights for every decimation a real chain has (threshold
-    125): W [M, R] zero-padded to Rp, a multiple of the register tile."""
-    for m in (8, 25, 32, 40, 75, 125):
-        w = tfir._weights(m, torch.device("cpu"))
+    """The kernel's product shape for every decimation of a real chain:
+    W [M, R] zero-padded to [Mp, RP], Mp = M rounded up to the k-step of 8,
+    RP = 40 = 5 n-tiles of 8 taps (R = 34 at every M); the packed B
+    fragments put W_hi[kk*8 + t][nt*8 + g] and W_hi[kk*8 + t + 4][nt*8 + g]
+    (then W_lo's) at lane 4g + t."""
+    for m in DECIMS:
         plan = tddc.plan_stage(1, m)
-        assert w.shape == (m, -(-plan.poly_rows // tfir.QB) * tfir.QB)
-        np.testing.assert_array_equal(w[:, : plan.poly_rows].numpy(), plan.poly_kernel[0])
-        assert not w[:, plan.poly_rows :].any()
+        hi, lo = tfir.split_weights(m)
+        mp = -(-m // 8) * 8
+        assert hi.shape == lo.shape == (mp, tfir.RP) and plan.poly_rows <= tfir.RP
+        assert not hi[m:].any() and not hi[:, plan.poly_rows :].any() and not lo[m:].any()
+        frag = tfir._weights(m, torch.device("cpu")).numpy()
+        assert frag.shape == (mp // 8, tfir.RP // 8, 32, 4)
+        for kk, nt, lane in ((0, 0, 0), (mp // 8 - 1, 4, 31), (mp // 8 // 2, 2, 13)):
+            g, t = lane // 4, lane % 4
+            k, n = kk * 8 + t, nt * 8 + g
+            np.testing.assert_array_equal(frag[kk, nt, lane], [hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]])
+
+
+@pytest.mark.parametrize("m", DECIMS)
+def test_weight_split_is_tf32(m):
+    """W_hi and W_lo are TF32 values (the low 13 mantissa bits zero); W_hi +
+    (W - W_hi) == W exactly in f32, and W_lo = tf32(W - W_hi) keeps all but
+    at most the lowest 2 of W's 24 significant bits: |W - W_hi - W_lo| <=
+    2^-22 |W| (two 11-bit TF32 halves cannot hold 24 bits exactly)."""
+    plan = tddc.plan_stage(1, m)
+    hi, lo = tfir.split_weights(m)
+    w = np.zeros_like(hi)
+    w[:m, : plan.poly_rows] = plan.poly_kernel[0]
+    for half in (hi, lo):
+        assert half.dtype == np.float32 and not (half.view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi + (w - hi), w)
+    np.testing.assert_array_equal(lo, tfir.tf32_round(w - hi))
+    resid = np.abs(w.astype(np.float64) - hi - lo)
+    assert (resid <= 2.0**-22 * np.abs(w)).all()
+    assert (hi + lo == w).mean() > 0.7  # most taps split exactly
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """tf32_round is ``cvt.rna.tf32.f32``: nearest, ties away from zero."""
+    one_ulp = 2.0**-10  # TF32's spacing at 1.0
+    x = np.array([1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4], np.float32)
+    want = np.array([1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 1.0], np.float32)
+    np.testing.assert_array_equal(tfir.tf32_round(x), want)
 
 
 def test_wrapper_counts_nothing_on_the_cpu():

@@ -120,30 +120,48 @@ def test_switched_on_kernels_raise_on_what_they_do_not_take(dev):
         )
 
 
-@pytest.mark.parametrize("decim", [8, 32, 75, 125])
-def test_fir_kernel_matches_plain(decim, dev):
+def _at_offset(a: np.ndarray, dev, offset: int) -> torch.Tensor:
+    """a on the card as a contiguous tensor ``offset`` floats into a larger
+    buffer (offset 1-3: its data pointer is not 16-byte aligned)."""
+    buf = torch.zeros(a.size + offset + 3, dtype=torch.float32, device=dev)
+    t = buf[offset : offset + a.size].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4 * (offset % 4)
+    return t
+
+
+@pytest.mark.parametrize("case", ["ragged", "short", "offset"])
+@pytest.mark.parametrize("decim", [8, 25, 32, 40, 75, 125])
+def test_fir_kernel_matches_plain(decim, case, dev):
     """<= 2e-5 * max against the plain version (f32 sum order), the new
-    tail exact, over two calls carrying the tail; 6 rows of a ragged last
-    tile (out_len not a multiple of the kernel's 288-output tile)."""
+    tail exact, over three calls carrying the tail, at every decimation of
+    a real chain. ragged: 1000 outputs, not a whole number of the kernel's
+    tiles; short: 8 outputs, a chunk shorter than the tail; offset: x and
+    tail at 1 and 3 floats into larger buffers (16-byte copies must
+    realign)."""
     ddc.no_tf32()
     plan = ddc.plan_stage(1, decim)
     rng = np.random.default_rng(decim)
-    tail = torch.from_numpy(rng.standard_normal((3, 2, plan.tail_len)).astype(np.float32)).to(dev)
-    ptail = tail
-    for _ in range(2):
-        x = torch.from_numpy(rng.standard_normal((3, 2, decim * 1000)).astype(np.float32)).to(dev)
+    out = 8 if case == "short" else 1000
+    x_off, t_off = (1, 3) if case == "offset" else (0, 0)
+    tail0 = rng.standard_normal((3, 2, plan.tail_len)).astype(np.float32)
+    tail, ptail = _at_offset(tail0, dev, t_off), torch.from_numpy(tail0).to(dev)
+    for _ in range(3):
+        x = _at_offset(rng.standard_normal((3, 2, decim * out)).astype(np.float32), dev, x_off)
         before = fir_kernel.stage_apply_fir.launches
         got, tail = fir_kernel.stage_apply_fir(x, tail, plan)
         torch.cuda.synchronize()
         assert fir_kernel.stage_apply_fir.launches == before + 1
         want, ptail = fir_kernel.stage_apply_fir_plain(x, ptail, plan)
-        assert got.shape == want.shape == (3, 2, 1000)
+        assert got.shape == want.shape == (3, 2, out)
         assert (got - want).abs().max().item() <= 2e-5 * want.abs().max().item()
         assert torch.equal(tail, ptail)
+        if case == "offset":
+            tail = _at_offset(tail.cpu().numpy(), dev, t_off)
 
 
-def _rows(fft, rng):
-    rows = rng.normal(0.0, 6.0, size=(12, fft)).astype(np.float32)
+def _rows(fft, rng, n_rows):
+    rows = rng.normal(0.0, 6.0, size=(max(n_rows, 12), fft)).astype(np.float32)
     rows[1:3] = np.round(rows[1:3] / 2.0)  # exact ties
     for c in (100, 1020, 1024, fft // 2, fft - 1):  # clusters across segment borders
         rows[3:5, max(0, c - 60) : c + 60] += 20.0
@@ -151,19 +169,22 @@ def _rows(fft, rng):
     rows[6] = -3.0e38  # fully masked
     rows[7, fft // 3 :] = -3.0e38
     rows[8, :100] = LEVEL  # exactly at the level
-    return rows
+    rows[9:12] = rows[1]  # rows of one block (4 a block) whose winners tie, within and across rows
+    rows[12::2] = np.round(rows[12::2] / 3.0)  # more tied rows, over many blocks
+    return rows[:n_rows]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fft,top_k,k_sep,submargin", [
-    (1024, 64, 16, 52),  # zones cover the row: the all-suppressed corner
-    (2048, 8, 4, 17),
-    (8192, 64, 16, 52),
-    (131072, 64, 16, 52),
-    (16384, 64, 16, 110),  # the RTL-SDR path: group 219
+@pytest.mark.parametrize("fft,top_k,k_sep,submargin,n_rows", [
+    (1024, 64, 16, 52, 12),  # zones cover the row: the all-suppressed corner
+    (2048, 8, 4, 17, 12),
+    (8192, 64, 16, 52, 12),
+    (131072, 64, 16, 52, 12),
+    (16384, 64, 16, 110, 12),  # the RTL-SDR path: group 219
+    (16384, 64, 16, 110, 1100),  # more rows than one wave of 256-thread blocks a row
 ])
-def test_selection_kernel_bit_exact(fft, top_k, k_sep, submargin, dtype, dev):
-    t = torch.from_numpy(_rows(fft, np.random.default_rng(fft))).to(dtype).to(dev)
+def test_selection_kernel_bit_exact(fft, top_k, k_sep, submargin, n_rows, dtype, dev):
+    t = torch.from_numpy(_rows(fft, np.random.default_rng(fft), n_rows)).to(dtype).to(dev)
     level = torch.tensor(LEVEL, device=dev)
     before = select_kernel.fused_selection.launches
     got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)

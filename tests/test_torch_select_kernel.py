@@ -80,3 +80,27 @@ def test_small_k_and_margin():
     got = tsel.fused_selection(torch.from_numpy(rows), torch.tensor(LEVEL), 8, 4, 17)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_kernel_table_limits():
+    """The kernel's two-level table: leaves of 32 bins (one a lane) widened
+    while a row has more than 1024 of them, always whole groups of 32
+    leaves; the wrapper takes any fft that is a multiple of 1024, any
+    submargin (a zone may cover many leaves) and up to 32 margin winners
+    (the reference's K_SEP is 16), and refuses the rest."""
+    assert tsel.FFT_MULTIPLE == 1024
+    for fft in (1024, 2048, 3072, 8192, 16384, 32768, 65536, 131072, 262144, 1 << 20, 33 * 1024):
+        w = tsel.leaf_width(fft)
+        assert w % 32 == 0 and fft % w == 0 and (fft // w) % tsel.GROUPS == 0
+        assert fft // w <= 1024 or (fft // w) % (2 * tsel.GROUPS) != 0
+    assert tsel.leaf_width(16384) == 32 and tsel.leaf_width(131072) == 128
+    rows = torch.zeros((2, 2048))
+    tsel.check_args(rows, 64, 16, 2048)  # a zone wider than the row is fine
+    for bad in (torch.zeros((2, 1536)), torch.zeros((2, 2048), dtype=torch.float16), torch.zeros(2048),
+                torch.zeros((2048, 2)).t(), torch.zeros(2 * 2048 + 1)[1:].view(2, 2048)):
+        with pytest.raises(ValueError):
+            tsel.check_args(bad, 64, 16, 52)
+    tsel.check_args(rows, 64, tsel.MAX_K_SEP, 52)
+    for top_k, k_sep, submargin in ((0, 16, 52), (4096, 16, 52), (64, 0, 52), (64, 33, 52), (64, 16, -1)):
+        with pytest.raises(ValueError):
+            tsel.check_args(rows, top_k, k_sep, submargin)
