@@ -6,14 +6,14 @@
 1. Builds the hand-written kernels from ``rtl_sdr_scanner_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/kernels``).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes each path gives it: the PSD within 0.02 dB on every bin within
+   shapes each path and the runtime session give it: the PSD within 0.02 dB on every bin within
    60 dB of its frame's peak (median |diff| <= 1e-3 dB) and the selection
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
    frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
    262144), decimations 1-3, odd frame counts; the decimating FIR within
    2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
-   decimating stages and at M = 125 and 32.
+   and the session's decimating stages and at M = 125 and 32.
 3. Path 1: ``make_banded_fused_step`` at full width, 24 bands x 45 frames x
    fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz (the
    modulated-taps DDC; its decimating stage 2 through the FIR kernel),
@@ -30,8 +30,25 @@
 5. Interpolating stages on the card (DDC only, 4 bands, 2 chunks): 2.0 Msps
    -> 32 kHz (v1, stage (2, 125)) and 10 Msps -> 32 kHz (modulated taps,
    stage 2 (2, 25)), each within 1 LSB of the same call on the CPU.
-6. Times kernel, plain version, library call and bound for every kernel at
-   both paths' shapes (``ms_by_path`` and the like in the record; the
+6. The runtime session, the user's entry points: an 8.2 s RTL-SDR capture
+   (cs8 at 2.4 Msps, noise and an FM signal at +250 kHz keyed 3-6 s) behind
+   one replay device with one parked range, 4 recorder slots at 32 kHz,
+   default Tunables. ``Scanner.run_to_completion()`` on the card (the PSD
+   and selection kernels once a block, the FIR once a chunk for each stage
+   while a slot records), then on the CPU through the plain versions: the
+   two MQTT payload streams must agree (same topics in the same order,
+   equal headers, IQ within 1 LSB, spectrogram bins within 1), and the
+   transmission must be recorded at its frequency and FM-demodulate to its
+   800 Hz tone. Then ``runtime.main.run(config)`` on a worker thread,
+   stopped through ``main._is_running`` once its scanner has drained (rc 0,
+   payloads as the card's). Prints ms per block split into device (CUDA
+   events around the scan and DDC dispatches: a span that includes the
+   card's waits for the host's launches) and host (the rest of the wall),
+   and the real-time factor (stream seconds per wall second), serial and
+   with ``pipelined_ingest``.
+7. Times kernel, plain version, library call and bound for every kernel at
+   both paths' and the session's shapes (``ms_by_path`` and the like in
+   the record, ``runtime`` for the session's; the
    top-level numbers are path 1's for PSD and selection, path 2's for the
    FIR). ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
@@ -39,12 +56,12 @@
    enqueue. It comes last: once the profiler has traced, every later
    launch of the process is slower.
 
-Each path runs with every kernel's launch count set to 0 just before it and
-read just after. Every failure raises. The last lines are the card's name
-and power limit, the kernels' JSON record and ``{"ok": true, "device":
+Each path (and the runtime phase's card run) runs with every kernel's
+launch count set to 0 just before it and read just after. Every failure
+raises. The last lines are the card's name and power limit, the kernels' JSON record and ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
 
-``--kernels-only`` runs steps 1, 2 and 6 and ends with the kernels' record;
+``--kernels-only`` runs steps 1, 2 and 7 and ends with the kernels' record;
 ``--root DIR`` takes the package from another checkout (an older tree
 unpacked under ``build/``), so that two trees' kernels are timed by the
 same code on the same card: old, new, new, old.
@@ -59,6 +76,8 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -100,6 +119,17 @@ class Geometry:
 # block 3 starts at 2592 ms (path 1) and 3072 ms (path 2)
 PATH1 = Geometry("path1", "path 1 (20.48 Msps, modulated-taps DDC)", 20_480_000, 45, 16_000, -1_000_000)
 PATH2 = Geometry("path2", "path 2 (2.4 Msps -> 32 kHz, v1 DDC)", 2_400_000, 75, 32_000, -600_000)
+# the runtime phase's capture: an RTL-SDR at 2.4 Msps parked on one 2 MHz
+# range, an FM signal keyed after the 2 s noise learning
+RT_RATE = 2_400_000
+RT_SECONDS = 8.2
+RT_CENTER = 145_000_000
+RT_SHIFT = 250_000
+RT_KEY = (3.0, 6.0)
+RT_TONE = 800.0
+# the session's kernel shapes (one band, 4 slots), timed beside the paths'
+RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 32 kHz)", RT_RATE, 75, 32_000,
+                   -600_000, bands=1, slots=4)
 # (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes
 PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3))
 
@@ -398,11 +428,12 @@ def fir_cases(geos):
     return cases + [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
 
 
-def check_fir(geos, rows: int, dev) -> float:
+def check_fir(geos, dev) -> float:
     """The decimating FIR against its plain version at every stage a path
-    sends through it (path 1: stage 2 (1, 40) on 34,560 samples a chunk;
-    path 2: (1, 75) on 1,228,800; 48 band x slot rows x 2 components) and at
-    M = 125 and 32; returns the max |diff|."""
+    sends through it, on its band x slot rows x 2 components (path 1: stage
+    2 (1, 40) on 34,560 samples a chunk, 48 rows; path 2: (1, 75) on
+    1,228,800, 48 rows; the session: the same stage on 4 rows) and at M =
+    125 and 32 (48 rows); returns the max |diff|."""
     from rtl_sdr_scanner_tpu_torch.ops import ddc
     from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel
 
@@ -410,8 +441,9 @@ def check_fir(geos, rows: int, dev) -> float:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     err = 0.0
-    for _, plan, n in fir_cases(geos):
+    for geo, plan, n in fir_cases(geos):
         m = plan.decim
+        rows = geo.bands * geo.slots if geo is not None else PATH2.bands * PATH2.slots
         x = torch.randn((rows, 2, n), generator=gen, device=dev)
         tail = torch.randn((rows, 2, plan.tail_len), generator=gen, device=dev)
         got, got_tail = fir_kernel.stage_apply_fir(x, tail, plan)
@@ -439,11 +471,11 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
     ddc.no_tf32()
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    rows = timed.bands * timed.slots
     times = {}
     for geo, plan, n in fir_cases(geos):
         if geo is None:
             continue
+        rows = geo.bands * geo.slots
         m, out_len = plan.decim, n // plan.decim
         x = torch.randn((rows, 2, n), generator=gen, device=dev)
         tail = torch.randn((rows, 2, plan.tail_len), generator=gen, device=dev)
@@ -626,6 +658,269 @@ def check_interpolating_stages(dev) -> None:
             raise RuntimeError(f"interpolating chain at {rate}: card and CPU differ by {diff.max()} LSB")
 
 
+def write_capture(path: Path, rate: int, seconds: float, shift: float, key, seed: int = 5) -> None:
+    """cs8 capture: 0.01 rms complex noise and, while key[0] <= t < key[1],
+    a 0.4-amplitude FM signal at ``shift`` Hz (an RT_TONE Hz tone at 3 kHz
+    deviation: band-wide, as the 21-bin smoothing needs), one second at a
+    time."""
+    rng = np.random.default_rng(seed)
+    n = int(rate * seconds)
+    with open(path, "wb") as f:
+        for s0 in range(0, n, rate):
+            t = (s0 + np.arange(min(rate, n - s0))) / rate
+            x = 0.01 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
+            phase = 2 * np.pi * shift * t + (3000.0 / RT_TONE) * (1 - np.cos(2 * np.pi * RT_TONE * t))
+            x += 0.4 * np.exp(1j * phase) * ((t >= key[0]) & (t < key[1]))
+            pairs = np.stack([x.real, x.imag], axis=-1) * 127.0
+            np.clip(np.round(pairs), -128, 127).astype(np.int8).tofile(f)
+
+
+def runtime_config(capture: Path, rate: int, center: int, **tunables) -> dict:
+    """One replay device parked on one range (width <= the hop split rate),
+    4 recorder slots, the reference's recording defaults (32 kHz), logs at
+    warn on the console only."""
+    half = 1_000_000 if rate >= 2_000_000 else 100_000
+    return {
+        "devices": [{
+            "enabled": True, "serial": "replay0", "driver": "replay", "sample_rate": rate,
+            "start_recording_level": 8, "stop_recording_level": 5, "gains": [],
+            "ranges": [{"start": center - half, "stop": center + half}],
+            "file": str(capture), "file_format": "cs8",
+        }],
+        "ignored_frequencies": [],
+        "output": {"color_log_enabled": False, "console_log_level": "warn", "file_log_level": "warn"},
+        "recording": {"max_noise_time_ms": 2000, "min_sample_rate": 32000, "min_time_ms": 2000, "step": 2500},
+        "tunables": {"log_file_name": "", **tunables},
+        "version": 2,
+        "workers": 4,
+    }
+
+
+def compare_payloads(want: list, got: list) -> dict:
+    """Two MQTT payload streams [(topic, bytes)]: the same topics in the same
+    order, equal transmission and spectrogram headers, IQ within 1 LSB and
+    spectrogram bins within 1. Raises AssertionError where they differ;
+    returns counts and the largest differences."""
+    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_spectrogram, decode_transmission
+
+    assert [t for t, _ in got] == [t for t, _ in want], "payload topics or their order differ"
+    stats = dict(payloads=len(want), transmissions=0, iq_samples=0, iq_differ=0, iq_max_lsb=0, spectro_max=0)
+    for i, ((topic, a), (_, b)) in enumerate(zip(want, got)):
+        if topic.endswith("/transmission/uint8"):
+            ha, hb = decode_transmission(a), decode_transmission(b)
+            assert ha[:4] == hb[:4] and ha[4].shape == hb[4].shape, f"payload {i}: header {ha[:4]} != {hb[:4]}"
+            d = np.abs(ha[4].astype(np.int32) - hb[4].astype(np.int32))
+            stats["transmissions"] += 1
+            stats["iq_samples"] += d.size
+            stats["iq_differ"] += int((d > 0).sum())
+            stats["iq_max_lsb"] = max(stats["iq_max_lsb"], int(d.max(initial=0)))
+        else:
+            ha, hb = decode_spectrogram(a), decode_spectrogram(b)
+            assert ha[:4] == hb[:4], f"payload {i}: spectrogram header {ha[:4]} != {hb[:4]}"
+            d = np.abs(ha[4].astype(np.int32) - hb[4].astype(np.int32))
+            stats["spectro_max"] = max(stats["spectro_max"], int(d.max(initial=0)))
+    assert stats["iq_max_lsb"] <= 1, f"IQ differs by {stats['iq_max_lsb']} LSB"
+    assert stats["spectro_max"] <= 1, f"spectrogram bins differ by {stats['spectro_max']}"
+    return stats
+
+
+def recorded_tone(payloads: list, frequency: int, rate: int, step: int = 2500):
+    """(recording center, its sample count, the FM-demodulated tone in Hz) of
+    the most-recorded transmission within one tuning step of ``frequency``."""
+    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_transmission
+
+    by_center = {}
+    for topic, p in payloads:
+        if topic.endswith("/transmission/uint8"):
+            _, start, stop, r, iq = decode_transmission(p)
+            assert r == rate, f"transmission at {r} Hz, want {rate}"
+            by_center.setdefault((start + stop) // 2, []).append(iq)
+    near = [c for c in by_center if abs(c - frequency) <= step]
+    assert near, f"no transmission within {step} Hz of {frequency}: {sorted(by_center)}"
+    center = max(near, key=lambda c: sum(len(x) for x in by_center[c]))
+    iq = np.concatenate(by_center[center])
+    z = iq[:, 0].astype(np.float32) + 1j * iq[:, 1].astype(np.float32)
+    z = z[len(z) // 4 :]
+    d = np.angle(z[1:] * np.conj(z[:-1]))
+    sp = np.abs(np.fft.rfft(d - d.mean()))
+    return center, len(iq), float(np.argmax(sp) / len(d) * rate)
+
+
+class SessionTimer:
+    """Times a session's blocks: CUDA events around each scan and DDC
+    dispatch (device ms), the host clock around each synchronised
+    ``process_block`` (wall ms); host ms = wall - device."""
+
+    def __init__(self, session):
+        self.block = 0
+        self.spans = []  # (block, start event, end event)
+        self.walls = []
+        self.ddc_calls = 0
+        for name in ("_scan_step", "_ddc_step"):
+            setattr(session, name, self._timed(getattr(session, name), name == "_ddc_step"))
+        process = session.process_block
+
+        def process_block(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = process(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.walls.append((time.perf_counter() - t0) * 1e3)
+            self.block += 1
+            return out
+
+        session.process_block = process_block
+
+    def _timed(self, fn, is_ddc: bool):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.spans.append((self.block, start, end))
+            self.ddc_calls += is_ddc
+            return out
+
+        return call
+
+    def device_ms(self) -> list:
+        torch.cuda.synchronize()
+        per_block = [0.0] * max(self.block, 1)
+        for b, start, end in self.spans:
+            per_block[min(b, len(per_block) - 1)] += start.elapsed_time(end)
+        return per_block
+
+
+def run_scanner(config: dict, device, timer: bool = False):
+    """One replay scan through ``Scanner.run_to_completion()``: (payloads,
+    session, wall seconds, SessionTimer or None)."""
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
+
+    cfg = Config(json.loads(json.dumps(config)))
+    mqtt = NullMqtt()
+    mqtt.keep_payloads = True
+    scanner = Scanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device)
+    clock = SessionTimer(scanner.device) if timer else None
+    t0 = time.perf_counter()
+    scanner.run_to_completion()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return mqtt.published, scanner.device, time.perf_counter() - t0, clock
+
+
+def run_main(config_path: Path, device=None, timeout_s: float = 300.0):
+    """``runtime.main.run(config)`` on a worker thread, as a user runs it;
+    stopped through ``main._is_running`` once its scanner has drained the
+    replay. Returns (rc, payloads)."""
+    from rtl_sdr_scanner_tpu_torch.runtime import main as rt_main
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+
+    made, mqtts, result = [], [], []
+    real_scanner, real_make_mqtt = rt_main.Scanner, rt_main.make_mqtt
+
+    class Watched(real_scanner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    def make_mqtt(config):
+        mqtt = NullMqtt()
+        mqtt.keep_payloads = True
+        mqtts.append(mqtt)
+        return mqtt
+
+    rt_main.Scanner, rt_main.make_mqtt = Watched, make_mqtt
+    rt_main._is_running = True
+    worker = threading.Thread(target=lambda: result.append(rt_main.run(str(config_path), device)), daemon=True)
+    try:
+        worker.start()
+        deadline = time.time() + timeout_s
+        drained = lambda: made and made[0]._thread is not None and not made[0]._thread.is_alive()
+        while worker.is_alive() and not drained() and time.time() < deadline:
+            time.sleep(0.05)
+        if not drained():
+            raise RuntimeError(f"main.run: the scanner did not drain the replay in {timeout_s} s")
+    finally:
+        rt_main._is_running = False
+        worker.join(timeout=60)
+        rt_main.Scanner, rt_main.make_mqtt = real_scanner, real_make_mqtt
+    if worker.is_alive() or not result:
+        raise RuntimeError("main.run did not return after main._is_running was cleared")
+    if made[0].failed:
+        raise RuntimeError("main.run: the scanner thread failed")
+    return result[0], mqtts[0].published
+
+
+def run_runtime(dev, card: str) -> dict:
+    """The runtime phase (docstring step 6); returns the kernels' launch
+    counts of its card run."""
+    log("---- runtime session (Scanner / main.run)")
+    wrappers = kernel_wrappers()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rt_") as tmp:
+        capture = Path(tmp) / "capture.cs8"
+        write_capture(capture, RT_RATE, RT_SECONDS, RT_SHIFT, RT_KEY)
+        config = runtime_config(capture, RT_RATE, RT_CENTER)
+
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        card_payloads, session, wall_s, clock = run_scanner(config, dev, timer=True)
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        cfg, ddc_cfg = session.scan_cfg, session.ddc_cfg
+        blocks = clock.block
+        log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {cfg.frames_per_block} a block, "
+            f"{ddc_cfg.num_slots} slots, DDC stages {[(p.interp, p.decim) for p in ddc_cfg.plans]}, "
+            f"{ddc_cfg.num_chunks} chunks; {blocks} blocks, DDC dispatched in {clock.ddc_calls}")
+        log(f"launches over the card run: {launches}")
+        want = {
+            "psd_frames_int8": blocks,
+            "fused_selection": blocks,
+            "stage_apply_fir": clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+        }
+        if launches != want or not all(launches.values()):
+            raise RuntimeError(f"session launches {launches}, want {want} (all > 0)")
+
+        cpu_payloads, _, cpu_s, _ = run_scanner(config, torch.device("cpu"))
+        stats = compare_payloads(cpu_payloads, card_payloads)
+        log(f"card vs CPU payloads: {stats} (CPU run {cpu_s:.1f} s)")
+        center, n_rec, tone = recorded_tone(card_payloads, RT_CENTER + RT_SHIFT, 32_000)
+        log(f"recorded {n_rec} samples at {center} Hz (planted {RT_CENTER + RT_SHIFT}), "
+            f"FM-demodulated tone {tone:.1f} Hz (planted {RT_TONE})")
+        if abs(tone - RT_TONE) >= 40 or n_rec < 2 * 32_000:
+            raise RuntimeError(f"the planted transmission was not recorded: {n_rec} samples, tone {tone} Hz")
+
+        config_path = Path(tmp) / "config.json"
+        config_path.write_text(json.dumps(config))
+        rc, main_payloads = run_main(config_path)
+        if rc != 0:
+            raise RuntimeError(f"main.run returned {rc}")
+        main_stats = compare_payloads(card_payloads, main_payloads)
+        log(f"main.run: rc {rc}, {main_stats['payloads']} payloads, as the card's Scanner run")
+
+        stream_s = blocks * cfg.block_samples / cfg.sample_rate
+        device = clock.device_ms()
+        steady = slice(1, None)
+        wall_ms = float(np.mean(clock.walls[steady]))
+        device_ms = float(np.mean(device[steady]))
+        log(f"runtime serial: {wall_ms:.2f} ms per block (blocks 1..{blocks - 1}; first {clock.walls[0]:.1f}), "
+            f"device {device_ms:.2f} ms (CUDA events around the dispatches: the span includes the card's "
+            f"waits for launches), host {wall_ms - device_ms:.2f} ms; real-time factor "
+            f"{stream_s / wall_s:.2f} ({stream_s:.3f} s of stream in {wall_s:.3f} s, {blocks} blocks of "
+            f"{cfg.block_samples / cfg.sample_rate * 1e3:.1f} ms) on {card}")
+        log(f"runtime serial, per block: wall {[round(w, 2) for w in clock.walls]} ms, device "
+            f"{[round(d, 2) for d in device]} ms")
+
+        piped = runtime_config(capture, RT_RATE, RT_CENTER, pipelined_ingest=True)
+        piped_payloads, _, piped_s, piped_clock = run_scanner(piped, dev, timer=True)
+        piped_device = float(np.sum(piped_clock.device_ms()))
+        n = sum(1 for t, _ in piped_payloads if t.endswith("/transmission/uint8"))
+        log(f"runtime pipelined_ingest: real-time factor {stream_s / piped_s:.2f} ({stream_s:.3f} s of "
+            f"stream in {piped_s:.3f} s), device {piped_device / blocks:.2f} ms per block, {n} "
+            f"transmission payloads (serial {stats['transmissions']}) on {card}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="hold and time the kernels, drive no path")
@@ -658,17 +953,25 @@ def main() -> int:
     lib_path = build.build(verbose=True)
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    from rtl_sdr_scanner_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise RuntimeError("the native host codecs did not build (g++)")
+    log(f"native host codecs built and loaded in {time.perf_counter() - t0:.1f} s: {native.lib_path()}")
 
     geos = (PATH1, PATH2)
-    psd_err, sel_err = check_psd_and_selection(geos, dev)
-    fir_err = check_fir(geos, PATH2.bands * PATH2.slots, dev)
+    timed = geos + (RUNTIME,)  # the kernels at every shape the paths and the session give them
+    psd_err, sel_err = check_psd_and_selection(timed, dev)
+    fir_err = check_fir(timed, dev)
     if not args.kernels_only:
         # the paths before any timing: the profiler's tracing, once started,
         # slows every later launch of the process
         launches = {geo.key: run_path(dev, card, geo) for geo in geos}
         check_interpolating_stages(dev)
-    records = time_psd_and_selection(geos, dev, card, psd_err, sel_err)
-    records.append(time_fir(geos, PATH2, dev, card, fir_err))
+        launches["runtime"] = run_runtime(dev, card)
+    records = time_psd_and_selection(timed, dev, card, psd_err, sel_err)
+    records.append(time_fir(timed, PATH2, dev, card, fir_err))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))
@@ -678,6 +981,8 @@ def main() -> int:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
         if r["launches"] == 0:
             raise RuntimeError(f"{r['name']} never launched on the main paths")
+        if r["launches_by_path"]["runtime"] == 0:
+            raise RuntimeError(f"{r['name']} never launched by the runtime session")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": records}))

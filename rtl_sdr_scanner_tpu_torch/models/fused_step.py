@@ -19,7 +19,7 @@ from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import (
     _band_axis,
     _ddc_block_banded,
 )
-from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig, _compact_scan_block
+from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig, _check_device, _compact_scan_block
 from rtl_sdr_scanner_tpu_torch.ops.ddc import no_tf32
 
 # the step's profiler ranges, in the order one block runs them
@@ -65,8 +65,7 @@ def make_banded_fused_step(
         scan_state, spectro_acc, ddc_state, iq, now_ms, keys, valid_mask,
         start_level, spectro_keep, tables,
     ):
-        if iq.device.type != dev.type:
-            raise ValueError(f"step built for {dev}, got iq on {iq.device}")
+        _check_device(dev, iq)
         scan_state, spectro_acc, outs = _compact_scan_block(
             scan_cfg, group_size, top_k, scan_state, spectro_acc, iq, now_ms,
             keys, valid_mask, start_level, spectro_keep,

@@ -1,17 +1,21 @@
-"""The detection pipeline over all bands of a block (port of the JAX
-package's ``models/scan_pipeline.py``, compact mode):
+"""The detection pipeline of a block (port of the JAX package's
+``models/scan_pipeline.py``):
 
   int8 cs8 -> PSD dB -> noise max-hold -> 21-row averager -> 21-bin
-  smoothing -> compact detection -> one packed f32 vector per band.
+  smoothing -> compact detection -> one packed f32 vector per band
+  (compact mode), or the raw and smoothed rows themselves (full-row mode).
 
 Bands are a leading batch dimension ([NB, F, ...]) where the JAX package
-vmaps a single-band function.
+vmaps a single-band function. The single-band steps the runtime session
+dispatches (``make_scan_step``, ``make_compact_scan_step``) take and return
+the JAX package's single-band layouts (no band axis) and run the banded
+code at NB=1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +23,7 @@ from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.constants import DEFAULT, Tunables
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import _band_axis
 from rtl_sdr_scanner_tpu_torch.ops.averager import (
     AveragerState,
     averager_block,
@@ -86,10 +91,28 @@ class ScanConfig:
     def frame_interval_ms(self) -> float:
         return self.fft_size * self.decimator_factor * 1000.0 / self.sample_rate
 
+    def index_to_shift(self, index: int) -> int:
+        """Bin index -> frequency shift from center (sdr_device.cpp:154)."""
+        return int(self.step_hz * (index + 0.5)) - self.sample_rate // 2
+
+    def index_to_frequency(self, index: int, center: int) -> int:
+        return center + self.index_to_shift(index)
+
 
 class ScanState(NamedTuple):
     noise: NoiseState
     averager: AveragerState
+
+
+class ScanOutputs(NamedTuple):
+    """Full-row mode outputs (band axis leading, or none for one band)."""
+
+    raw: torch.Tensor  # [F, fft] power - noise floor (or the NO_DATA sentinel)
+    avg: torch.Tensor  # [F, fft] time+frequency smoothed (or sentinel)
+    spectro_sum: torch.Tensor  # [spectro_size] PSD bin-mean sum over frames
+    noise_ready: torch.Tensor  # bool AFTER this block
+    power: torch.Tensor  # [F, fft] PSD before the noise floor (debug tap,
+    # sdr_device.cpp:175 taps the PSD block output before NoiseLearner)
 
 
 class CompactScanOutputs(NamedTuple):
@@ -102,18 +125,24 @@ class CompactScanOutputs(NamedTuple):
 
 
 def init_scan_state(
-    cfg: ScanConfig, n_bands: int, start_ms: int = 0, device: DeviceLike = None
+    cfg: ScanConfig, n_bands: Optional[int] = None, start_ms: int = 0, device: DeviceLike = None
 ) -> ScanState:
+    """Zero carry: single band (``n_bands`` None, no band axis) or banded."""
     dev = resolve_device(device)
-    return ScanState(
-        noise=init_noise_state(n_bands, cfg.fft_size, start_ms, dev),
-        averager=init_averager_state(n_bands, cfg.fft_size, cfg.grouping_y, dev),
+    state = ScanState(
+        noise=init_noise_state(n_bands or 1, cfg.fft_size, start_ms, dev),
+        averager=init_averager_state(n_bands or 1, cfg.fft_size, cfg.grouping_y, dev),
     )
+    return state if n_bands is not None else _band_axis(state, add=False)
 
 
-def init_spectro_acc(cfg: ScanConfig, n_bands: int, device: DeviceLike = None) -> torch.Tensor:
-    """Device-side spectrogram accumulator [NB, spectro_size] f32."""
-    return torch.zeros((n_bands, cfg.spectro_size), dtype=torch.float32, device=resolve_device(device))
+def init_spectro_acc(
+    cfg: ScanConfig, n_bands: Optional[int] = None, device: DeviceLike = None
+) -> torch.Tensor:
+    """Device-side spectrogram accumulator, [NB, spectro_size] f32 (or
+    [spectro_size] for one band)."""
+    shape = (cfg.spectro_size,) if n_bands is None else (n_bands, cfg.spectro_size)
+    return torch.zeros(shape, dtype=torch.float32, device=resolve_device(device))
 
 
 def _frames_power(cfg: ScanConfig, iq: torch.Tensor) -> torch.Tensor:
@@ -131,6 +160,65 @@ def _frames_power(cfg: ScanConfig, iq: torch.Tensor) -> torch.Tensor:
         power = psd_frames_int8(flat, float(cfg.sample_rate), cfg.fft_size, cfg.decimator_factor)
         return power.reshape(nb, f, cfg.fft_size)
     return psd_frames(pairs_to_complex(iq[:, :, : cfg.fft_size]), float(cfg.sample_rate))
+
+
+def _scan_block(
+    cfg: ScanConfig, state: ScanState, iq: torch.Tensor, now_ms: torch.Tensor
+) -> Tuple[ScanState, ScanOutputs]:
+    """Full-row block over all bands: iq [NB, F, fft*decim, 2] int8 or f32
+    pairs, now_ms [NB, F] i32."""
+    with record_function("scan.psd"):
+        power = _frames_power(cfg, iq)
+    with record_function("scan.noise"):
+        noise_state, raw_rows = noise_block(state.noise, power, now_ms, cfg.noise_learning_ms)
+    with record_function("scan.averager"):
+        avg_state, mean_rows = averager_block(state.averager, raw_rows)
+    with record_function("scan.smoothing"):
+        avg_rows = sliding_average(mean_rows, cfg.grouping_x)
+    with record_function("scan.spectrogram"):
+        spectro = accumulate_frames(power, cfg.spectro_size)
+    state = ScanState(noise_state, avg_state)
+    return state, ScanOutputs(
+        raw=raw_rows, avg=avg_rows, spectro_sum=spectro, noise_ready=state.noise.ready, power=power
+    )
+
+
+def _check_device(dev: torch.device, iq: torch.Tensor) -> None:
+    if iq.device.type != dev.type:
+        raise ValueError(f"step built for {dev}, got iq on {iq.device}")
+
+
+def make_scan_step(cfg: ScanConfig, device: DeviceLike = None):
+    """Single-band full-row step (state, iq [F, fft*decim, 2], now_ms [F])
+    -> (state, ScanOutputs), single-band layouts, on ``device``."""
+    dev = resolve_device(device)
+
+    def step(state: ScanState, iq: torch.Tensor, now_ms: torch.Tensor):
+        _check_device(dev, iq)
+        state, outs = _scan_block(cfg, _band_axis(state, add=True), iq[None], now_ms[None])
+        return _band_axis(state, add=False), _band_axis(outs, add=False)
+
+    return step
+
+
+def make_compact_scan_step(cfg: ScanConfig, group_size: int, top_k: int = 64, device: DeviceLike = None):
+    """Single-band compact step: (state, spectro_acc, iq, now_ms, keys,
+    valid_mask, start_level, spectro_keep) -> (state, spectro_acc,
+    CompactScanOutputs), the JAX signature in single-band layouts on
+    ``device``. start_level is a 0-d f32 tensor on the device (the session
+    makes it once), spectro_keep a Python float (1.0 accumulate, 0.0 reset
+    first); neither costs a host-to-device copy."""
+    dev = resolve_device(device)
+
+    def step(state, spectro_acc, iq, now_ms, keys, valid_mask, start_level, spectro_keep):
+        _check_device(dev, iq)
+        state, spectro_acc, outs = _compact_scan_block(
+            cfg, group_size, top_k, _band_axis(state, add=True), spectro_acc[None], iq[None],
+            now_ms[None], keys, valid_mask, start_level, spectro_keep,
+        )
+        return _band_axis(state, add=False), spectro_acc[0], _band_axis(outs, add=False)
+
+    return step
 
 
 def unpack_compact(packed: np.ndarray, frames: int, top_k: int, key_slots: int):
@@ -159,7 +247,7 @@ def _compact_scan_block(
     keys: torch.Tensor,  # [S] i32 tracked keys
     valid_mask: torch.Tensor,  # [fft] bool
     start_level: torch.Tensor,  # 0-d f32
-    spectro_keep: torch.Tensor,  # 0-d f32: 1 = accumulate, 0 = reset first
+    spectro_keep,  # 0-d f32 tensor or float: 1 = accumulate, 0 = reset first
 ) -> Tuple[ScanState, torch.Tensor, CompactScanOutputs]:
     # each stage is a named profiler range (fused_step.STAGES), cheap when
     # no profiler records; scripts/profile_torch_main_path.py times them

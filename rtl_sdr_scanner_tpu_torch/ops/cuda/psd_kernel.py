@@ -10,12 +10,11 @@ about it.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
-from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, psd_frames, shifted_window
+from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, device_window, psd_frames
 
 
 def _split_n(n: int) -> Tuple[int, int]:
@@ -31,11 +30,6 @@ def psd_frames_int8_plain(
     """[frames, fft*decim, 2] int8 -> [frames, fft] f32 PSD dB (fftshifted):
     frame select + dequantize_cs8 + psd_frames via torch.fft."""
     return psd_frames(dequantize_cs8(iq_int8[:, :fft_size]), sample_rate)
-
-
-@functools.lru_cache(maxsize=8)
-def _window(fft_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(shifted_window(fft_size)).to(device)
 
 
 def psd_frames_int8(
@@ -73,7 +67,7 @@ def psd_frames_int8(
     # scratch form only); the on-chip forms get none
     scratch_bytes = lib.psd_scratch_bytes(log_n1, log_n2)
     scratch = torch.empty((frames, scratch_bytes), dtype=torch.uint8, device=dev) if scratch_bytes else None
-    win = _window(fft_size, dev)
+    win = device_window(fft_size, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.psd_frames_int8(
         iq_int8.data_ptr(), win.data_ptr(), None if scratch is None else scratch.data_ptr(),

@@ -45,13 +45,20 @@ def shifted_window(fft_size: int) -> np.ndarray:
     return hamming(fft_size) * signs
 
 
+@functools.lru_cache(maxsize=8)
+def device_window(fft_size: int, device: torch.device) -> torch.Tensor:
+    """``shifted_window`` on a device, made once (a per-call copy would
+    synchronise the stream)."""
+    return torch.from_numpy(shifted_window(fft_size)).to(device)
+
+
 def psd_frames(frames: torch.Tensor, sample_rate: float) -> torch.Tensor:
     """[..., fft] complex64 -> [..., fft] float32 PSD in dB, fftshifted
     (fft even: the shift rides in the window)."""
     fft_size = frames.shape[-1]
     if fft_size % 2:
         raise ValueError(f"psd_frames: fft size {fft_size} must be even")
-    win = torch.from_numpy(shifted_window(fft_size)).to(frames.device)
+    win = device_window(fft_size, frames.device)
     spec = torch.fft.fft(frames * win)
     power = spec.real**2 + spec.imag**2
     return (10.0 * torch.log10(torch.clamp(power, min=_EPS) / sample_rate)).to(

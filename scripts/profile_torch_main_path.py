@@ -1,6 +1,6 @@
 """Where one block of the port's main path spends its time on the card.
 
-    python3 scripts/profile_torch_main_path.py [--path 1|2] [--blocks 3]
+    python3 scripts/profile_torch_main_path.py [--path 1|2|session] [--blocks 3]
 
 Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
 fft 131072 at 20.48 Msps with 2 modulated-taps DDC slots; path 2, the
@@ -13,13 +13,20 @@ and prints, per block:
   ctypes are not attributed to a host range, so the span is the measure;
 - the top kernels by device time, the device's busy share of the profiled
   window, and the host wall time.
+``--path session`` profiles the runtime session instead: chip_smoke.py's
+runtime capture (one replay device, 2.4 Msps, 4 slots at 32 kHz) through
+``Scanner.step()``, blocks 3.. (the FM signal keyed 3-6 s records there),
+and prints the host time of each range a block opens
+(``sdr_device.STAGES``) beside the device's busy time.
 Needs a card; run it from the repository root.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -34,7 +41,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", type=int, choices=(1, 2), default=1, help="chip_smoke.py's path to drive")
+    ap.add_argument("--path", choices=("1", "2", "session"), default="1", help="chip_smoke.py's path to drive")
     ap.add_argument("--blocks", type=int, default=3, help="blocks to average over")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -45,7 +52,9 @@ def main() -> int:
 
     card = cs.card_line()
     build.library()
-    geo = cs.PATH1 if args.path == 1 else cs.PATH2
+    if args.path == "session":
+        return profile_session(card, args.blocks)
+    geo = cs.PATH1 if args.path == "1" else cs.PATH2
     path = cs.MainPath(torch.device("cuda", 0), geo)
     for b in range(3):  # warm up: allocator, cuFFT/cuBLAS plans, noise learning under way
         path.run_block(b)
@@ -76,13 +85,59 @@ def main() -> int:
         print(f"  {span[name]:9.3f}  {name}" if name in span else f"  not measured  {name}")
     print(f"  {sum(span.values()):9.3f}  sum")
 
-    top = sorted(((ms, n // args.blocks, name) for name, (ms, n) in kernels.items()), reverse=True)
+    print_kernels(kernels, args.blocks, wall_ms, card)
+    return 0
+
+
+def print_kernels(kernels: dict, blocks: int, wall_ms: float, card: str) -> None:
+    top = sorted(((ms, n // blocks, name) for name, (ms, n) in kernels.items()), reverse=True)
     busy = sum(k[0] for k in top)
     print(f"profiled: host wall {wall_ms:.3f} ms per block, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}% of wall) ({card})")
     print("top device entries per block (ms, launches, name):")
     for ms, n, name in top[:25]:
         print(f"  {ms:9.3f} {n:5d}  {name[:110]}")
+
+
+def profile_session(card: str, blocks: int) -> int:
+    """The runtime session under the profiler: host ranges and device busy."""
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
+    from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import STAGES
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        capture = Path(tmp) / "capture.cs8"
+        cs.write_capture(capture, cs.RT_RATE, cs.RT_SECONDS, cs.RT_SHIFT, cs.RT_KEY)
+        cfg = Config(json.loads(json.dumps(cs.runtime_config(capture, cs.RT_RATE, cs.RT_CENTER))))
+        scanner = Scanner(cfg, cfg.devices[0], NullMqtt(), cfg.recorders_count(), device=torch.device("cuda", 0))
+        for _ in range(3):  # warm up: allocator, pinned buffers, noise learning
+            scanner.step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                assert scanner.step(), "the capture ended inside the profiled window"
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+
+    host = defaultdict(float)
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3 / blocks
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name not in STAGES and not e.name.startswith("scan."):
+                kernels[e.name][0] += ms
+                kernels[e.name][1] += 1
+        elif e.name in STAGES:
+            host[e.name] += ms
+    print(f"session: host time of each range, ms per block, mean of blocks 3..{2 + blocks} ({card}):")
+    for name in STAGES:
+        print(f"  {host[name]:9.3f}  {name}" if name in host else f"  not opened  {name}")
+    print(f"  {sum(host.values()):9.3f}  sum (the replay read and the scheduler are outside)")
+    print_kernels(kernels, blocks, wall_ms, card)
     return 0
 
 

@@ -286,3 +286,25 @@ def test_modtap_stage_2_on_card_goes_through_the_fir_kernel(dev):
     the decimating stage 2 launches the FIR kernel once a block, and the
     card equals the CPU."""
     assert _card_against_cpu(dev, 512_000, 3_200, 10) == [4, 4, 4]
+
+
+def test_session_on_card_matches_cpu(dev, tmp_path):
+    """The runtime session (Scanner over a replayed 6 s RTL-SDR capture,
+    2.4 Msps cs8, 32 kHz recordings) on the card through all three kernels
+    and on the CPU through their plain versions: the same payload stream
+    (chip_smoke.compare_payloads: topics and order, headers, IQ within 1
+    LSB, spectrogram bins within 1), the planted signal recorded."""
+    import chip_smoke
+
+    capture = tmp_path / "capture.cs8"
+    chip_smoke.write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    config = chip_smoke.runtime_config(capture, chip_smoke.RT_RATE, chip_smoke.RT_CENTER)
+    wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
+    before = [fn.launches for fn in wrappers]
+    card, _, _, _ = chip_smoke.run_scanner(config, dev)
+    assert all(fn.launches > b for fn, b in zip(wrappers, before))
+    cpu, _, _, _ = chip_smoke.run_scanner(config, torch.device("cpu"))
+    stats = chip_smoke.compare_payloads(cpu, card)
+    assert stats["transmissions"] > 0
+    _, n, tone = chip_smoke.recorded_tone(card, chip_smoke.RT_CENTER + chip_smoke.RT_SHIFT, 32_000)
+    assert n > 32_000 and abs(tone - chip_smoke.RT_TONE) < 40
