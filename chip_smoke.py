@@ -11,9 +11,11 @@
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
    frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
-   262144), decimations 1-3, odd frame counts; the decimating FIR within
+   262144), decimations 1-3, odd frame counts; the selection also at the
+   wideband channels' fft 512 and at fft 256; the decimating FIR within
    2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
-   and the session's decimating stages and at M = 125 and 32.
+   and the session's decimating stages and at M = 125, 32, 151, 157 and
+   400 (the last three in its wide form).
 3. Path 1: ``make_banded_fused_step`` at full width, 24 bands x 45 frames x
    fft 131072 at 20.48 Msps with 2 recorder slots at 16 kHz (the
    modulated-taps DDC; its decimating stage 2 through the FIR kernel),
@@ -46,9 +48,33 @@
    card's waits for the host's launches) and host (the rest of the wall),
    and the real-time factor (stream seconds per wall second), serial and
    with ``pipelined_ingest``.
-7. Times kernel, plain version, library call and bound for every kernel at
-   both paths' and the session's shapes (``ms_by_path`` and the like in
-   the record, ``runtime`` for the session's; the
+7. The wideband step: ``bench.py``'s wideband app path at full width, one
+   163.84 Msps int8 stream (141,557,760 samples a block, a device-resident
+   ring of 2 blocks) split by the channelizer into 8 channels of path 1's
+   geometry (45 x fft 131072 at 20.48 Msps), every channel's compact scan
+   and 2-slot modulated-taps DDC at 16 kHz (stages (1, 32), (1, 40): the
+   FIR kernel 16 times a block), in the fused form (one dispatch) and the
+   split form (two), 5 blocks each. Noise learning ends inside block 0;
+   ring block 1 carries an FM signal in channel 3, which must be detected
+   there only and whose slot-0 rows must demodulate to its tone. Before it,
+   the channelizer is held against the CPU on 2^20 samples of that block
+   (two streamed halves) within 2e-5 (atol = rtol). Prints ms a block and
+   wideband samples/s.
+8. The wideband session: an 8 s RTL-SDR capture at 2.048 Msps (cs8, two FM
+   signals in channels 3 and 12 keyed 3-6 s) behind one replay device with
+   ``"channels": 16`` (128 kHz channels: fft 512, decim 5, 16 frames), the
+   reference's recording defaults (32 kHz: one modulated-taps stage, so the
+   FIR kernel launches 0 times), in the serial form, then ``mesh_bands=1``
+   split and fused: each on the card and on the CPU, payloads compared as
+   in step 6, both transmissions recorded and demodulated; ``main.run`` on
+   the serial config. Prints ms a block (device span, host) and the
+   real-time factor of each form. The channels reach the scan as f32
+   pairs, so the PSD kernel launches 0 times in steps 7 and 8 (the JAX
+   package's PSD kernel is int8-only too).
+9. Times kernel, plain version, library call and bound for every kernel at
+   every path's and the session's shapes (``ms_by_path`` and the like in
+   the record, ``runtime`` for the session's, the wideband phases' for the
+   selection and the FIR; the
    top-level numbers are path 1's for PSD and selection, path 2's for the
    FIR). ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
@@ -56,12 +82,12 @@
    enqueue. It comes last: once the profiler has traced, every later
    launch of the process is slower.
 
-Each path (and the runtime phase's card run) runs with every kernel's
+Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
 raises. The last lines are the card's name and power limit, the kernels' JSON record and ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
 
-``--kernels-only`` runs steps 1, 2 and 7 and ends with the kernels' record;
+``--kernels-only`` runs steps 1, 2 and 9 and ends with the kernels' record;
 ``--root DIR`` takes the package from another checkout (an older tree
 unpacked under ``build/``), so that two trees' kernels are timed by the
 same code on the same card: old, new, new, old.
@@ -132,6 +158,33 @@ RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 
                    -600_000, bands=1, slots=4)
 # (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes
 PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3))
+# (fft, submargin): the selection kernel's smallest table (8 leaves) beyond the paths' shapes
+SELECT_EXTRA_CASES = ((256, 52),)
+# decimations the FIR kernel is held at beyond the paths' stages: 151, 157
+# (primes the resampler planner keeps whole) and 400 take its wide form
+FIR_EXTRA_M = (125, 32, 151, 157, 400)
+# the wideband step: bench.py's app path (bench.py:219-268) at full width, 8
+# channels of path 1's per-band geometry split from one 163.84 Msps stream;
+# the signal rides ring block 1 of 2, so noise learning ends inside block 0
+WIDE = Geometry("wideband_step", "wideband step (163.84 Msps -> 8 x 20.48 Msps channels, modulated-taps DDC)",
+                20_480_000, 45, 16_000, -1_000_000, bands=8, blocks=5, signal_band=3, signal_from_block=1)
+WIDE_RING = 2
+WIDE_LEARN_MS = 500
+WIDE_CHECK_SAMPLES = 1 << 20  # the channelizer held card vs CPU on this much of a block
+CHAN_TOL = 2e-5  # atol = rtol, tests/test_channelizer.py's bar between the bank's forms
+# the wideband session: an RTL-SDR at 2.048 Msps split into 16 channels of
+# 128 kHz (fft 512, decim 5, 16 frames: 0.32 s a block), two FM signals in
+# different channels keyed after the 2 s noise learning, 32 kHz recordings
+WB_RATE = 2_048_000
+WB_CHANNELS = 16
+WB_SECONDS = 8.0
+WB_CENTER = 145_000_000
+WB_SIGNALS = ((404_000, 800.0), (-542_000, 1300.0))  # channels 3 and 12
+WB_KEY = (3.0, 6.0)
+WB_FORMS = (("serial", {}), ("split", {"mesh_bands": 1}),
+            ("fused", {"mesh_bands": 1, "wideband_fused_dispatch": True}))
+WIDE_RT = Geometry("wideband_runtime", "wideband session (16 x 128 kHz channels, 1 slot each at 32 kHz)",
+                   WB_RATE // WB_CHANNELS, 16, 32_000, 0, bands=WB_CHANNELS, slots=1)
 
 
 def log(*args):
@@ -341,27 +394,35 @@ def check_selection(fft: int, submargin: int, dev) -> float:
     return err
 
 
-def check_psd_and_selection(geos, dev):
-    """PSD and selection against their plain versions at every path's
-    shapes (and the PSD at each of its forms' ends); returns the PSD's and
-    the selection's max |diff|."""
+def check_psd_and_selection(psd_geos, sel_geos, dev):
+    """PSD and selection against their plain versions at every shape the
+    paths give them (the PSD at the int8 paths', the selection at every
+    path's, the wideband channels' included), the PSD at each of its forms'
+    ends and the selection at its smallest table; returns the PSD's and the
+    selection's max |diff|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     psd_err = sel_err = 0.0
-    for geo in geos:
-        cfg, _, group_size = configs(geo)
+    for geo in psd_geos:
+        cfg, _, _ = configs(geo)
         psd_err = max(psd_err, check_psd(cfg.fft_size, cfg.decimator_factor, CHECK_ROWS, gen, dev,
                                          float(cfg.sample_rate)))
-        sel_err = max(sel_err, check_selection(cfg.fft_size, group_size // 2 + group_size % 2, dev))
     for fft, decim, rows in PSD_FORM_CASES:
         psd_err = max(psd_err, check_psd(fft, decim, rows, gen, dev))
+    cases = {}
+    for geo in sel_geos:
+        cfg, _, group_size = configs(geo)
+        cases.setdefault((cfg.fft_size, group_size // 2 + group_size % 2), None)
+    for fft, submargin in list(cases) + list(SELECT_EXTRA_CASES):
+        sel_err = max(sel_err, check_selection(fft, submargin, dev))
     return psd_err, sel_err
 
 
-def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float) -> list:
-    """PSD and selection timed at every path's shapes: rows = bands x frames
-    a block. The records' top level holds the first path's numbers,
-    ``*_by_path`` every path's."""
+def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float, sel_only=()) -> list:
+    """PSD and selection timed at every path's shapes (the selection alone at
+    ``sel_only``'s: the wideband channels reach the scan as f32 pairs, no
+    PSD kernel): rows = bands x frames a block. The records' top level holds
+    the first path's numbers, ``*_by_path`` every path's."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
     from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
 
@@ -375,10 +436,13 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float)
         name="fused_selection", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/select_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/select_kernel.py:189", launches=None, max_abs_err=sel_err,
     )
-    for geo in geos:
+    for geo in tuple(geos) + tuple(sel_only):
         cfg, _, group_size = configs(geo)
         fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
         rows = geo.bands * geo.frames
+        if geo in sel_only:
+            time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
+            continue
         big = random_cs8((rows, fft * decim, 2), gen, dev)
         win = torch.from_numpy(shifted_window(fft)).to(dev)
         frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
@@ -391,19 +455,23 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float)
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
         record_time(psd, geo, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         del big, frames_c
-
-        submargin = group_size // 2 + group_size % 2
-        level = torch.tensor(LEVEL, device=dev)
-        spec = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
-        t = timings(lambda: select_kernel.fused_selection(spec, level, TOP_K, 16, submargin),
-                    lambda: select_kernel.fused_selection_plain(spec, level, TOP_K, 16, submargin), 20,
-                    "selection_kernel", 3)
-        bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
-        log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4f} ms ({bound_by}) "
-            f"on {card}")
-        record_time(sel, geo, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-        del spec
+        time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
     return [psd, sel]
+
+
+def time_selection(sel: dict, geo: Geometry, rows: int, fft: int, group_size: int, gen, dev, card: str) -> None:
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
+
+    submargin = group_size // 2 + group_size % 2
+    level = torch.tensor(LEVEL, device=dev)
+    spec = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
+    t = timings(lambda: select_kernel.fused_selection(spec, level, TOP_K, 16, submargin),
+                lambda: select_kernel.fused_selection_plain(spec, level, TOP_K, 16, submargin), 20,
+                "selection_kernel", 3)
+    bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
+    log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4f} ms ({bound_by}) "
+        f"on {card}")
+    record_time(sel, geo, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def fmt(t: dict) -> str:
@@ -421,19 +489,20 @@ def record_time(record: dict, geo: Geometry, **numbers) -> None:
 
 def fir_cases(geos):
     """(geometry, plan, samples a row) of every stage a path sends through
-    the FIR kernel, then M = 125 and 32 at 16384 outputs a row (no path)."""
+    the FIR kernel, then FIR_EXTRA_M at 16384 outputs a row (no path)."""
     from rtl_sdr_scanner_tpu_torch.ops import ddc
 
     cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
-    return cases + [(None, ddc.plan_stage(1, m), 16384 * m) for m in (125, 32)]
+    return cases + [(None, ddc.plan_stage(1, m), 16384 * m) for m in FIR_EXTRA_M]
 
 
 def check_fir(geos, dev) -> float:
     """The decimating FIR against its plain version at every stage a path
     sends through it, on its band x slot rows x 2 components (path 1: stage
     2 (1, 40) on 34,560 samples a chunk, 48 rows; path 2: (1, 75) on
-    1,228,800, 48 rows; the session: the same stage on 4 rows) and at M =
-    125 and 32 (48 rows); returns the max |diff|."""
+    1,228,800, 48 rows; the session: the same stage on 4 rows; the wideband
+    step: path 1's on 16 rows) and at FIR_EXTRA_M (48 rows; 151, 157 and 400
+    in the wide form); returns the max |diff|."""
     from rtl_sdr_scanner_tpu_torch.ops import ddc
     from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel
 
@@ -658,34 +727,37 @@ def check_interpolating_stages(dev) -> None:
             raise RuntimeError(f"interpolating chain at {rate}: card and CPU differ by {diff.max()} LSB")
 
 
-def write_capture(path: Path, rate: int, seconds: float, shift: float, key, seed: int = 5) -> None:
+def write_capture(path: Path, rate: int, seconds: float, shift, key, seed: int = 5) -> None:
     """cs8 capture: 0.01 rms complex noise and, while key[0] <= t < key[1],
     a 0.4-amplitude FM signal at ``shift`` Hz (an RT_TONE Hz tone at 3 kHz
     deviation: band-wide, as the 21-bin smoothing needs), one second at a
-    time."""
+    time. ``shift`` may instead be a list of (shift, tone) signals."""
+    signals = [(shift, RT_TONE)] if np.isscalar(shift) else list(shift)
     rng = np.random.default_rng(seed)
     n = int(rate * seconds)
     with open(path, "wb") as f:
         for s0 in range(0, n, rate):
             t = (s0 + np.arange(min(rate, n - s0))) / rate
             x = 0.01 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
-            phase = 2 * np.pi * shift * t + (3000.0 / RT_TONE) * (1 - np.cos(2 * np.pi * RT_TONE * t))
-            x += 0.4 * np.exp(1j * phase) * ((t >= key[0]) & (t < key[1]))
+            for sig_shift, tone in signals:
+                phase = 2 * np.pi * sig_shift * t + (3000.0 / tone) * (1 - np.cos(2 * np.pi * tone * t))
+                x += 0.4 * np.exp(1j * phase) * ((t >= key[0]) & (t < key[1]))
             pairs = np.stack([x.real, x.imag], axis=-1) * 127.0
             np.clip(np.round(pairs), -128, 127).astype(np.int8).tofile(f)
 
 
-def runtime_config(capture: Path, rate: int, center: int, **tunables) -> dict:
-    """One replay device parked on one range (width <= the hop split rate),
-    4 recorder slots, the reference's recording defaults (32 kHz), logs at
+def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, **tunables) -> dict:
+    """One replay device parked on one range (width <= the hop split rate;
+    with ``channels`` >= 2 a wideband device over the whole capture), 4
+    recorder slots, the reference's recording defaults (32 kHz), logs at
     warn on the console only."""
-    half = 1_000_000 if rate >= 2_000_000 else 100_000
+    half = rate // 2 if channels >= 2 else 1_000_000 if rate >= 2_000_000 else 100_000
     return {
         "devices": [{
             "enabled": True, "serial": "replay0", "driver": "replay", "sample_rate": rate,
             "start_recording_level": 8, "stop_recording_level": 5, "gains": [],
             "ranges": [{"start": center - half, "stop": center + half}],
-            "file": str(capture), "file_format": "cs8",
+            "file": str(capture), "file_format": "cs8", "channels": channels,
         }],
         "ignored_frequencies": [],
         "output": {"color_log_enabled": False, "console_log_level": "warn", "file_log_level": "warn"},
@@ -809,20 +881,24 @@ def run_scanner(config: dict, device, timer: bool = False):
     return mqtt.published, scanner.device, time.perf_counter() - t0, clock
 
 
-def run_main(config_path: Path, device=None, timeout_s: float = 300.0):
+def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners: int = 1):
     """``runtime.main.run(config)`` on a worker thread, as a user runs it;
-    stopped through ``main._is_running`` once its scanner has drained the
-    replay. Returns (rc, payloads)."""
+    stopped through ``main._is_running`` once its ``scanners`` scanners
+    (``Scanner`` or ``WidebandScanner``, a thread each) have drained their
+    replays. Returns (rc, payloads)."""
     from rtl_sdr_scanner_tpu_torch.runtime import main as rt_main
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
 
     made, mqtts, result = [], [], []
-    real_scanner, real_make_mqtt = rt_main.Scanner, rt_main.make_mqtt
+    real = {name: getattr(rt_main, name) for name in ("Scanner", "WidebandScanner", "make_mqtt")}
 
-    class Watched(real_scanner):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            made.append(self)
+    def watched(cls):
+        class Watched(cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        return Watched
 
     def make_mqtt(config):
         mqtt = NullMqtt()
@@ -830,25 +906,28 @@ def run_main(config_path: Path, device=None, timeout_s: float = 300.0):
         mqtts.append(mqtt)
         return mqtt
 
-    rt_main.Scanner, rt_main.make_mqtt = Watched, make_mqtt
+    rt_main.Scanner, rt_main.WidebandScanner = watched(real["Scanner"]), watched(real["WidebandScanner"])
+    rt_main.make_mqtt = make_mqtt
     rt_main._is_running = True
     worker = threading.Thread(target=lambda: result.append(rt_main.run(str(config_path), device)), daemon=True)
     try:
         worker.start()
         deadline = time.time() + timeout_s
-        drained = lambda: made and made[0]._thread is not None and not made[0]._thread.is_alive()
+        drained = lambda: len(made) == scanners and all(
+            s._thread is not None and not s._thread.is_alive() for s in made)
         while worker.is_alive() and not drained() and time.time() < deadline:
             time.sleep(0.05)
         if not drained():
-            raise RuntimeError(f"main.run: the scanner did not drain the replay in {timeout_s} s")
+            raise RuntimeError(f"main.run: the scanners did not drain the replay in {timeout_s} s")
     finally:
         rt_main._is_running = False
         worker.join(timeout=60)
-        rt_main.Scanner, rt_main.make_mqtt = real_scanner, real_make_mqtt
+        for name, value in real.items():
+            setattr(rt_main, name, value)
     if worker.is_alive() or not result:
         raise RuntimeError("main.run did not return after main._is_running was cleared")
-    if made[0].failed:
-        raise RuntimeError("main.run: the scanner thread failed")
+    if any(s.failed for s in made):
+        raise RuntimeError("main.run: a scanner thread failed")
     return result[0], mqtts[0].published
 
 
@@ -921,6 +1000,326 @@ def run_runtime(dev, card: str) -> dict:
     return launches
 
 
+def fm_wide(freq: int, rate: int, start: int, n: int, dev) -> torch.Tensor:
+    """[n, 2] f32 FM at ``freq`` Hz of a ``rate`` stream (800 Hz tone, 3 kHz
+    deviation, 0.4 amplitude, cs8 units), sample ``start`` on; the carrier's
+    phase from int64 sample arithmetic, exact at any length."""
+    idx = torch.arange(start, start + n, device=dev, dtype=torch.int64)
+    carrier = (idx * freq) % rate
+    audio = (idx * int(RT_TONE)) % rate
+    phase = 2 * math.pi * carrier.double() / rate + (3000.0 / RT_TONE) * (
+        1 - torch.cos(2 * math.pi * audio.double() / rate))
+    return torch.stack([torch.cos(phase), torch.sin(phase)], dim=-1).float() * (0.4 * 127.0)
+
+
+class WidebandStep:
+    """bench.py's wideband app path at full width on the card: the
+    channelizer, every channel's compact scan and their 2-slot modulated-taps
+    DDC, fused in one dispatch or split in two, over a device-resident ring
+    of WIDE_RING int8 wideband blocks (block 0 noise, block 1 noise and an
+    FM signal in channel ``signal_band``)."""
+
+    def __init__(self, dev, geo: Geometry, fused: bool, ring: list):
+        from rtl_sdr_scanner_tpu_torch.constants import Tunables
+        from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
+        from rtl_sdr_scanner_tpu_torch.ops.channelizer import init_channelizer_state, plan_channelizer
+        from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+
+        self.dev, self.geo, self.fused, self.ring = dev, geo, fused, ring
+        cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames, Tunables(noise_learning_time_ms=WIDE_LEARN_MS))
+        ddc_cfg = ddc_pipeline.DdcConfig.create(geo.rate, geo.bandwidth, geo.slots, cfg.block_samples)
+        self.cfg, self.ddc_cfg = cfg, ddc_cfg
+        self.group_size = int(np.ceil(geo.bandwidth / cfg.step_hz))
+        b = geo.bands
+        plan = plan_channelizer(b)
+        m = mesh.make_mesh(1, 1, device=dev)
+        if fused:
+            self.step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, self.group_size, TOP_K, m, plan, 1, b)
+        else:
+            self.wide_step = ss.make_sharded_wideband_step(cfg, self.group_size, TOP_K, m, plan, 1, b)
+            self.ddc_step = ss.make_sharded_banded_ddc(ddc_cfg, m, b)
+        self.chan = init_channelizer_state(plan, dev)
+        self.scan = ss.init_banded_state(cfg, b, m)
+        self.acc = torch.zeros((b, cfg.spectro_size), dtype=torch.float32, device=dev)
+        self.ddc = ss.init_banded_ddc_state(ddc_cfg, b, m)
+        shifts = np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (b, 1))
+        self.tables = ddc_pipeline.make_tables(ddc_cfg, shifts, device=dev)
+        self.keys = torch.full((b, KEY_SLOTS), -1, dtype=torch.int32, device=dev)
+        self.valid = torch.ones((b, cfg.fft_size), dtype=torch.bool, device=dev)
+        self.level = torch.tensor(LEVEL, device=dev)
+        self.keep_mask = torch.ones((b, geo.slots), dtype=torch.float32, device=dev)
+
+    def run_block(self, blk: int):
+        """One block (ring slot blk % WIDE_RING); returns (packed, rec)."""
+        f = self.geo.frames
+        now = torch.from_numpy(((blk * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms).astype(np.int32))
+        now = now.to(self.dev)
+        x = self.ring[blk % WIDE_RING]
+        if self.fused:
+            self.chan, self.scan, self.acc, self.ddc, packed, rec, _ = self.step(
+                self.chan, self.scan, self.acc, self.ddc, x, now, self.keys, self.valid, self.level, 1.0,
+                self.tables, self.keep_mask)
+        else:
+            self.chan, self.scan, self.acc, packed, channels = self.wide_step(
+                self.chan, self.scan, self.acc, x, now, self.keys, self.valid, self.level, 1.0)
+            self.ddc, rec = self.ddc_step(self.ddc, channels, self.tables, self.keep_mask)
+        return packed, rec
+
+
+def wide_ring(geo: Geometry, block_samples: int, dev) -> list:
+    """WIDE_RING wideband blocks [bands * block_samples, 2] int8 on the card:
+    noise, and in block 1 an FM signal at channel signal_band's center plus
+    the signal offset (channel b is centered at b * rate of the stream)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n, wide_rate = geo.bands * block_samples, geo.bands * geo.rate
+    ring = []
+    for b in range(WIDE_RING):
+        block = noise_cs8(n, gen, dev)
+        if b == 1:
+            x = block.float() + fm_wide(geo.signal_band * geo.rate + geo.signal_offset_hz, wide_rate, 0, n, dev)
+            block = torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+            del x
+        ring.append(block)
+    torch.cuda.synchronize()
+    return ring
+
+
+def fm_tone(rec: np.ndarray, rate: int) -> float:
+    """The FM-demodulated tone (Hz) of int8 IQ [n, 2] at ``rate``."""
+    z = rec[:, 0].astype(np.float32) + 1j * rec[:, 1].astype(np.float32)
+    z = z[len(z) // 4 :]
+    d = np.angle(z[1:] * np.conj(z[:-1]))
+    sp = np.abs(np.fft.rfft(d - d.mean()))
+    return float(np.argmax(sp) / len(d) * rate)
+
+
+def check_channelizer(ring: list, geo: Geometry, dev) -> float:
+    """The channelizer on the card against the same calls on the CPU, over
+    two streamed halves of WIDE_CHECK_SAMPLES of the signal block: within
+    CHAN_TOL (atol = rtol); returns the max |diff|."""
+    from rtl_sdr_scanner_tpu_torch.ops.channelizer import (
+        channelize_block_pairs, init_channelizer_state, plan_channelizer)
+
+    plan = plan_channelizer(geo.bands)
+    x = ring[1][:WIDE_CHECK_SAMPLES]
+    half = WIDE_CHECK_SAMPLES // 2
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        state, parts = init_channelizer_state(plan, d), []
+        for i in range(2):
+            state, ch = channelize_block_pairs(plan, state, x[i * half : (i + 1) * half].to(d))
+            parts.append(ch.cpu())
+        outs.append(torch.cat(parts, dim=1))
+    want, got = outs
+    diff = (got - want).abs()
+    err = diff.max().item()
+    log(f"channelizer [{WIDE_CHECK_SAMPLES}, 2] int8 -> {list(got.shape)} B={geo.bands}, card vs CPU in two "
+        f"blocks: max |diff| {err:.3g} (max |y| {want.abs().max().item():.3g})")
+    if not (torch.isfinite(got).all() and bool((diff <= CHAN_TOL + CHAN_TOL * want.abs()).all())):
+        raise RuntimeError(f"channelizer: card and CPU differ by {err}")
+    return err
+
+
+def run_wideband_step(dev, card: str) -> dict:
+    """The wideband step phase (docstring step 6): the channelizer held card
+    vs CPU, then the fused and the split forms for WIDE.blocks blocks each,
+    each with the launch counts set to 0 just before and read just after;
+    returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    geo = WIDE
+    log(f"---- {geo.name}")
+    cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
+    t0 = time.perf_counter()
+    ring = wide_ring(geo, cfg.block_samples, dev)
+    n_wide = geo.bands * cfg.block_samples
+    log(f"ring: {WIDE_RING} blocks of [{n_wide}, 2] int8 ({n_wide * 2 / 1e6:.0f} MB each) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_channelizer(ring, geo, dev)
+    wrappers = kernel_wrappers()
+    launches = {}
+    for fused in (True, False):
+        form = "fused" if fused else "split"
+        step = WidebandStep(dev, geo, fused, ring)
+        cfg, ddc_cfg = step.cfg, step.ddc_cfg
+        if fused:
+            log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {geo.frames} a channel, {geo.bands} "
+                f"channels, DDC stages {[(p.interp, p.decim) for p in ddc_cfg.plans]}, {ddc_cfg.num_chunks} "
+                f"chunks, group {step.group_size}, noise learning {WIDE_LEARN_MS} ms")
+        block_ms, packed = [], []
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for b in range(geo.blocks):
+            t0 = time.perf_counter()
+            p, rec = step.run_block(b)
+            torch.cuda.synchronize()
+            block_ms.append((time.perf_counter() - t0) * 1e3)
+            packed.append(p.cpu().numpy())
+            if b % WIDE_RING == 1:
+                signal_rec = rec.cpu().numpy()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        want = {"psd_frames_int8": 0, "fused_selection": geo.blocks,
+                "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+        log(f"{form}: launches over {geo.blocks} blocks: {counts} (the channels are f32 pairs: no PSD kernel)")
+        if counts != want:
+            raise RuntimeError(f"wideband {form} launches {counts}, want {want}")
+        launches[f"wideband_step_{form}"] = counts
+
+        planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
+        hits = {}
+        for b in range(geo.blocks):
+            for band in range(geo.bands):
+                out = scan_pipeline.unpack_compact(packed[b][band], geo.frames, TOP_K, KEY_SLOTS)
+                cand_idx, cand_val, _, _, _, _, ready = out
+                if not np.isfinite(packed[b][band]).all() or not ready:
+                    raise RuntimeError(f"block {b} channel {band}: non-finite output or noise not learned")
+                live = cand_val >= LEVEL
+                if live.any():
+                    hits.setdefault(band, set()).add(b)
+                    if band == geo.signal_band and np.abs(cand_idx[live] - planted).min() > step.group_size:
+                        raise RuntimeError(f"block {b}: detection away from the planted bin {planted}")
+        # the signal's blocks, and the averager's 21 rows carry it into the next
+        signal_blocks = {b for b in range(geo.blocks) if b % WIDE_RING == 1}
+        log(f"{form}: channels with candidates above {LEVEL} dB: { {k: sorted(v) for k, v in hits.items()} } "
+            f"(signal in blocks {sorted(signal_blocks)})")
+        if set(hits) != {geo.signal_band} or not signal_blocks <= hits[geo.signal_band]:
+            raise RuntimeError(f"planted signal not detected in channel {geo.signal_band} only: {hits}")
+        power = (signal_rec.astype(np.float32) ** 2).sum(axis=-1).mean(axis=-1)  # [bands, slots]
+        quiet = (geo.signal_band + 1) % geo.bands
+        gain_db = 10 * math.log10(power[geo.signal_band, 0] / max(power[quiet, 0], 1e-3))
+        tone = fm_tone(signal_rec[geo.signal_band, 0], geo.bandwidth)
+        log(f"{form}: recording {list(signal_rec.shape)} int8, slot 0 of channel {geo.signal_band} "
+            f"{gain_db:.1f} dB above channel {quiet}'s, FM-demodulates to {tone:.1f} Hz (planted {RT_TONE})")
+        if gain_db < 10.0 or abs(tone - RT_TONE) >= 40:
+            raise RuntimeError(f"wideband {form}: the signal slot is {gain_db:.1f} dB up, tone {tone} Hz")
+        ms = float(np.mean(block_ms[1:]))
+        log(f"wideband {form}: {ms:.1f} ms per block (blocks 1..{geo.blocks - 1}; first {block_ms[0]:.1f} ms; "
+            f"{cfg.block_samples / cfg.sample_rate * 1e3:.0f} ms of stream), {n_wide / (ms / 1e3) / 1e6:.1f} M "
+            f"wideband samples/s (real time {geo.bands * geo.rate / 1e6:.2f} M) on {card}")
+        del step
+        torch.cuda.empty_cache()
+    del ring
+    torch.cuda.empty_cache()
+    return launches
+
+
+class WidebandTimer(SessionTimer):
+    """SessionTimer for a WidebandScanner: CUDA events around each dispatch
+    (serial: the channelizer and every session's scan and DDC; batched: the
+    wideband step, the fused step or the banded DDC), the host clock around
+    each synchronised ``step`` that processed a block."""
+
+    def __init__(self, scanner):
+        self.block = 0
+        self.spans, self.walls, self.ddc_calls = [], [], 0
+        targets = [(scanner, "_channelize")]
+        for session in scanner.sessions:
+            targets += [(session, "_scan_step"), (session, "_ddc_step")]
+        targets += [(scanner, n) for n in ("_wide_step", "_fused_step", "_ddc_band_step")
+                    if getattr(scanner, n, None) is not None]
+        for obj, name in targets:
+            setattr(obj, name, self._timed(getattr(obj, name), "ddc" in name))
+        step = scanner.step
+
+        def timed_step():
+            t0 = time.perf_counter()
+            more = step()
+            torch.cuda.synchronize()
+            if more:
+                self.walls.append((time.perf_counter() - t0) * 1e3)
+                self.block += 1
+            return more
+
+        scanner.step = timed_step
+
+
+def run_wideband_scanner(config: dict, device, timer: bool = False):
+    """One replay scan through ``WidebandScanner.run_to_completion()`` and
+    ``stop()``: (payloads, scanner, wall seconds, WidebandTimer or None)."""
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
+
+    cfg = Config(json.loads(json.dumps(config)))
+    mqtt = NullMqtt()
+    mqtt.keep_payloads = True
+    scanner = WidebandScanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device)
+    clock = WidebandTimer(scanner) if timer else None
+    t0 = time.perf_counter()
+    scanner.run_to_completion()
+    scanner.stop()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return mqtt.published, scanner, time.perf_counter() - t0, clock
+
+
+def check_wideband_recordings(payloads: list) -> list:
+    """Both planted transmissions recorded at their frequencies and
+    FM-demodulating to their tones; returns [(center, samples, tone)]."""
+    found = []
+    for shift, tone in WB_SIGNALS:
+        center, n_rec, got = recorded_tone(payloads, WB_CENTER + shift, 32_000)
+        if abs(got - tone) >= 40 or n_rec < 2 * 32_000:
+            raise RuntimeError(f"the transmission at +{shift} Hz was not recorded: {n_rec} samples, tone {got} Hz")
+        found.append((center, n_rec, round(got, 1)))
+    return found
+
+
+def run_wideband_runtime(dev, card: str) -> dict:
+    """The wideband session phase (docstring step 8): each form on the card
+    (launch counts set to 0 just before, read just after) and on the CPU,
+    payloads compared; main.run on the serial config. Returns {form: counts}."""
+    log("---- wideband session (WidebandScanner / main.run)")
+    wrappers = kernel_wrappers()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wb_") as tmp:
+        capture = Path(tmp) / "wide.cs8"
+        write_capture(capture, WB_RATE, WB_SECONDS, WB_SIGNALS, WB_KEY, seed=7)
+        for form, tunables in WB_FORMS:
+            config = runtime_config(capture, WB_RATE, WB_CENTER, channels=WB_CHANNELS, **tunables)
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            card_payloads, scanner, wall_s, clock = run_wideband_scanner(config, dev, timer=True)
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            session = scanner.sessions[0]
+            cfg, blocks = session.scan_cfg, clock.block
+            if form == "serial":
+                log(f"{WB_CHANNELS} channels of {cfg.sample_rate} sps: fft {cfg.fft_size} decim "
+                    f"{cfg.decimator_factor} frames {cfg.frames_per_block}, {session.ddc_cfg.num_slots} slot(s) a "
+                    f"channel, DDC stages {[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks")
+            want = {"psd_frames_int8": 0, "fused_selection": blocks * (WB_CHANNELS if form == "serial" else 1),
+                    "stage_apply_fir": 0}
+            log(f"{form}: launches over the card run: {counts} (the 128 kHz -> 32 kHz chain is one modulated-"
+                f"taps stage: no FIR kernel stage; f32 channels: no PSD kernel)")
+            if counts != want:
+                raise RuntimeError(f"wideband session {form} launches {counts}, want {want}")
+            launches[f"wideband_runtime_{form}"] = counts
+            cpu_payloads, _, cpu_s, _ = run_wideband_scanner(config, torch.device("cpu"))
+            stats = compare_payloads(cpu_payloads, card_payloads)
+            log(f"{form}: card vs CPU payloads: {stats} (CPU run {cpu_s:.1f} s); recorded "
+                f"{check_wideband_recordings(card_payloads)}")
+            stream_s = blocks * cfg.block_samples * WB_CHANNELS / WB_RATE
+            device = clock.device_ms()
+            wall_ms = float(np.mean(clock.walls[1:]))
+            device_ms = float(np.mean(device[1:]))
+            log(f"wideband {form}: {wall_ms:.2f} ms per block (blocks 1..{blocks - 1}; first {clock.walls[0]:.1f}), "
+                f"device {device_ms:.2f} ms (CUDA events around the dispatches), host {wall_ms - device_ms:.2f} ms; "
+                f"real-time factor {stream_s / wall_s:.2f} ({stream_s:.2f} s of stream in {wall_s:.3f} s, "
+                f"{blocks} blocks of {stream_s / blocks * 1e3:.0f} ms) on {card}")
+            if form == "serial":
+                config_path = Path(tmp) / "config.json"
+                config_path.write_text(json.dumps(config))
+                rc, main_payloads = run_main(config_path, dev)
+                if rc != 0:
+                    raise RuntimeError(f"main.run returned {rc}")
+                compare_payloads(card_payloads, main_payloads)
+                log(f"main.run (wideband device): rc {rc}, {len(main_payloads)} payloads, as the card's run")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="hold and time the kernels, drive no path")
@@ -962,16 +1361,19 @@ def main() -> int:
 
     geos = (PATH1, PATH2)
     timed = geos + (RUNTIME,)  # the kernels at every shape the paths and the session give them
-    psd_err, sel_err = check_psd_and_selection(timed, dev)
-    fir_err = check_fir(timed, dev)
+    wide = (WIDE, WIDE_RT)  # the wideband phases' shapes: selection, and the FIR's stage 2
+    psd_err, sel_err = check_psd_and_selection(timed, timed + wide, dev)
+    fir_err = check_fir(timed + (WIDE,), dev)
     if not args.kernels_only:
         # the paths before any timing: the profiler's tracing, once started,
         # slows every later launch of the process
         launches = {geo.key: run_path(dev, card, geo) for geo in geos}
         check_interpolating_stages(dev)
         launches["runtime"] = run_runtime(dev, card)
-    records = time_psd_and_selection(timed, dev, card, psd_err, sel_err)
-    records.append(time_fir(timed, PATH2, dev, card, fir_err))
+        launches.update(run_wideband_step(dev, card))
+        launches.update(run_wideband_runtime(dev, card))
+    records = time_psd_and_selection(timed, dev, card, psd_err, sel_err, sel_only=wide)
+    records.append(time_fir(timed + (WIDE,), PATH2, dev, card, fir_err))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

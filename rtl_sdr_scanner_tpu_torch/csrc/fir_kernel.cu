@@ -10,8 +10,18 @@
 // (rtl_sdr_scanner_tpu/ops/pallas/fir_kernel.py) and keeps its form: per
 // tile the product Z = rows @ W (rows = the window viewed as [T, M]), then
 // the lag-diagonal sum y[p] = sum_q Z[p + q][q]. That kernel needed
-// M % 128 == 0 (a Mosaic DMA rule); this one takes any M whose tile fits
-// shared memory (every M of a real chain, 2 ... 125), so it is the only form.
+// M % 128 == 0 (a Mosaic DMA rule); this one takes any M. Two forms:
+//   - the tiled form, for every M whose tile's window fits shared memory
+//     (M up to ~150: every stage of the common chains, 2 ... 125), below;
+//   - the wide form, for a larger M (get_resamplers_factors keeps a prime
+//     factor above its threshold whole: a 151 or 157 stage): the window
+//     does not fit, so the contraction over it is split into its k-steps,
+//     each taking its A operands straight from device memory (every float
+//     of the window is read once, by the one lane whose fragment holds it)
+//     and accumulating Z in registers; the lag sum stays in the epilogue,
+//     through shared memory. One block a tile of 256 Z rows (216 outputs),
+//     no ring and no carried rows: plain and right first (a stage this wide
+//     decimates once per chain, at its smallest rows).
 //
 // Bound: at the v1 path's shape (2.4 Msps -> 32 kHz, stage (1, 75), 96 rows
 // of 1,228,800 samples, R = 34) a launch must read 472.8 MB and write
@@ -48,10 +58,16 @@
 //     warp hit 32 distinct banks;
 //   - Z goes to shared memory, never to device memory; each output's lags
 //     are summed in ascending q, the order of the plain version;
-//   - the kernel's attributes are set once per device, not per launch.
+//   - the kernel's attributes are set once per device, not per launch,
+//     under a mutex shared with the occupancy cache (two sessions' threads
+//     may launch on one card).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -64,6 +80,9 @@ constexpr int kZC = kRp;         // Z rows carried from a tile to the next (>= R
 constexpr int kFrag = kNT * 32 * 4;  // floats of B fragments per k-step (hi, hi, lo, lo per lane)
 constexpr int kMaxSmem = 232448;     // 227 KB, what one block may use
 constexpr int kMaxDevices = 64;
+constexpr int kWideMT = 2;               // the wide form: m-tiles a warp
+constexpr int kWideZ = kWarps * kWideMT * 16;  // Z rows a block: 256
+constexpr int kWideOut = kWideZ - kRp;   // outputs a block: 216 (their lags stay in the tile)
 
 __host__ __device__ constexpr int tile_rows(int mt) { return kWarps * mt * 16; }
 
@@ -306,29 +325,171 @@ fir_decimate_kernel(const float* __restrict__ x, const float* __restrict__ tail,
   }
 }
 
-struct LaunchInfo {
-  bool ready;
-  int sms;
-  int blocks_per_sm[2];  // MT = 2, 1 at the last size asked
-  int smem[2];
-};
-LaunchInfo g_info[kMaxDevices];
+// full[g] of one row: the tail, then x, then zeros
+__device__ __forceinline__ float full_at(const float* xr, const float* tr, long long g, int tail_len,
+                                         long long total) {
+  return g < tail_len ? __ldg(tr + g) : (g < total ? __ldg(xr + (g - tail_len)) : 0.f);
+}
+
+// The wide form: block b computes Z rows s0 ... s0 + 255 of one row (s0 =
+// tile * 216) over all k-steps in registers, then outputs s0 ... s0 + 215.
+__global__ void __launch_bounds__(kThreads)
+fir_decimate_wide_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+                         const float* __restrict__ wfrag, float* __restrict__ y,
+                         float* __restrict__ new_tail, int rows, int n, int tail_len, int m,
+                         int r_rows, int out_len, int tiles_per_row) {
+  __shared__ float z[kWideZ * kZS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ks = (m + 7) / 8;
+  const long long total = (long long)tail_len + n;
+
+  // the new tail, full[n : n + tail_len], spread over the grid
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < (long long)rows * tail_len;
+       i += (long long)gridDim.x * kThreads) {
+    const long long row = i / tail_len;
+    const int k = (int)(i - row * tail_len);
+    const long long g = (long long)n + k;
+    new_tail[i] = g < tail_len ? tail[row * tail_len + g] : x[row * n + (g - tail_len)];
+  }
+
+  const int row = blockIdx.x / tiles_per_row, t = blockIdx.x - row * tiles_per_row;
+  const float* xr = x + (size_t)row * n;
+  const float* tr = tail + (size_t)row * tail_len;
+  const long long s0 = (long long)t * kWideOut;
+  // full index of column 0 of this lane's window rows: m-tile j, MMA rows
+  // gid and gid + 8
+  long long g0[kWideMT], g1[kWideMT];
+#pragma unroll
+  for (int j = 0; j < kWideMT; ++j) {
+    const long long zr = s0 + (warp * kWideMT + j) * 16 + gid;
+    g0[j] = zr * m;
+    g1[j] = (zr + 8) * m;
+  }
+  float acc[kWideMT][kNT][4];
+#pragma unroll
+  for (int j = 0; j < kWideMT; ++j)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+
+  for (int kk = 0; kk < ks; ++kk) {
+    float4 b[kNT];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      b[nt] = __ldg(reinterpret_cast<const float4*>(wfrag) + (kk * kNT + nt) * 32 + lane);
+    }
+    const int c0 = kk * 8 + tig, c1 = c0 + 4;
+    const bool v0 = c0 < m, v1 = c1 < m;
+    uint32_t hi[kWideMT][4], lo[kWideMT][4];
+#pragma unroll
+    for (int j = 0; j < kWideMT; ++j) {
+      const float a[4] = {v0 ? full_at(xr, tr, g0[j] + c0, tail_len, total) : 0.f,
+                          v0 ? full_at(xr, tr, g1[j] + c0, tail_len, total) : 0.f,
+                          v1 ? full_at(xr, tr, g0[j] + c1, tail_len, total) : 0.f,
+                          v1 ? full_at(xr, tr, g1[j] + c1, tail_len, total) : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[j][e] = to_tf32(a[e]);
+        lo[j][e] = to_tf32(a[e] - __uint_as_float(hi[j][e]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWideMT; ++j)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        mma_tf32(acc[j][nt], lo[j], __float_as_uint(b[nt].x), __float_as_uint(b[nt].y));
+#pragma unroll
+    for (int j = 0; j < kWideMT; ++j)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        mma_tf32(acc[j][nt], hi[j], __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+#pragma unroll
+    for (int j = 0; j < kWideMT; ++j)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        mma_tf32(acc[j][nt], hi[j], __float_as_uint(b[nt].x), __float_as_uint(b[nt].y));
+  }
+
+#pragma unroll
+  for (int j = 0; j < kWideMT; ++j) {
+    const int r0 = (warp * kWideMT + j) * 16 + gid, r1 = r0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = nt * 8 + 2 * tig;
+      z[r0 * kZS + col] = acc[j][nt][0];
+      z[r0 * kZS + col + 1] = acc[j][nt][1];
+      z[r1 * kZS + col] = acc[j][nt][2];
+      z[r1 * kZS + col + 1] = acc[j][nt][3];
+    }
+  }
+  __syncthreads();
+  float* yr = y + (size_t)row * out_len;
+  for (int v = threadIdx.x; v < kWideOut; v += kThreads) {
+    const long long p = s0 + v;
+    if (p >= out_len) break;
+    const float* zp = z + v * kZS;  // Z row p, lags in ascending q
+    float acc_y = zp[0];
+#pragma unroll
+    for (int q = 1; q < kRp; ++q) {
+      if (q < r_rows) acc_y += zp[q * kZS + q];
+    }
+    yr[p] = acc_y;
+  }
+}
+
+// Launch state, shared by every host thread that launches on a card
+// (sessions of several devices may share one): the SM count and the
+// attributes once per device, blocks per SM once per (device, form,
+// shared-memory size); all under one mutex.
+std::mutex g_mutex;
+bool g_ready[kMaxDevices];
+int g_sms[kMaxDevices];
+std::map<std::tuple<int, int, int>, int> g_blocks_per_sm;
+
+int setup(int dev, int& sms) {
+  std::lock_guard<std::mutex> lock(g_mutex);
+  if (!g_ready[dev]) {  // once per device: no launch sets an attribute
+    cudaError_t err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(fir_decimate_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(fir_decimate_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    g_ready[dev] = true;
+  }
+  sms = g_sms[dev];
+  return 0;
+}
 
 template <int MT>
-int launch(int dev, int slot, size_t smem, int total_tiles, const float* x, const float* tail,
+int blocks_per_sm(int dev, size_t smem, int& nb) {
+  std::lock_guard<std::mutex> lock(g_mutex);
+  const auto key = std::make_tuple(dev, MT, (int)smem);
+  const auto found = g_blocks_per_sm.find(key);
+  if (found != g_blocks_per_sm.end()) {
+    nb = found->second;
+    return 0;
+  }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fir_decimate_kernel<MT>,
+                                                                  kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nb < 1) return (int)cudaErrorInvalidConfiguration;
+  g_blocks_per_sm[key] = nb;
+  return 0;
+}
+
+template <int MT>
+int launch(int dev, int sms, size_t smem, int total_tiles, const float* x, const float* tail,
            const float* w, float* y, float* new_tail, int n, int tail_len, int m, int r_rows,
            int out_len, int tiles_per_row, cudaStream_t stream) {
-  LaunchInfo& info = g_info[dev];
-  if (info.smem[slot] != (int)smem) {  // once per device and shared-memory size
-    int nb = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fir_decimate_kernel<MT>,
-                                                                    kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (nb < 1) return (int)cudaErrorInvalidConfiguration;
-    info.blocks_per_sm[slot] = nb;
-    info.smem[slot] = (int)smem;
-  }
-  int grid = info.sms * info.blocks_per_sm[slot];
+  int nb = 0;
+  const int err = blocks_per_sm<MT>(dev, smem, nb);
+  if (err != 0) return err;
+  int grid = sms * nb;
   if (grid > total_tiles) grid = total_tiles;  // every block gets a run of >= 1 tile
   fir_decimate_kernel<MT><<<grid, kThreads, smem, stream>>>(
       x, tail, w, y, new_tail, n, tail_len, m, r_rows, out_len, tiles_per_row, total_tiles);
@@ -353,32 +514,28 @@ extern "C" int fir_decimate(const void* x, const void* tail, const void* w, void
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  LaunchInfo& info = g_info[dev];
-  if (!info.ready) {  // once per device: no launch sets an attribute
-    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(fir_decimate_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(fir_decimate_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    info.smem[0] = info.smem[1] = -1;
-    info.ready = true;
+  int sms = 0;
+  const int rc = setup(dev, sms);
+  if (rc != 0) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *xf = (const float*)x, *tf = (const float*)tail, *wf = (const float*)w;
+  if (smem_bytes(m, 1) > (size_t)kMaxSmem) {  // the window does not fit: the wide form
+    const long long tiles = (long long)(out_len + kWideOut - 1) / kWideOut;
+    if (tiles * rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fir_decimate_wide_kernel<<<(int)(tiles * rows), kThreads, 0, s>>>(
+        xf, tf, wf, (float*)y, (float*)new_tail, rows, n, tail_len, m, r_rows, out_len, (int)tiles);
+    return (int)cudaGetLastError();
   }
   const int mt = smem_bytes(m, 2) <= (size_t)kMaxSmem ? 2 : 1;
   const size_t smem = smem_bytes(m, mt);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   // a tile is TR rows of Z; a row has out_len + R - 1 of them
   const int tiles_per_row = (out_len + r_rows - 1 + tile_rows(mt) - 1) / tile_rows(mt);
   const long long total = (long long)tiles_per_row * rows;
   if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float *xf = (const float*)x, *tf = (const float*)tail, *wf = (const float*)w;
   if (mt == 2) {
-    return launch<2>(dev, 0, smem, (int)total, xf, tf, wf, (float*)y, (float*)new_tail, n,
+    return launch<2>(dev, sms, smem, (int)total, xf, tf, wf, (float*)y, (float*)new_tail, n,
                      tail_len, m, r_rows, out_len, tiles_per_row, s);
   }
-  return launch<1>(dev, 1, smem, (int)total, xf, tf, wf, (float*)y, (float*)new_tail, n,
+  return launch<1>(dev, sms, smem, (int)total, xf, tf, wf, (float*)y, (float*)new_tail, n,
                    tail_len, m, r_rows, out_len, tiles_per_row, s);
 }

@@ -22,9 +22,10 @@
 //     has them), then the least index among the lanes holding the maximum;
 //   - a two-level table: leaves of L bins (32 up to fft 32768, then L =
 //     fft/1024) hold (key, index) in shared memory, 32 groups of leaves
-//     hold theirs in one register a lane. A winner is one argmax over the
-//     groups; a single-bin suppression re-reduces one leaf (L/32 loads a
-//     lane) and one group (one shared load a lane);
+//     hold theirs in one register a lane (a row of fewer than 32 leaves,
+//     fft 256-512, has a group a leaf and lanes without one). A winner is
+//     one argmax over the groups; a single-bin suppression re-reduces one
+//     leaf (L/32 loads a lane) and one group (one shared load a lane);
 //   - the table is built by one pass over the row with 16-byte loads, the
 //     next 4 a lane in flight while the last 4 are reduced; a load takes 64
 //     contiguous bytes of each of 8 leaves, so a leaf costs 2 shuffles. The
@@ -45,11 +46,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kRowsPerBlock = 4;
 constexpr int kThreads = kRowsPerBlock * 32;
-constexpr int kGroups = 32;     // groups of leaves: one a lane
+constexpr int kGroups = 32;     // groups of leaves: at most one a lane
+constexpr int kLeavesALoad = 8;  // one warp load spans 8 leaves
 constexpr int kUnroll = 4;      // 16-byte loads a lane in flight while the last 4 are reduced
 constexpr uint32_t kNone = 0u;  // key below every value's: an exhausted leaf
 constexpr unsigned kFull = 0xffffffffu;
@@ -207,7 +211,8 @@ selection_kernel(const T* __restrict__ rows, const float* __restrict__ level,
   const long long r = (long long)blockIdx.x * kRowsPerBlock + warp;
   if (r >= n_rows) return;  // whole warps only: nothing below synchronises the block
   const int n_leaf = fft / leaf_w;
-  const int G = n_leaf / kGroups;  // leaves a group
+  const int n_groups = n_leaf < kGroups ? n_leaf : kGroups;  // fewer leaves: a group a leaf
+  const int G = n_leaf / n_groups;  // leaves a group
   RowSmem s;
   {
     unsigned char* base = smem + (size_t)warp * row_smem_bytes(n_leaf, top_k, k_sep);
@@ -285,9 +290,10 @@ selection_kernel(const T* __restrict__ rows, const float* __restrict__ level,
   if (lane == 0) count[r] = (int)cnt;
   __syncwarp();
 
-  // ---- the group table: lane g holds group g (leaves read staggered: no bank conflicts)
+  // ---- the group table: lane g holds group g (leaves read staggered: no
+  // bank conflicts); a lane without a group holds the key no bin has
   uint32_t gk = kNone, gi = 0xffffffffu;
-  for (int j = 0; j < G; ++j) {
+  for (int j = 0; j < (lane < n_groups ? G : 0); ++j) {
     const uint2 e = s.leaf[lane * G + (j + lane) % G];
     if (better(e.x, e.y, gk, gi)) {
       gk = e.x;
@@ -380,6 +386,7 @@ selection_kernel(const T* __restrict__ rows, const float* __restrict__ level,
 }
 
 bool g_ready[kMaxDevices][2];
+std::mutex g_ready_mutex;  // sessions on several host threads may share a card
 
 template <typename T>
 int launch(int slot, const void* rows, const void* level, void* top_val, void* top_idx,
@@ -391,11 +398,14 @@ int launch(int slot, const void* rows, const void* level, void* top_val, void* t
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!g_ready[dev][slot]) {  // once per device: no launch sets an attribute
-    err = cudaFuncSetAttribute(selection_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    g_ready[dev][slot] = true;
+  {
+    std::lock_guard<std::mutex> lock(g_ready_mutex);
+    if (!g_ready[dev][slot]) {  // once per device: no launch sets an attribute
+      err = cudaFuncSetAttribute(selection_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kMaxSmem);
+      if (err != cudaSuccess) return (int)err;
+      g_ready[dev][slot] = true;
+    }
   }
   const int blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
   selection_kernel<T><<<blocks, kThreads, smem, s>>>(
@@ -408,7 +418,8 @@ int launch(int slot, const void* rows, const void* level, void* top_val, void* t
 
 // rows: [n_rows, fft] f32 (is_bf16 = 0) or bf16 (1), 16-byte aligned;
 // leaf_w: bins a leaf (ops/cuda/select_kernel.leaf_width: a power of 2 >= 32
-// dividing fft into a multiple of 32 leaves); k_sep <= 32 (a lane a zone);
+// dividing fft into a multiple of 8 leaves, and of 32 above 32 leaves);
+// k_sep <= 32 (a lane a zone);
 // level: one f32 on the
 // device; outputs top_val/sep_val in the row dtype, top_idx/sep_idx/count
 // int32. neg: -3.3e38 cast to the row dtype.
@@ -416,8 +427,10 @@ extern "C" int fused_selection(const void* rows, int is_bf16, const void* level,
                                void* top_idx, void* sep_val, void* sep_idx, void* count,
                                int n_rows, int fft, int leaf_w, int top_k, int k_sep,
                                int submargin, float neg, void* stream) {
+  const int n_leaf = leaf_w > 0 ? fft / leaf_w : 0;
   if (n_rows <= 0 || leaf_w < 32 || (leaf_w & (leaf_w - 1)) != 0 || fft % leaf_w != 0 ||
-      (fft / leaf_w) % kGroups != 0 || top_k < 1 || top_k > fft || k_sep < 1 || k_sep > 32 ||
+      n_leaf % kLeavesALoad != 0 || (n_leaf > kGroups && n_leaf % kGroups != 0) ||
+      top_k < 1 || top_k > fft || k_sep < 1 || k_sep > 32 ||
       submargin < 0 ||
       ((uintptr_t)rows & 15) != 0) {
     return (int)cudaErrorInvalidValue;

@@ -244,8 +244,8 @@ def _compact_scan_block(
     spectro_acc: torch.Tensor,  # [NB, spectro_size] f32
     iq: torch.Tensor,  # [NB, F, fft*decim, 2] int8
     now_ms: torch.Tensor,  # [NB, F] i32
-    keys: torch.Tensor,  # [S] i32 tracked keys
-    valid_mask: torch.Tensor,  # [fft] bool
+    keys: torch.Tensor,  # [S] i32 tracked keys (shared), or [NB, S] (a band's own)
+    valid_mask: torch.Tensor,  # [fft] bool (shared), or [NB, fft]
     start_level: torch.Tensor,  # 0-d f32
     spectro_keep,  # 0-d f32 tensor or float: 1 = accumulate, 0 = reset first
 ) -> Tuple[ScanState, torch.Tensor, CompactScanOutputs]:

@@ -107,8 +107,8 @@ def stage_apply_fir(
 
     On a CUDA tensor this launches the kernel (and counts the launch in
     ``stage_apply_fir.launches``); on a CPU tensor it runs the plain version.
-    Sizes the kernel does not take (a window larger than a block's shared
-    memory) come back as a launch error, which raises.
+    The kernel takes any M (a window too large for a block's shared memory
+    takes its wide form); a launch error raises.
     """
     if x.device.type == "cpu":
         return stage_apply_fir_plain(x, tail, plan)

@@ -24,6 +24,15 @@ def _split_n(n: int) -> Tuple[int, int]:
     return 1 << l1, 1 << (log - l1)
 
 
+def takes_fft(fft_size: int) -> bool:
+    """Whether the kernel takes frames of ``fft_size``: a power of two in
+    [256, 2^20]."""
+    if fft_size <= 0 or fft_size & (fft_size - 1):
+        return False
+    n1, n2 = _split_n(fft_size)
+    return n2 >= 16 and n1 <= 1024
+
+
 def psd_frames_int8_plain(
     iq_int8: torch.Tensor, sample_rate: float, fft_size: int, decim: int
 ) -> torch.Tensor:
@@ -53,7 +62,7 @@ def psd_frames_int8(
         )
     if not iq_int8.is_contiguous():
         raise ValueError("psd_frames_int8: input must be contiguous")
-    if n1 * n2 != fft_size or n2 < 16 or n1 > 1024:
+    if n1 * n2 != fft_size or not takes_fft(fft_size):
         raise ValueError(f"psd_frames_int8: fft {fft_size} must be a power of two in [256, 2^20]")
     if not 0 < frames <= 65535:
         raise ValueError(f"psd_frames_int8: {frames} frames outside the grid's 1..65535")

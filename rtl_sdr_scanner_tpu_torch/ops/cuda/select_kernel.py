@@ -21,9 +21,10 @@ from rtl_sdr_scanner_tpu_torch.ops.detect import (
     top_k_exact,
 )
 
-GROUPS = 32  # groups of leaves in the kernel's table (one a lane of its warp)
+GROUPS = 32  # groups of leaves in the kernel's table (at most one a lane of its warp)
 LEAF_MIN = 32  # bins a leaf at least (one a lane)
-FFT_MULTIPLE = GROUPS * LEAF_MIN  # fft must be a multiple: whole groups of whole leaves
+LEAVES_A_LOAD = 8  # one warp load of the table pass spans 8 leaves
+FFT_MULTIPLE = LEAVES_A_LOAD * LEAF_MIN  # fft must be a multiple (256): whole loads of whole leaves
 MAX_LEAVES = 1024  # leaves widen (doubling) while a row has more
 MAX_K_SEP = 32  # margin winners: the kernel tests a bin against the zones, a lane a zone
 
@@ -38,15 +39,24 @@ def leaf_width(fft: int) -> int:
     return width
 
 
+def takes_fft(fft: int) -> bool:
+    """Whether the kernel's table fits rows of ``fft`` bins: whole warp loads
+    of whole leaves (fft a multiple of 256), and whole groups of leaves where
+    a row has more than 32 leaves (below, a group is a leaf). Every power of
+    two from 256 up."""
+    n_leaf = fft // leaf_width(fft)
+    return fft > 0 and fft % FFT_MULTIPLE == 0 and (n_leaf <= GROUPS or n_leaf % GROUPS == 0)
+
+
 def check_args(rows: torch.Tensor, top_k: int, k_sep: int, submargin: int) -> None:
     """Raise ValueError on what the kernel does not take."""
     if rows.dtype not in (torch.float32, torch.bfloat16) or rows.ndim != 2:
         raise ValueError(f"fused_selection: want [R, fft] f32/bf16, got {rows.dtype} {tuple(rows.shape)}")
     fft = rows.shape[1]
-    if fft % FFT_MULTIPLE != 0 or not 1 <= top_k <= fft or not 1 <= k_sep <= MAX_K_SEP or submargin < 0:
+    if not takes_fft(fft) or not 1 <= top_k <= fft or not 1 <= k_sep <= MAX_K_SEP or submargin < 0:
         raise ValueError(
-            f"fused_selection: fft {fft} must be a multiple of {FFT_MULTIPLE}, 1 <= top_k <= fft, "
-            f"1 <= k_sep <= {MAX_K_SEP}, submargin >= 0"
+            f"fused_selection: fft {fft} must be a multiple of {FFT_MULTIPLE} (of {GROUPS * LEAF_MIN} "
+            f"above {GROUPS} leaves), 1 <= top_k <= fft, 1 <= k_sep <= {MAX_K_SEP}, submargin >= 0"
         )
     if not rows.is_contiguous() or rows.data_ptr() % 16 != 0:
         raise ValueError("fused_selection: rows must be contiguous and 16-byte aligned")

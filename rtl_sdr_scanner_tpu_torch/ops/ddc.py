@@ -473,9 +473,15 @@ def _modtap_stage1(
     w: torch.Tensor,  # [NB, C, K*2*D*P]
     plan: StagePlan,
     k: int,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Complex-tap chunked-matmul stage 1: (y_re, y_im) [NB, K, out1] and
-    the new raw tail."""
+    the new raw tail.
+
+    bf16=True is the reference's tolerance mode: bf16 OPERANDS, f32
+    accumulation and output. A bf16 ``bmm`` would round its output to bf16
+    too (another function), so the operands are rounded to bf16 and the
+    product runs in f32."""
     nb, two, n = x.shape
     m = plan.decim
     c, d, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
@@ -485,6 +491,9 @@ def _modtap_stage1(
     n_chunks = a_tiles + d - 1
     full = torch.cat([x_tail, x], dim=-1)
     lhs = F.pad(full, (q - plan.tail_len, n_chunks * c - q - n)).reshape(nb, two * n_chunks, c)
+    if bf16:
+        lhs = lhs.to(torch.bfloat16).to(torch.float32)
+        w = w.to(torch.bfloat16).to(torch.float32)
     z = torch.bmm(lhs, w).reshape(nb, two, n_chunks, k, 2, d * p)
     acc = z[:, :, 0:a_tiles, :, :, 0:p]
     for dd in range(1, d):

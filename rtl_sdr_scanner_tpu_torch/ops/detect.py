@@ -215,10 +215,18 @@ def _mode_median_ties_unrolled(
 
 def _windowed_argmax(rows: torch.Tensor, centers: torch.Tensor, half: int, fft: int):
     """First-max argmax of rows[..., :] in [center-half, center+half] clamped:
-    rows [..., fft], centers [C] -> (values [..., C], indices [..., C] i32)."""
+    rows [..., fft], centers [C] -> (values [..., C], indices [..., C] i32).
+    Per-band centers [NB, C] take rows [NB, F, fft] (each band its own keys)."""
     offs = torch.arange(-half, half + 1, device=rows.device)
-    idx = torch.clamp(centers.long()[:, None] + offs[None, :], 0, fft - 1)  # [C, w]
-    gathered = rows[..., idx]  # [..., C, w]
+    idx = torch.clamp(centers.long()[..., None] + offs, 0, fft - 1)  # [(NB,) C, w]
+    if centers.ndim == 1:
+        gathered = rows[..., idx]  # [..., C, w]
+    else:
+        nb, f = rows.shape[:2]
+        band = torch.arange(nb, device=rows.device)[:, None, None, None]
+        frame = torch.arange(f, device=rows.device)[None, :, None, None]
+        idx = idx[:, None].expand(nb, f, *idx.shape[1:])  # [NB, F, C, w]
+        gathered = rows[band, frame, idx]
     pos = torch.argmax(gathered, dim=-1)  # first max
     best_idx = torch.gather(idx.expand(pos.shape + (idx.shape[-1],)), -1, pos[..., None])[..., 0]
     best_val = torch.gather(gathered, -1, pos[..., None])[..., 0]
@@ -229,8 +237,8 @@ def compact_detection(
     avg: torch.Tensor,  # [NB, F, fft] smoothed rows
     raw: torch.Tensor,  # [NB, F, fft] raw (noise-subtracted) rows of this block
     prev_tail: torch.Tensor,  # [NB, half-1, fft] newest ordered ring rows pre-block
-    keys: torch.Tensor,  # [S] i32 tracked signal keys
-    valid_mask: torch.Tensor,  # [fft] bool: in-range & not ignored
+    keys: torch.Tensor,  # [S] i32 tracked signal keys, or [NB, S] (each band its own)
+    valid_mask: torch.Tensor,  # [fft] bool: in-range & not ignored, or [NB, fft]
     start_level: torch.Tensor,  # 0-d f32
     group_size: int,
     top_k: int,
@@ -243,7 +251,7 @@ def compact_detection(
     half = group_size // 2
     level = start_level.to(torch.float32)
 
-    masked = torch.where(valid_mask, avg, MASKED)
+    masked = torch.where(valid_mask if valid_mask.ndim == 1 else valid_mask[:, None, :], avg, MASKED)
     sel = masked.to(torch.bfloat16) if bf16 else masked
     submargin = group_size // 2 if group_size % 2 == 0 else group_size // 2 + 1
     from rtl_sdr_scanner_tpu_torch.ops.cuda.select_kernel import fused_selection

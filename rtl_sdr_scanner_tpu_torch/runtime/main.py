@@ -9,9 +9,12 @@ update, which persists the new config and rebuilds the world).
 Usage: python -m rtl_sdr_scanner_tpu_torch.runtime.main /path/to/config.json
 
 Every scanner runs on the card (CUDA); ``run(..., device="cpu")`` runs the
-plain PyTorch versions instead. A config that needs a path the port does not
-have yet (a wideband device, a mesh, multihost, power_bf16) is refused with
-one error and exit code 1 before any scanner starts.
+plain PyTorch versions instead. A device with ``channels >= 2`` runs a
+``WidebandScanner``. A config that needs a path the port does not have yet
+(more than one card: ``mesh_time``, ``multihost``, a ``mesh_bands`` that
+resolves to several cards; ``power_bf16``), or a geometry a kernel on the
+card does not take, is refused with one error and exit code 1 before any
+scanner starts.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import make_mqtt
 from rtl_sdr_scanner_tpu_torch.runtime.remote_controller import RemoteController
 from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
 from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import unported_path
+from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
 from rtl_sdr_scanner_tpu_torch.utils import logger
 from rtl_sdr_scanner_tpu_torch.utils.utils import generate_random_hash
 
@@ -41,11 +45,12 @@ def _handler(signum, frame):
     _is_running = False
 
 
-def _refusal(config: Config):
-    """The first unported path an enabled device or the tunables need."""
+def _refusal(config: Config, device):
+    """The first unported path (or kernel geometry) an enabled device or the
+    tunables need on ``device``."""
     for spec in config.devices:
         if spec.enabled and spec.ranges:
-            reason = unported_path(config, spec)
+            reason = unported_path(config, spec, device)
             if reason is not None:
                 return reason
     return unported_path(config)
@@ -78,7 +83,7 @@ def run(config_file: str, device: DeviceLike = None) -> int:
             config.tunables.log_files_count,
             config.color_log_enabled,
         )
-        reason = _refusal(config)
+        reason = _refusal(config, device)
         if reason is not None:
             logger.error(LABEL, "{}", reason)
             return 1
@@ -113,6 +118,10 @@ def run(config_file: str, device: DeviceLike = None) -> int:
                     logger.info(LABEL, "device disabled, skipping: {}", spec.name)
                 elif not spec.ranges:
                     logger.info(LABEL, "empty ranges to scan, skipping: {}", spec.name)
+                elif spec.channels >= 2:
+                    scanner = WidebandScanner(config, spec, mqtt, config.recorders_count(), device=device)
+                    scanner.start()
+                    scanners.append(scanner)
                 else:
                     scanner = Scanner(config, spec, mqtt, config.recorders_count(), device=device)
                     scanner.start()

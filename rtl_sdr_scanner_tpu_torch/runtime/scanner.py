@@ -44,11 +44,11 @@ class Scanner:
         prefer_int8_ingest: Optional[bool] = None,
         device: DeviceLike = None,
     ):
+        device = resolve_device(device)  # a missing card raises before any source opens
         # refuse an unported path before the source opens its hardware
-        reason = unported_path(config, device_spec)
+        reason = unported_path(config, device_spec, device)
         if reason is not None:
             raise NotImplementedError(reason)
-        device = resolve_device(device)  # a missing card raises before any source opens
         self._config = config
         self._tunables = config.tunables
         # set when the worker thread dies on a fatal source/pipeline error;

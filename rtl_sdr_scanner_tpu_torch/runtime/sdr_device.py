@@ -69,16 +69,70 @@ STAGES = (
 )
 
 
-def unported_path(config: Config, spec: Optional[DeviceSpec] = None) -> Optional[str]:
-    """Why this config (and device) needs a path the port does not have yet,
-    naming the ROADMAP.md item that brings it, or None."""
+def visible_cards(device: torch.device) -> int:
+    """Cards a bands mesh could span from ``device``: the visible CUDA
+    devices on the card, one on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def mesh_bands_cards(mesh_bands: int, channels: int, cards: int) -> int:
+    """Cards a wideband device's bands mesh resolves to (the reference's
+    ``WidebandScanner._setup_mesh``): all cards for -1, at most the cards
+    and the channels, shrunk until it divides the channels."""
+    n = cards if mesh_bands < 0 else mesh_bands
+    n = max(1, min(n, cards, channels))
+    while channels % n != 0:
+        n -= 1
+    return n
+
+
+def _channel_rate(config: Config, spec: DeviceSpec) -> int:
+    """The sample rate a session of this device scans: a wideband device's
+    channel stream (2R/B when oversampled), else the device's rate."""
+    if spec.channels < 2:
+        return spec.sample_rate
+    oversample = 2 if config.tunables.channelizer_oversample == 2 else 1
+    return spec.sample_rate // spec.channels * oversample
+
+
+def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
+    """A geometry of this device that a kernel on its card does not take."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.psd_kernel import takes_fft as psd_takes_fft
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.select_kernel import takes_fft as select_takes_fft
+
     t = config.tunables
-    if spec is not None and spec.channels >= 2:
+    rate = _channel_rate(config, spec)
+    fft = ScanConfig.create(rate, tunables=t).fft_size
+    if t.compact_detection and not select_takes_fft(fft):
         return (
-            f"device {spec.name}: channels={spec.channels} needs the wideband channelizer, "
-            "not ported yet (ROADMAP.md section 1, slice 7)"
+            f"device {spec.name}: fft {fft} at {rate} sps is outside the selection kernel "
+            "(a power of two from 256 up) on the card"
         )
-    for name in ("mesh_time", "mesh_bands", "multihost"):
+    # a wideband device's channels reach the scan as f32 pairs (no PSD kernel)
+    if spec.channels < 2 and t.int8_ingest and not psd_takes_fft(fft):
+        return (
+            f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel "
+            "(a power of two in [256, 2^20]) on the card; set tunables.int8_ingest=false"
+        )
+    return None
+
+
+def unported_path(
+    config: Config, spec: Optional[DeviceSpec] = None, device: Optional[torch.device] = None
+) -> Optional[str]:
+    """Why this config (and device, scanned on the torch ``device``) needs a
+    path the port does not have, naming the ROADMAP.md item that brings it,
+    or a geometry its card's kernels do not take; None when it runs."""
+    t = config.tunables
+    if spec is not None and spec.channels >= 2 and t.mesh_bands and t.compact_detection:
+        cards = visible_cards(device) if device is not None else 1
+        n = mesh_bands_cards(t.mesh_bands, spec.channels, cards)
+        if n > 1:
+            return (
+                f"device {spec.name}: tunables.mesh_bands={t.mesh_bands} resolves to {n} cards; the "
+                "multi-device layer is not ported yet (ROADMAP.md section 1, slice 8)"
+            )
+    for name in ("mesh_time", "multihost"):
         if getattr(t, name):
             return (
                 f"tunables.{name}={getattr(t, name)!r} needs the multi-device layer, "
@@ -89,6 +143,8 @@ def unported_path(config: Config, spec: Optional[DeviceSpec] = None) -> Optional
             "tunables.power_bf16=true is not ported yet (ROADMAP.md section 1, "
             "'power_bf16 and the gather vote form')"
         )
+    if spec is not None and device is not None and device.type == "cuda":
+        return _kernel_refusal(config, spec)
     return None
 
 
@@ -172,12 +228,12 @@ class SdrDevice:
         session_epoch_ms: int = 0,
         device: DeviceLike = None,
     ):
-        reason = unported_path(config, spec)
-        if reason is not None:
-            raise NotImplementedError(reason)
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        reason = unported_path(config, spec, dev)
+        if reason is not None:
+            raise NotImplementedError(reason)
         self.torch_device = dev
         self._config = config
         self._device = spec
@@ -268,6 +324,11 @@ class SdrDevice:
             self.ddc_cfg, np.zeros(recorders_count, dtype=np.int64), device=dev
         )
         self._ignored_transmissions: Set[int] = set()
+        # when an owner (WidebandScanner's one-dispatch forms) runs the DDC
+        # for all channels at once, this session only records slot
+        # start/stop events for it instead of touching its own device carry
+        self.external_ddc = False
+        self._slot_events: List[Tuple[int, int, bool]] = []  # (slot, shift, started)
 
         self._spectro_containers: Dict[int, SpectroContainer] = {}
         # compact mode accumulates the spectrogram bin sum ON DEVICE
@@ -313,6 +374,30 @@ class SdrDevice:
     @property
     def last_notification(self) -> List[FrequencyFlush]:
         return self._last_notification
+
+    def recording_slot_indices(self) -> set:
+        """Indices of slots currently recording (the fused wideband dispatch
+        snapshots these at dispatch time to gate ingest_ddc_out)."""
+        return {rec.index for rec in self._recorders if rec.is_recording}
+
+    def recording_slots(self) -> Dict[int, Tuple[int, int]]:
+        """slot index -> (shift, start ms) of every recording slot: which
+        recording a slot holds, so that a slot stopped and reused (at any
+        shift) reads as another recording."""
+        return {rec.index: (rec.shift, rec.first_ms) for rec in self._recorders if rec.is_recording}
+
+    def clear_slot_start_trim(self, slots) -> None:
+        """Void the in-block start trim for ``slots`` (fused dispatch: a slot
+        started during this block's host processing records from the NEXT
+        block, which is wholly post-start)."""
+        for rec in self._recorders:
+            if rec.index in slots:
+                rec.start_fraction = 0.0
+
+    def wants_raw_iq(self) -> bool:
+        """True when the debug raw-IQ file sink is live and recording, i.e.
+        an owner that can supply an f32 IQ stream should keep feeding one."""
+        return self._raw_iq_sink is not None and self._raw_iq_sink.recording
 
     # -- retune ------------------------------------------------------------
 
@@ -439,7 +524,7 @@ class SdrDevice:
             slot_keys = handle["slot_keys"]
             # single device->host transfer for the whole block's detector data
             with record_function("session.fetch"):
-                packed = outs.packed.cpu().numpy()
+                packed = _host(outs.packed)
             with record_function("session.tracker"):
                 (
                     cand_idx,
@@ -486,7 +571,7 @@ class SdrDevice:
         for _ in range(cfg.frames_per_block):
             self._perf.kick()
         if self._raw_iq_sink is not None and self._raw_iq_sink.recording:
-            if handle["iq_dev"].dtype == torch.float32:
+            if handle["iq_dev"] is not None and handle["iq_dev"].dtype == torch.float32:
                 pairs = handle["iq_dev"].cpu().numpy()
                 self._raw_iq_sink.write(pairs.reshape(-1).view(np.complex64))
             elif not self._raw_iq_sink_starved_logged:
@@ -512,12 +597,16 @@ class SdrDevice:
                 },
             )
 
-        if self.is_recording:
+        if self.is_recording and not handle.get("skip_ddc"):
             with record_function("session.ddc"):
                 self._run_ddc(handle["iq_dev"], block_start_ms)
 
         with record_function("session.spectrogram"):
-            if self._compact:
+            if handle.get("skip_spectro"):
+                # an owner's banded accumulator: it feeds ingest_spectro at
+                # the send cadence
+                pass
+            elif self._compact:
                 self._maybe_send_spectrogram(int(now_arr[-1]))
             else:
                 self._accumulate_spectrogram(outs.spectro_sum.cpu().numpy(), int(now_arr[-1]))
@@ -637,6 +726,9 @@ class SdrDevice:
         rec.last_ms = now_ms
         rec.pending = []
         rec.start_fraction = start_fraction
+        if self.external_ddc:
+            self._slot_events.append((rec.index, shift, True))
+            return
         self._ddc_state = ddc_pipeline.reset_slot(self._ddc_state, rec.index)
         shifts = np.array(
             [r.shift if r.is_recording else 0 for r in self._recorders], dtype=np.int64
@@ -644,9 +736,16 @@ class SdrDevice:
         self._ddc_tables = ddc_pipeline.make_tables(self.ddc_cfg, shifts, device=self.torch_device)
 
     def _stop_slot(self, rec: RecorderSlot) -> None:
+        if self.external_ddc and rec.is_recording:
+            self._slot_events.append((rec.index, 0, False))
         rec.shift = None
         rec.frequency = None
         rec.pending = []
+
+    def drain_slot_events(self) -> List[Tuple[int, int, bool]]:
+        """Pop pending (slot, shift, started) events (external_ddc mode)."""
+        events, self._slot_events = self._slot_events, []
+        return events
 
     def _flush_slot(self, rec: RecorderSlot) -> None:
         """Drain buffered DDC output to the wire (recorder.cpp:89-97)."""
@@ -668,9 +767,15 @@ class SdrDevice:
         self._ddc_state, out = self._ddc_step(self._ddc_state, iq_dev, self._ddc_tables)
         self.ingest_ddc_out(out.cpu().numpy(), block_start_ms)
 
-    def ingest_ddc_out(self, out_np: np.ndarray, block_start_ms: int) -> None:
+    def ingest_ddc_out(self, out_np: np.ndarray, block_start_ms: int, only_slots=None) -> None:
         """Distribute one block's [K, out, 2] int8 DDC rows to the recording
-        slots' pending buffers."""
+        slots' pending buffers. An owner running the DDC for all channels
+        (WidebandScanner) feeds each session its channel's rows here.
+
+        only_slots (fused dispatch): the slots whose recording was active
+        when this block was DISPATCHED; any other recording slot started
+        during this block's host processing and has no valid output in it:
+        it is skipped and its in-block start trim cleared."""
         # pending entries are RECORDER_FLUSH_INTERVAL-sized chunks so the MQTT
         # stream keeps the reference's ~100 ms payload cadence (recorder.cpp:35
         # stream_to_vector of flush-interval length feeding the Buffer)
@@ -679,6 +784,9 @@ class SdrDevice:
         )
         for rec in self._recorders:
             if rec.is_recording:
+                if only_slots is not None and rec.index not in only_slots:
+                    rec.start_fraction = 0.0
+                    continue
                 samples = out_np[rec.index]
                 trimmed = 0
                 if rec.start_fraction > 0.0:
@@ -802,6 +910,11 @@ class SdrDevice:
         if container.last_send_ms + self._tunables.spectrogram_send_interval_ms < now_ms:
             self._send_container(container, self.center_frequency, now_ms)
             container.last_send_ms = now_ms
+
+
+def _host(a) -> np.ndarray:
+    """A device tensor read to the host; a host array as it is."""
+    return a if isinstance(a, np.ndarray) else a.cpu().numpy()
 
 
 def _fix_block_multiple(

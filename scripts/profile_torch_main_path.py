@@ -1,6 +1,7 @@
 """Where one block of the port's main path spends its time on the card.
 
-    python3 scripts/profile_torch_main_path.py [--path 1|2|session] [--blocks 3]
+    python3 scripts/profile_torch_main_path.py [--path 1|2|session|wideband|wideband-session]
+        [--form serial|split|fused] [--blocks 3]
 
 Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
 fft 131072 at 20.48 Msps with 2 modulated-taps DDC slots; path 2, the
@@ -18,6 +19,14 @@ runtime capture (one replay device, 2.4 Msps, 4 slots at 32 kHz) through
 ``Scanner.step()``, blocks 3.. (the FM signal keyed 3-6 s records there),
 and prints the host time of each range a block opens
 (``sdr_device.STAGES``) beside the device's busy time.
+``--path wideband`` profiles chip_smoke.py's wideband step (bench.py's app
+path: 163.84 Msps into 8 channels of path 1's geometry, fused dispatch):
+the device span of the channelizer (``sharded_scan.STAGES``) and of each
+step stage, as for paths 1 and 2. ``--path wideband-session --form F``
+profiles chip_smoke.py's wideband session (2.048 Msps into 16 channels of
+128 kHz) in form F: the host time of each range a block opens (the
+sessions' ranges summed over the 16 channels, the channelizer's and the
+batched step's) beside the device's busy time.
 Needs a card; run it from the repository root.
 """
 
@@ -41,7 +50,10 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("1", "2", "session"), default="1", help="chip_smoke.py's path to drive")
+    ap.add_argument("--path", choices=("1", "2", "session", "wideband", "wideband-session"), default="1",
+                    help="chip_smoke.py's path to drive")
+    ap.add_argument("--form", choices=[f for f, _ in cs.WB_FORMS], default="fused",
+                    help="the wideband session's form (--path wideband-session)")
     ap.add_argument("--blocks", type=int, default=3, help="blocks to average over")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -54,8 +66,19 @@ def main() -> int:
     build.library()
     if args.path == "session":
         return profile_session(card, args.blocks)
-    geo = cs.PATH1 if args.path == "1" else cs.PATH2
-    path = cs.MainPath(torch.device("cuda", 0), geo)
+    if args.path == "wideband-session":
+        return profile_wideband_session(card, args.blocks, args.form)
+    dev = torch.device("cuda", 0)
+    if args.path == "wideband":
+        from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import STAGES as WIDE_STAGES
+
+        geo = cs.WIDE
+        path = cs.WidebandStep(dev, geo, True, [])
+        path.ring = cs.wide_ring(geo, path.cfg.block_samples, dev)
+        STAGES = WIDE_STAGES + STAGES
+    else:
+        geo = cs.PATH1 if args.path == "1" else cs.PATH2
+        path = cs.MainPath(dev, geo)
     for b in range(3):  # warm up: allocator, cuFFT/cuBLAS plans, noise learning under way
         path.run_block(b)
     torch.cuda.synchronize()
@@ -137,6 +160,56 @@ def profile_session(card: str, blocks: int) -> int:
     for name in STAGES:
         print(f"  {host[name]:9.3f}  {name}" if name in host else f"  not opened  {name}")
     print(f"  {sum(host.values()):9.3f}  sum (the replay read and the scheduler are outside)")
+    print_kernels(kernels, blocks, wall_ms, card)
+    return 0
+
+
+def profile_wideband_session(card: str, blocks: int, form: str) -> int:
+    """The wideband session under the profiler: host ranges and device busy."""
+    from rtl_sdr_scanner_tpu_torch.models.fused_step import STAGES as STEP_STAGES
+    from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import STAGES as WIDE_STAGES
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import STAGES
+    from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
+
+    ranges = WIDE_STAGES + STAGES + STEP_STAGES
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        capture = Path(tmp) / "wide.cs8"
+        cs.write_capture(capture, cs.WB_RATE, cs.WB_SECONDS, cs.WB_SIGNALS, cs.WB_KEY, seed=7)
+        raw = cs.runtime_config(capture, cs.WB_RATE, cs.WB_CENTER, channels=cs.WB_CHANNELS, **dict(cs.WB_FORMS)[form])
+        cfg = Config(json.loads(json.dumps(raw)))
+        scanner = WidebandScanner(cfg, cfg.devices[0], NullMqtt(), cfg.recorders_count(), device=torch.device("cuda", 0))
+        for _ in range(10):  # warm up, into the keyed signals (3-6 s; 0.32 s blocks)
+            scanner.step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                assert scanner.step(), "the capture ended inside the profiled window"
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+        recording = sum(s.is_recording for s in scanner.sessions)
+
+    host = defaultdict(float)
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3 / blocks
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name not in ranges:
+                kernels[e.name][0] += ms
+                kernels[e.name][1] += 1
+        elif e.name in ranges:
+            host[e.name] += ms
+    print(f"wideband session, {form}: host time of each range, ms per block, all channels, mean of blocks "
+          f"10..{9 + blocks} ({recording} channels recording at the end) ({card}):")
+    for name in ranges:
+        if name in host:
+            print(f"  {host[name]:9.3f}  {name}")
+    print("  (scan.* ranges nest inside session.scan in the serial form, and are the batched step's enqueue "
+          "in the others)")
     print_kernels(kernels, blocks, wall_ms, card)
     return 0
 

@@ -14,8 +14,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "rtl_sdr_scanner_tpu_torch"
 CARD_SCRIPTS = [ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py"]
+SCAN_FILE = ROOT / "scripts" / "scan_file_torch.py"
 SOURCES = (
     sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS
+    + [SCAN_FILE]
 )
 
 
@@ -60,6 +62,25 @@ def test_sources_name_no_jax(path):
             assert "jax" not in code, line
 
 
+def test_scan_file_torch_runs_without_jax(tmp_path):
+    """The port's offline scan CLI, wideband branch included, runs with JAX
+    and the JAX package made unimportable."""
+    capture = tmp_path / "noise.cs8"
+    rng = np.random.default_rng(0)
+    np.clip(np.round(rng.standard_normal(2 * 256_000) * 1.3), -128, 127).astype(np.int8).tofile(capture)
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rtl_sdr_scanner_tpu'] = None\n"
+        f"sys.argv = ['scan_file_torch.py', '--file', {str(capture)!r}, '--rate', '256000', '--center', '145e6',\n"
+        "            '--json', '--cpu', '--channels', '2']\n"
+        f"runpy.run_path({str(SCAN_FILE)!r}, run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"transmissions": []}
+
+
 def test_no_build_output_in_the_package():
     assert not list(PKG.rglob("*.so"))
 
@@ -83,6 +104,9 @@ def test_entry_points_default_to_the_card(tmp_path):
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
     from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
     from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import SdrDevice
+    from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
+    from rtl_sdr_scanner_tpu_torch.ops import channelizer
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -96,8 +120,9 @@ def test_entry_points_default_to_the_card(tmp_path):
     }]
     config_path = tmp_path / "config.json"
     config_path.write_text(json.dumps(raw))
+    raw["devices"].append(dict(raw["devices"][0], serial="w", channels=2))
     config = Config(raw)
-    spec = config.devices[0]
+    spec, wide = config.devices
     cfg = scan_pipeline.ScanConfig.create(256_000, 10)
     ddc = ddc_pipeline.DdcConfig.create(256_000, 16_000, 2, cfg.block_samples)
     v1 = ddc_pipeline.DdcConfig.create(2_400_000, 32_000, 2, 75 * 2048)
@@ -116,6 +141,9 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: scan_pipeline.make_compact_scan_step(cfg, 64),
         lambda: SdrDevice(config, spec, NullMqtt(), 1),
         lambda: Scanner(config, spec, NullMqtt(), 1),
+        lambda: WidebandScanner(config, wide, NullMqtt(), 2),
+        lambda: channelizer.init_channelizer_state(channelizer.plan_channelizer(2)),
+        lambda: mesh.make_mesh(1),
         lambda: main.run(str(config_path)),
     ]
     for call in calls:

@@ -90,7 +90,7 @@ def test_switched_on_kernels_raise_on_what_they_do_not_take(dev):
     """The card never runs a plain version in a kernel's place: input the
     kernel does not take raises (there are no switches: every route on the
     card is a kernel's)."""
-    fft, f = 1536, 2  # not a whole number of the selection kernel's 1024-bin segments
+    fft, f = 1536, 2  # 48 leaves: more than 32, not whole groups of the selection kernel's table
     rows = torch.zeros((1, f, fft), device=dev)
     with pytest.raises(ValueError):
         detect.compact_detection(
@@ -113,11 +113,6 @@ def test_switched_on_kernels_raise_on_what_they_do_not_take(dev):
             torch.zeros((1, 1500, 2), device=dev).transpose(1, 2),
             torch.zeros((1, 2, plan.tail_len), device=dev), plan,
         )
-    plan = ddc.plan_stage(1, 400)  # a window larger than a block's shared memory
-    with pytest.raises(RuntimeError):
-        fir_kernel.stage_apply_fir(
-            torch.zeros((1, 2, 4000), device=dev), torch.zeros((1, 2, plan.tail_len), device=dev), plan
-        )
 
 
 def _at_offset(a: np.ndarray, dev, offset: int) -> torch.Tensor:
@@ -131,14 +126,15 @@ def _at_offset(a: np.ndarray, dev, offset: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("case", ["ragged", "short", "offset"])
-@pytest.mark.parametrize("decim", [8, 25, 32, 40, 75, 125])
+@pytest.mark.parametrize("decim", [8, 25, 32, 40, 75, 125, 151, 157, 400])
 def test_fir_kernel_matches_plain(decim, case, dev):
     """<= 2e-5 * max against the plain version (f32 sum order), the new
     tail exact, over three calls carrying the tail, at every decimation of
     a real chain. ragged: 1000 outputs, not a whole number of the kernel's
     tiles; short: 8 outputs, a chunk shorter than the tail; offset: x and
     tail at 1 and 3 floats into larger buffers (16-byte copies must
-    realign)."""
+    realign). M = 151, 157 (primes the resampler planner keeps whole) and
+    400 have windows too large for a block's shared memory: the wide form."""
     ddc.no_tf32()
     plan = ddc.plan_stage(1, decim)
     rng = np.random.default_rng(decim)
@@ -176,6 +172,9 @@ def _rows(fft, rng, n_rows):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fft,top_k,k_sep,submargin,n_rows", [
+    (256, 64, 16, 52, 12),  # 8 leaves: a group a leaf, 24 lanes without one
+    (512, 64, 16, 64, 12),  # a 128 kHz wideband channel at 250 Hz bins: group 128
+    (512, 64, 16, 64, 1100),
     (1024, 64, 16, 52, 12),  # zones cover the row: the all-suppressed corner
     (2048, 8, 4, 17, 12),
     (8192, 64, 16, 52, 12),
@@ -308,3 +307,96 @@ def test_session_on_card_matches_cpu(dev, tmp_path):
     assert stats["transmissions"] > 0
     _, n, tone = chip_smoke.recorded_tone(card, chip_smoke.RT_CENTER + chip_smoke.RT_SHIFT, 32_000)
     assert n > 32_000 and abs(tone - chip_smoke.RT_TONE) < 40
+
+
+@pytest.mark.parametrize("oversample", [1, 2])
+@pytest.mark.parametrize("b", [8, 16])
+def test_channelizer_on_card_matches_cpu(b, oversample, dev):
+    """The bank on the card (a plain f32 bmm, TF32 off) against the same
+    calls on the CPU over three streamed int8 blocks: channels within 2e-5
+    (atol = rtol, tests/test_channelizer.py's bar between the bank's forms),
+    the carried tails exact."""
+    from rtl_sdr_scanner_tpu_torch.ops import channelizer as ch
+
+    plan = ch.plan_channelizer(b, oversample=oversample)
+    fn = ch.channelize_block_2x_pairs if oversample == 2 else ch.channelize_block_pairs
+    init = ch.init_channelizer2x_state if oversample == 2 else ch.init_channelizer_state
+    states = {d: init(plan, d) for d in ("cpu", dev)}
+    rng = np.random.default_rng(b + oversample)
+    for _ in range(3):
+        pairs = torch.from_numpy(rng.integers(-100, 100, size=(b * 8192, 2), dtype=np.int8))
+        outs = {}
+        for d in ("cpu", dev):
+            states[d], outs[d] = fn(plan, states[d], pairs.to(d))
+        torch.cuda.synchronize()
+        got, want = outs[dev].cpu(), outs["cpu"]
+        assert got.shape == (b, oversample * 8192, 2)
+        assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+    tail = states[dev].even.tail if oversample == 2 else states[dev].tail
+    want_tail = states["cpu"].even.tail if oversample == 2 else states["cpu"].tail
+    assert torch.equal(tail.cpu(), want_tail)
+
+
+def _wideband_capture(tmp_path, seconds=6.0):
+    import chip_smoke
+
+    capture = tmp_path / "wide.cs8"
+    chip_smoke.write_capture(capture, chip_smoke.WB_RATE, seconds, chip_smoke.WB_SIGNALS, (2.5, 5.0), seed=7)
+    return capture
+
+
+@pytest.mark.parametrize("form", ["serial", "fused"])
+def test_wideband_session_on_card_matches_cpu(form, dev, tmp_path):
+    """A wideband device (2.048 Msps into 16 channels of 128 kHz: fft 512,
+    the selection kernel's 16-leaf table) on the card and on the CPU: the
+    same payloads (chip_smoke.compare_payloads), both transmissions
+    recorded; the selection kernel launched, the PSD kernel not (the
+    channels are f32 pairs)."""
+    import chip_smoke
+
+    tunables = dict(chip_smoke.WB_FORMS)[form]
+    config = chip_smoke.runtime_config(_wideband_capture(tmp_path), chip_smoke.WB_RATE, chip_smoke.WB_CENTER,
+                                       channels=chip_smoke.WB_CHANNELS, **tunables)
+    before = (select_kernel.fused_selection.launches, psd_kernel.psd_frames_int8.launches)
+    card, scanner, _, _ = chip_smoke.run_wideband_scanner(config, dev)
+    assert select_kernel.fused_selection.launches > before[0] and psd_kernel.psd_frames_int8.launches == before[1]
+    assert scanner.sessions[0].scan_cfg.fft_size == 512
+    cpu, _, _, _ = chip_smoke.run_wideband_scanner(config, torch.device("cpu"))
+    assert chip_smoke.compare_payloads(cpu, card)["transmissions"] > 0
+    chip_smoke.check_wideband_recordings(card)
+
+
+def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
+    """main.run with an RTL-SDR device and a wideband device: two scanner
+    threads on one card, each launching the kernels. Each device's payloads
+    equal its single run's (the kernels' once-per-device setup is shared
+    under a lock)."""
+    import json
+
+    import chip_smoke
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
+
+    plain_cap = tmp_path / "plain.cs8"
+    chip_smoke.write_capture(plain_cap, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    plain = chip_smoke.runtime_config(plain_cap, chip_smoke.RT_RATE, chip_smoke.RT_CENTER)
+    wide = chip_smoke.runtime_config(_wideband_capture(tmp_path), chip_smoke.WB_RATE, chip_smoke.WB_CENTER,
+                                     channels=chip_smoke.WB_CHANNELS)
+    wide["devices"][0]["serial"] = "replay1"
+    both = dict(plain, devices=plain["devices"] + wide["devices"])
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(both))
+    rc, payloads = chip_smoke.run_main(path, dev, scanners=2)
+    assert rc == 0
+
+    cfg = Config(json.loads(json.dumps(plain)))
+    mqtt = NullMqtt()
+    mqtt.keep_payloads = True
+    scanner = Scanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=dev)
+    scanner.run_to_completion()
+    scanner.stop()
+    single_wide, _, _, _ = chip_smoke.run_wideband_scanner(wide, dev)
+    for serial, single in (("replay0", mqtt.published), ("replay1", single_wide)):
+        mine = [(t, p) for t, p in payloads if t.startswith(f"sdr/replay_{serial}/")]
+        assert mine and chip_smoke.compare_payloads(single, mine)["transmissions"] > 0

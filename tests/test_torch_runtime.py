@@ -378,10 +378,12 @@ def test_main_exits_on_fatal_scanner_failure(tmp_path, short_capture, monkeypatc
     assert result["rc"] == 1
 
 
+# a wideband device whose bands mesh resolves to more than one card (two
+# visible cards: mesh_bands 2, and -1 for all of them) needs slice 8
 UNPORTED = {
-    "wideband": ({}, {"channels": 4}, "slice 7"),
+    "wideband": ({"mesh_bands": 2}, {"channels": 4}, "slice 8"),
     "mesh_time": ({"mesh_time": 2}, {}, "slice 8"),
-    "mesh_bands": ({"mesh_bands": -1}, {}, "slice 8"),
+    "mesh_bands": ({"mesh_bands": -1}, {"channels": 4}, "slice 8"),
     "multihost": ({"multihost": True}, {}, "slice 8"),
     "power_bf16": ({"power_bf16": True}, {}, "power_bf16 and the gather vote form"),
 }
@@ -391,9 +393,12 @@ UNPORTED = {
 def test_unported_paths_are_refused(tmp_path, short_capture, monkeypatch, case):
     """main.run logs one error naming the ROADMAP item and returns 1 before
     any scanner starts; Scanner and SdrDevice raise NotImplementedError."""
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+
     tunables, device_fields, slice_name = UNPORTED[case]
     raw = _raw(short_capture, tunables=tunables)
     raw["devices"][0].update(device_fields)
+    monkeypatch.setattr(sdr_device, "visible_cards", lambda device: 2)
     errors, made = [], []
     monkeypatch.setattr(tmain.logger, "error", lambda label, msg, *a: errors.append(msg.format(*a)))
     monkeypatch.setattr(tmain, "Scanner", lambda *a, **k: made.append(1))
@@ -406,6 +411,72 @@ def test_unported_paths_are_refused(tmp_path, short_capture, monkeypatch, case):
         tscanner.Scanner(cfg, cfg.devices[0], tmqtt.NullMqtt(), 1, device="cpu")
     with pytest.raises(NotImplementedError, match=slice_name):
         SdrDevice(cfg, cfg.devices[0], tmqtt.NullMqtt(), 1, device="cpu")
+
+
+def test_mesh_bands_on_one_card_or_without_a_wideband_device_runs(tmp_path, short_capture, monkeypatch):
+    """mesh_bands resolves as the reference's does (at most the cards and
+    the channels): on one card a wideband device takes the one-card batched
+    form; a device without channels ignores it (only a wideband scanner
+    reads it), and main.run starts its scanner and returns 0."""
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+    from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
+
+    assert sdr_device.mesh_bands_cards(-1, 16, 1) == 1 and sdr_device.mesh_bands_cards(3, 4, 8) == 2
+    assert sdr_device.mesh_bands_cards(-1, 16, 4) == 4 and sdr_device.mesh_bands_cards(8, 16, 4) == 4
+    raw = _raw(short_capture, tunables={"mesh_bands": -1})
+    cfg = tconfig.Config(raw)
+    assert sdr_device.unported_path(cfg, cfg.devices[0], torch.device("cpu")) is None
+    made = []
+    monkeypatch.setattr(tmain, "Scanner", lambda *a, **k: made.append(1) or _Idle())
+    monkeypatch.setattr(tmain, "make_mqtt", lambda c: tmqtt.NullMqtt())
+    tmain._is_running = True
+    threading.Timer(0.5, lambda: setattr(tmain, "_is_running", False)).start()
+    assert tmain.run(str(_config_file(tmp_path, raw)), device="cpu") == 0 and made == [1]
+    wide = _raw(short_capture, tunables={"mesh_bands": -1})
+    wide["devices"][0].update(channels=4, sample_rate=1_024_000)
+    wcfg = tconfig.Config(wide)
+    assert sdr_device.unported_path(wcfg, wcfg.devices[0], torch.device("cpu")) is None
+    scanner = WidebandScanner(wcfg, wcfg.devices[0], tmqtt.NullMqtt(), 4, device="cpu")
+    assert scanner._mesh is not None and scanner._mesh.device.type == "cpu"
+    assert mesh.band_sharding(scanner._mesh) == mesh.replicated(scanner._mesh) == torch.device("cpu")
+    for bands, time_ in ((2, 1), (1, 2)):
+        with pytest.raises(NotImplementedError, match="slice 8"):
+            mesh.make_mesh(bands, time_, device="cpu")
+
+
+class _Idle:
+    failed = False
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+
+@pytest.mark.parametrize("case", ["select_fft_128", "wideband_select_fft_128", "psd_fft_128", "runs"])
+def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
+    """On a CUDA device, unported_path names a geometry a kernel does not
+    take before any session starts (the selection below fft 256, the int8
+    PSD outside [256, 2^20]); it reads only the config, so it launches
+    nothing here. On the CPU the same configs run the plain versions."""
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+
+    rate, channels, tunables, want = {
+        "select_fft_128": (32_000, 0, {}, "selection kernel"),  # fft 128 at 250 Hz bins
+        "wideband_select_fft_128": (2_048_000, 64, {}, "selection kernel"),  # 32 kHz channels
+        "psd_fft_128": (32_000, 0, {"compact_detection": False}, "int8 PSD kernel"),
+        "runs": (2_048_000, 16, {}, None),  # 128 kHz channels: fft 512
+    }[case]
+    raw = _raw(short_capture, tunables=tunables)
+    raw["devices"][0].update(sample_rate=rate, channels=channels)
+    cfg = tconfig.Config(raw)
+    reason = sdr_device.unported_path(cfg, cfg.devices[0], torch.device("cuda"))
+    assert (reason is None) if want is None else (want in reason and "on the card" in reason)
+    assert tmain._refusal(cfg, torch.device("cuda")) == reason
+    assert sdr_device.unported_path(cfg, cfg.devices[0], torch.device("cpu")) is None
+    assert not torch.cuda.is_initialized()
 
 
 def test_scanner_thread_failure_sets_flag(tmp_path, monkeypatch):

@@ -84,19 +84,27 @@ def test_small_k_and_margin():
 
 def test_kernel_table_limits():
     """The kernel's two-level table: leaves of 32 bins (one a lane) widened
-    while a row has more than 1024 of them, always whole groups of 32
-    leaves; the wrapper takes any fft that is a multiple of 1024, any
-    submargin (a zone may cover many leaves) and up to 32 margin winners
-    (the reference's K_SEP is 16), and refuses the rest."""
-    assert tsel.FFT_MULTIPLE == 1024
+    while a row has more than 1024 of them, whole groups of 32 leaves above
+    32 leaves and a group a leaf below (fft 256 and 512: 8 and 16 leaves);
+    the wrapper takes every power-of-two fft from 256 up (a multiple of 256,
+    and of 1024 above 32 leaves), any submargin (a zone may cover many
+    leaves) and up to 32 margin winners (the reference's K_SEP is 16), and
+    refuses the rest."""
+    assert tsel.FFT_MULTIPLE == 256
     for fft in (1024, 2048, 3072, 8192, 16384, 32768, 65536, 131072, 262144, 1 << 20, 33 * 1024):
         w = tsel.leaf_width(fft)
         assert w % 32 == 0 and fft % w == 0 and (fft // w) % tsel.GROUPS == 0
         assert fft // w <= 1024 or (fft // w) % (2 * tsel.GROUPS) != 0
     assert tsel.leaf_width(16384) == 32 and tsel.leaf_width(131072) == 128
+    assert tsel.leaf_width(256) == tsel.leaf_width(512) == 32
+    assert all(tsel.takes_fft(1 << log) for log in range(8, 21))
+    assert not any(tsel.takes_fft(fft) for fft in (64, 128, 1536, 1280, 100))
+    for fft in (256, 512):
+        tsel.check_args(torch.zeros((2, fft)), 64, 16, 64)
     rows = torch.zeros((2, 2048))
     tsel.check_args(rows, 64, 16, 2048)  # a zone wider than the row is fine
-    for bad in (torch.zeros((2, 1536)), torch.zeros((2, 2048), dtype=torch.float16), torch.zeros(2048),
+    for bad in (torch.zeros((2, 1536)), torch.zeros((2, 128)), torch.zeros((2, 2048), dtype=torch.float16),
+                torch.zeros(2048),
                 torch.zeros((2048, 2)).t(), torch.zeros(2 * 2048 + 1)[1:].view(2, 2048)):
         with pytest.raises(ValueError):
             tsel.check_args(bad, 64, 16, 52)
