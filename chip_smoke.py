@@ -80,7 +80,27 @@
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
-   launch of the process is slower.
+   launch of the process is slower. The time mesh's and the band shards'
+   per-shard shapes (step 10) are checked and timed here too.
+10. The multi-device layer on one card (it runs before step 9): (a) path
+   1's band (20.48 Msps, fft 131072, decim 3, 2 slots at 16 kHz, modulated
+   taps) time-sharded over a mesh of 4 copies of the card, frames grown 45
+   -> 180 by the reference's rule (141.6 MB of int8 a block), 4 blocks of a
+   device-resident ring with FM keyed after the noise learning, through
+   ``make_time_sharded_scan`` (the PSD and selection kernels once a shard)
+   and ``make_time_sharded_modtap_ddc`` (the FIR kernel once a shard a
+   chunk), held against the one-card compact step and DDC at the same
+   geometry (counts exact; indices equal but for < 0.5% near-ties, whose
+   top-K values lie within two bf16 steps of the selection; values within
+   2e-3 dB where the bins agree; recordings within 1 LSB), the signal
+   detected and recorded; (b) step 7's wideband step over a band mesh of 2 copies of
+   the card (the channelizer on each shard), fused and split, 3 blocks,
+   against the one-card form (indices, votes and counts equal, values
+   within 1e-3 dB, recordings within 1 LSB, FM in channel 3 only); (c)
+   ``main.run`` with ``mesh_time`` 4 and ``power_bf16`` on step 6's
+   capture (one visible card: the mesh resolves to 1 shard), payloads
+   against the same config's CPU run. Prints ms a block of each form next
+   to its one-card counterpart.
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
@@ -140,6 +160,9 @@ class Geometry:
     signal_band: int = 5
     signal_offset_hz: int = 250_000
     signal_from_block: int = 3
+    # a time-sharded geometry: ``frames`` a shard, the DDC block and chunk
+    # those of all ``time_shards`` shards, each shard a chunk's 1/time_shards
+    time_shards: int = 1
 
 
 # block 3 starts at 2592 ms (path 1) and 3072 ms (path 2)
@@ -185,6 +208,18 @@ WB_FORMS = (("serial", {}), ("split", {"mesh_bands": 1}),
             ("fused", {"mesh_bands": 1, "wideband_fused_dispatch": True}))
 WIDE_RT = Geometry("wideband_runtime", "wideband session (16 x 128 kHz channels, 1 slot each at 32 kHz)",
                    WB_RATE // WB_CHANNELS, 16, 32_000, 0, bands=WB_CHANNELS, slots=1)
+# step 10, the multi-device layer on one card: path 1's band time-sharded 4
+# ways (180 frames a block, the reference's rule from 45: 45 a shard), and
+# the wideband step's 8 channels over 2 band shards (4 channels a shard).
+# Their geometries give the kernels' per-shard shapes.
+TMESH_SHARDS = 4
+TMESH = Geometry("time_mesh", "time mesh (path 1's band, 4 time shards of 45 frames, modulated-taps DDC)",
+                 20_480_000, 45, 16_000, -1_000_000, bands=1, blocks=4, signal_band=0, signal_from_block=1,
+                 time_shards=TMESH_SHARDS)
+BAND_SHARDS = 2
+WIDE_SHARD = dataclasses.replace(WIDE, key="wideband_step_2_shards", bands=WIDE.bands // BAND_SHARDS,
+                                 name="wideband step over 2 band shards (4 channels a shard)")
+MESH_BLOCKS = 3  # the bands-sharded wideband step's blocks
 
 
 def log(*args):
@@ -305,14 +340,16 @@ def configs(geo: Geometry):
     from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
 
     cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
-    ddc_cfg = ddc_pipeline.DdcConfig.create(geo.rate, geo.bandwidth, geo.slots, cfg.block_samples)
+    block = cfg.block_samples * geo.time_shards
+    ddc_cfg = ddc_pipeline.DdcConfig.create(geo.rate, geo.bandwidth, geo.slots, block)
     return cfg, ddc_cfg, int(np.ceil(geo.bandwidth / cfg.step_hz))
 
 
-def fir_stages(ddc_cfg) -> list:
+def fir_stages(ddc_cfg, shards: int = 1) -> list:
     """(plan, input samples a row) of each stage one chunk sends through the
-    FIR kernel: every decimation-only stage but a modulated-taps stage 1."""
-    stages, n = [], ddc_cfg.chunk
+    FIR kernel: every decimation-only stage but a modulated-taps stage 1
+    (a time shard's part of the chunk when ``shards`` > 1)."""
+    stages, n = [], ddc_cfg.chunk // shards
     for i, plan in enumerate(ddc_cfg.plans):
         if plan.interp == 1 and not (i == 0 and ddc_cfg.modtap):
             stages.append((plan, n))
@@ -405,7 +442,8 @@ def check_psd_and_selection(psd_geos, sel_geos, dev):
     psd_err = sel_err = 0.0
     for geo in psd_geos:
         cfg, _, _ = configs(geo)
-        psd_err = max(psd_err, check_psd(cfg.fft_size, cfg.decimator_factor, CHECK_ROWS, gen, dev,
+        rows = geo.frames if geo.time_shards > 1 else CHECK_ROWS  # a time shard's frames
+        psd_err = max(psd_err, check_psd(cfg.fft_size, cfg.decimator_factor, rows, gen, dev,
                                          float(cfg.sample_rate)))
     for fft, decim, rows in PSD_FORM_CASES:
         psd_err = max(psd_err, check_psd(fft, decim, rows, gen, dev))
@@ -492,7 +530,7 @@ def fir_cases(geos):
     the FIR kernel, then FIR_EXTRA_M at 16384 outputs a row (no path)."""
     from rtl_sdr_scanner_tpu_torch.ops import ddc
 
-    cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1])]
+    cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1], geo.time_shards)]
     return cases + [(None, ddc.plan_stage(1, m), 16384 * m) for m in FIR_EXTRA_M]
 
 
@@ -1017,9 +1055,12 @@ class WidebandStep:
     channelizer, every channel's compact scan and their 2-slot modulated-taps
     DDC, fused in one dispatch or split in two, over a device-resident ring
     of WIDE_RING int8 wideband blocks (block 0 noise, block 1 noise and an
-    FM signal in channel ``signal_band``)."""
+    FM signal in channel ``signal_band``), on a band mesh of ``shards``
+    copies of the card or of the cards ``devices`` names
+    (``parallel/sharded_scan``'s per-shard lists: the channelizer runs on
+    every shard, each keeps its own channels)."""
 
-    def __init__(self, dev, geo: Geometry, fused: bool, ring: list):
+    def __init__(self, dev, geo: Geometry, fused: bool, ring: list, shards: int = 1, devices=None):
         from rtl_sdr_scanner_tpu_torch.constants import Tunables
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
         from rtl_sdr_scanner_tpu_torch.ops.channelizer import init_channelizer_state, plan_channelizer
@@ -1032,29 +1073,33 @@ class WidebandStep:
         self.group_size = int(np.ceil(geo.bandwidth / cfg.step_hz))
         b = geo.bands
         plan = plan_channelizer(b)
-        m = mesh.make_mesh(1, 1, device=dev)
+        devices = list(devices) if devices else [dev] * shards  # distinct cards, or copies of one
+        m = self.mesh = mesh.make_mesh(len(devices), 1, devices=devices)
         if fused:
             self.step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, self.group_size, TOP_K, m, plan, 1, b)
         else:
             self.wide_step = ss.make_sharded_wideband_step(cfg, self.group_size, TOP_K, m, plan, 1, b)
             self.ddc_step = ss.make_sharded_banded_ddc(ddc_cfg, m, b)
-        self.chan = init_channelizer_state(plan, dev)
+        self.chan = ss.replicate(init_channelizer_state(plan, dev), m)
         self.scan = ss.init_banded_state(cfg, b, m)
-        self.acc = torch.zeros((b, cfg.spectro_size), dtype=torch.float32, device=dev)
+        self.acc = ss.shard_bands(torch.zeros((b, cfg.spectro_size), dtype=torch.float32, device=dev), m)
         self.ddc = ss.init_banded_ddc_state(ddc_cfg, b, m)
         shifts = np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (b, 1))
-        self.tables = ddc_pipeline.make_tables(ddc_cfg, shifts, device=dev)
-        self.keys = torch.full((b, KEY_SLOTS), -1, dtype=torch.int32, device=dev)
-        self.valid = torch.ones((b, cfg.fft_size), dtype=torch.bool, device=dev)
-        self.level = torch.tensor(LEVEL, device=dev)
-        self.keep_mask = torch.ones((b, geo.slots), dtype=torch.float32, device=dev)
+        self.tables = ss.shard_bands(ddc_pipeline.make_tables(ddc_cfg, shifts, device=dev), m)
+        self.keys = ss.shard_bands(torch.full((b, KEY_SLOTS), -1, dtype=torch.int32, device=dev), m)
+        self.valid = ss.shard_bands(torch.ones((b, cfg.fft_size), dtype=torch.bool, device=dev), m)
+        self.level = ss.replicate(torch.tensor(LEVEL, device=dev), m)
+        self.keep_mask = ss.shard_bands(torch.ones((b, geo.slots), dtype=torch.float32, device=dev), m)
 
     def run_block(self, blk: int):
-        """One block (ring slot blk % WIDE_RING); returns (packed, rec)."""
+        """One block (ring slot blk % WIDE_RING); returns (packed, rec), all
+        channels' rows gathered on the card."""
+        from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
+
         f = self.geo.frames
         now = torch.from_numpy(((blk * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms).astype(np.int32))
-        now = now.to(self.dev)
-        x = self.ring[blk % WIDE_RING]
+        now = ss.replicate(now.to(self.dev), self.mesh)
+        x = ss.replicate(self.ring[blk % WIDE_RING], self.mesh)
         if self.fused:
             self.chan, self.scan, self.acc, self.ddc, packed, rec, _ = self.step(
                 self.chan, self.scan, self.acc, self.ddc, x, now, self.keys, self.valid, self.level, 1.0,
@@ -1063,7 +1108,7 @@ class WidebandStep:
             self.chan, self.scan, self.acc, packed, channels = self.wide_step(
                 self.chan, self.scan, self.acc, x, now, self.keys, self.valid, self.level, 1.0)
             self.ddc, rec = self.ddc_step(self.ddc, channels, self.tables, self.keep_mask)
-        return packed, rec
+        return ss.gather_bands(packed, self.dev), ss.gather_bands(rec, self.dev)
 
 
 def wide_ring(geo: Geometry, block_samples: int, dev) -> list:
@@ -1320,6 +1365,325 @@ def run_wideband_runtime(dev, card: str) -> dict:
     return launches
 
 
+def time_mesh_configs(dev):
+    """Path 1's band as SdrDevice._setup_time_mesh sizes it for TMESH_SHARDS
+    shards: frames grow by whole 45-frame blocks until each shard holds
+    grouping_y (45 -> 180: 141,557,760 int8 bytes a block); the DDC config
+    of that block. Returns (ScanConfig, DdcConfig, group size)."""
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
+
+    base = scan_pipeline.ScanConfig.create(TMESH.rate, TMESH.frames)
+    frames = base.frames_per_block
+    while frames % TMESH_SHARDS != 0 or frames // TMESH_SHARDS < base.grouping_y:
+        frames += base.frames_per_block
+    cfg = dataclasses.replace(base, frames_per_block=frames)
+    ddc_cfg = ddc_pipeline.DdcConfig.create(TMESH.rate, TMESH.bandwidth, TMESH.slots, cfg.block_samples)
+    return cfg, ddc_cfg, int(np.ceil(TMESH.bandwidth / cfg.step_hz))
+
+
+class TimeMesh:
+    """Path 1's band at the time mesh's 180 frames on the card: the
+    time-sharded scan and modulated-taps DDC over a mesh of TMESH_SHARDS
+    copies of the card, or of the cards ``devices`` names (``sharded``), or
+    the one-card compact step and DDC; a device-resident ring of
+    TMESH.blocks blocks on ``dev``, FM keyed from block 1."""
+
+    def __init__(self, dev, sharded: bool, ring=None, devices=None):
+        from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
+        from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+
+        geo = TMESH
+        self.dev, self.sharded = dev, sharded
+        self.cfg, self.ddc_cfg, self.group_size = cfg, ddc_cfg, group_size = time_mesh_configs(dev)
+        n = TMESH_SHARDS
+        if not ss.time_sharded_modtap_fits(ddc_cfg, n):
+            raise RuntimeError(f"the time-sharded DDC does not split {n} ways at {cfg.frames_per_block} frames")
+        if sharded:
+            m = mesh.make_mesh(1, n, devices=list(devices) if devices else [dev] * n)
+            self.scan_step = ss.make_time_sharded_scan(cfg, m, group_size, TOP_K)
+            self.ddc_step = ss.make_time_sharded_modtap_ddc(ddc_cfg, m)
+        else:
+            self.scan_step = scan_pipeline.make_compact_scan_step(cfg, group_size, TOP_K, device=dev)
+            self.ddc_step = ddc_pipeline.make_ddc_step(ddc_cfg, device=dev)
+        if ring is None:
+            ring = [blk[0] for blk in make_ring(dataclasses.replace(geo, frames=cfg.frames_per_block), cfg, dev)]
+        self.ring = ring
+        self.keys = torch.full((KEY_SLOTS,), -1, dtype=torch.int32, device=dev)
+        self.valid = torch.ones(cfg.fft_size, dtype=torch.bool, device=dev)
+        self.level = torch.tensor(LEVEL, device=dev)
+        self.tables = ddc_pipeline.make_tables(
+            ddc_cfg, np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), device=dev)
+        self.state = scan_pipeline.init_scan_state(cfg, device=dev)
+        self.acc = scan_pipeline.init_spectro_acc(cfg, device=dev)
+        self.ddc = ddc_pipeline.init_state(ddc_cfg, device=dev)
+
+    def run_block(self, b: int):
+        """One block (ring slot b % TMESH.blocks): (rows [F, 3K+1+2S], the
+        block's spectrogram sum, noise ready, recording [K, out, 2])."""
+        f = self.cfg.frames_per_block
+        now = torch.from_numpy(((b * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms).astype(np.int32))
+        iq = self.ring[b % len(self.ring)]
+        now = now.to(self.dev)
+        if self.sharded:
+            self.state, rows, spectro, ready = self.scan_step(self.state, iq, now, self.keys, self.valid, self.level)
+        else:
+            self.state, self.acc, outs = self.scan_step(
+                self.state, self.acc, iq, now, self.keys, self.valid, self.level, 0.0)
+            rows, spectro, ready = outs.packed[:-1].reshape(f, -1), self.acc, outs.noise_ready
+        self.ddc, rec = self.ddc_step(self.ddc, iq.reshape(-1, 2), self.tables)
+        return rows, spectro, ready, rec
+
+
+def run_time_mesh(dev, card: str, devices=None) -> dict:
+    """Step 10a: one band at path 1's geometry time-sharded over a mesh of
+    TMESH_SHARDS copies of the card (make_time_sharded_scan +
+    make_time_sharded_modtap_ddc), then the one-card compact step and DDC
+    at the same 180-frame geometry, each with the launch counts set to 0
+    just before; held against each other and checked for the planted
+    signal. ``devices``: TMESH_SHARDS distinct cards in place of copies of
+    ``dev``. Returns {form: counts}."""
+    log(f"---- {TMESH.name}" + (f" on cards {[d.index for d in devices]}" if devices else ""))
+    geo, n = TMESH, TMESH_SHARDS
+    where = f"cards {[d.index for d in devices]}" if devices else f"{n} shards of one card"
+    t0 = time.perf_counter()
+    paths = {"time_mesh": TimeMesh(dev, True, devices=devices)}
+    paths["time_mesh_one_card"] = TimeMesh(dev, False, paths["time_mesh"].ring)
+    cfg, ddc_cfg, group_size = time_mesh_configs(dev)
+    ring = paths["time_mesh"].ring
+    log(f"fft {cfg.fft_size} decim {cfg.decimator_factor}, frames {TMESH.frames} -> {cfg.frames_per_block} a block "
+        f"({cfg.frames_per_block // n} a shard, {ring[0].numel() / 1e6:.1f} MB of int8), DDC stages "
+        f"{[(p.interp, p.decim) for p in ddc_cfg.plans]}, {ddc_cfg.num_chunks} chunks of {ddc_cfg.chunk} "
+        f"({ddc_cfg.chunk // n} a shard); ring of {geo.blocks} blocks in {time.perf_counter() - t0:.1f} s")
+    wrappers = kernel_wrappers()
+    results, launches, block_ms = {}, {}, {}
+    for form, path in paths.items():
+        out, times = [], []
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for b in range(geo.blocks):
+            t0 = time.perf_counter()
+            rows, spectro, ready, rec = path.run_block(b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append((rows.cpu().numpy(), spectro.cpu().numpy(), bool(ready), rec.cpu().numpy()))
+        launches[form] = {name: fn.launches for name, fn in wrappers.items()}
+        results[form], block_ms[form] = out, times
+        shards = n if form == "time_mesh" else 1
+        want = {"psd_frames_int8": shards * geo.blocks, "fused_selection": shards * geo.blocks,
+                "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+        log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
+        if launches[form] != want:
+            raise RuntimeError(f"{form} launches {launches[form]}, want {want}")
+
+    k2 = TOP_K + 16
+    planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
+    worst = dict(idx_mismatch=0.0, val=0.0, tie_val=0.0, rec_lsb=0, rec_differ=0, spectro=0.0)
+    for b, ((body, spectro, ready, rec), (ref, ref_spectro, ref_ready, ref_rec)) in enumerate(
+            zip(results["time_mesh"], results["time_mesh_one_card"])):
+        if not (np.isfinite(body).all() and body.shape == ref.shape) or ready != ref_ready:
+            raise RuntimeError(f"time mesh block {b}: non-finite rows, wrong shape or readiness")
+        mism = body[:, :k2] != ref[:, :k2]
+        vals, ref_vals = body[:, k2 : 2 * k2], ref[:, k2 : 2 * k2]
+        val_diff = np.abs(vals - ref_vals)
+        # a near-tie the selection decides in bf16 (detection_bf16) flips
+        # when the shards' f32 sums round the other way: in the top-K, the
+        # values at a flipped rank stay within two bf16 steps (2^-6
+        # relative); after a flipped margin winner the greedy follows other
+        # zones, so those ranks are counted in the 0.5%, not compared
+        top = np.zeros_like(mism)
+        top[:, :TOP_K] = mism[:, :TOP_K]
+        tie = val_diff[top].max(initial=0.0)
+        tie_ok = bool((val_diff[top] <= 2.0**-6 * np.maximum(np.abs(vals), np.abs(ref_vals))[top]).all())
+        val = max(val_diff[~mism].max(initial=0.0), np.abs(body[:, 3 * k2 + 1 :] - ref[:, 3 * k2 + 1 :]).max())
+        d = np.abs(rec.astype(np.int32) - ref_rec.astype(np.int32))
+        worst = dict(idx_mismatch=max(worst["idx_mismatch"], float(mism.mean())), val=max(worst["val"], float(val)),
+                     tie_val=max(worst["tie_val"], float(tie)),
+                     rec_lsb=max(worst["rec_lsb"], int(d.max())), rec_differ=worst["rec_differ"] + int((d > 0).sum()),
+                     spectro=max(worst["spectro"], float(np.abs(spectro - ref_spectro).max())))
+        if not np.array_equal(body[:, 3 * k2], ref[:, 3 * k2]):
+            raise RuntimeError(f"time mesh block {b}: candidate counts differ from the one-card step's")
+        if mism.mean() >= 0.005 or val > 2e-3 or not tie_ok or d.max() > 1:
+            diffs = [(int(r), int(c), float(vals[r, c]), float(ref_vals[r, c])) for r, c in zip(*np.nonzero(mism))][:8]
+            raise RuntimeError(f"time mesh block {b}: {worst} against the one-card step; differing (frame, rank, "
+                               f"value, one-card value): {diffs}")
+    log(f"time mesh vs one card over {geo.blocks} blocks: counts equal; {worst['idx_mismatch']:.4%} of candidate "
+        f"indices differ at most in a block (bar 0.5%: near-ties; in the top-K their values within "
+        f"{worst['tie_val']:.3g} dB, two bf16 steps of the selection), values where the bins agree and key values "
+        f"within {worst['val']:.3g} dB "
+        f"(bar 2e-3), recordings within {worst['rec_lsb']} LSB ({worst['rec_differ']} samples differ), spectrogram "
+        f"sums within {worst['spectro']:.3g}")
+    hits = []
+    for b in range(geo.signal_from_block, geo.blocks):
+        body = results["time_mesh"][b][0]
+        live = body[:, k2 : 2 * k2] >= LEVEL
+        if live.any():
+            hits.append(int(np.abs(body[:, :k2][live] - planted).min()))
+    rec = results["time_mesh"][-1][3]
+    power = (rec.astype(np.float32) ** 2).sum(axis=-1).mean(axis=-1)  # [slots]
+    gain_db = 10 * math.log10(power[0] / max(power[1], 1e-3))
+    tone = fm_tone(rec[0], geo.bandwidth)
+    log(f"time mesh: the planted signal in blocks {geo.signal_from_block}..{geo.blocks - 1}: nearest candidate "
+        f"{hits} bins from {planted}; slot 0 {gain_db:.1f} dB above slot 1, FM-demodulates to {tone:.1f} Hz")
+    if len(hits) != geo.blocks - geo.signal_from_block or max(hits) > group_size or gain_db < 10 or abs(tone - RT_TONE) >= 40:
+        raise RuntimeError(f"time mesh: the planted signal was not detected and recorded: {hits}, {gain_db} dB, {tone} Hz")
+    sharded, one = (float(np.mean(block_ms[k][1:])) for k in ("time_mesh", "time_mesh_one_card"))
+    log(f"time mesh: {sharded:.1f} ms a {cfg.block_samples / cfg.sample_rate * 1e3:.0f} ms block on {where} "
+        f"vs {one:.1f} ms one-card (blocks 1..{geo.blocks - 1}; first {block_ms['time_mesh'][0]:.1f} / "
+        f"{block_ms['time_mesh_one_card'][0]:.1f} ms) on {card}")
+    del paths, ring
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_band_shards(dev, card: str, devices=None) -> dict:
+    """Step 10b: the wideband step (step 7's stream and channels) over a
+    band mesh of BAND_SHARDS copies of the card, fused and split, MESH_BLOCKS
+    blocks, each against the one-card form on the same ring, the launch
+    counts set to 0 just before each run. ``devices``: distinct cards in
+    place of copies of ``dev``. Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    n_shards = len(devices) if devices else BAND_SHARDS
+    where = f"cards {[d.index for d in devices]}" if devices else f"{n_shards} shards of one card"
+    log(f"---- wideband step over {where}")
+    geo = WIDE
+    cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
+    ring = wide_ring(geo, cfg.block_samples, dev)
+    wrappers = kernel_wrappers()
+    launches = {}
+    for fused in (True, False):
+        form = "fused" if fused else "split"
+        runs = {}
+        for shards in (1, n_shards):
+            step = WidebandStep(dev, geo, fused, ring, shards, devices if shards > 1 else None)
+            ddc_cfg = step.ddc_cfg
+            out, times = [], []
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            for b in range(MESH_BLOCKS):
+                t0 = time.perf_counter()
+                packed, rec = step.run_block(b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                out.append((packed.cpu().numpy(), rec.cpu().numpy()))
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            want = {"psd_frames_int8": 0, "fused_selection": shards * MESH_BLOCKS,
+                    "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            if counts != want:
+                raise RuntimeError(f"wideband {form} over {shards} shard(s): launches {counts}, want {want}")
+            key = f"wideband_step_{shards}_shards_{form}" if shards > 1 else f"wideband_step_one_card_{form}"
+            launches[key] = counts
+            runs[shards] = (out, times)
+            del step
+            torch.cuda.empty_cache()
+        (got, t_n), (ref, t_1) = runs[n_shards], runs[1]
+        k2 = TOP_K + 16
+        worst_val, worst_lsb, hits = 0.0, 0, {}
+        for b, ((p, rec), (rp, rrec)) in enumerate(zip(got, ref)):
+            for band in range(geo.bands):
+                mine = scan_pipeline.unpack_compact(p[band], geo.frames, TOP_K, KEY_SLOTS)
+                theirs = scan_pipeline.unpack_compact(rp[band], geo.frames, TOP_K, KEY_SLOTS)
+                for i in (0, 2, 3, 5, 6):  # indices, votes, counts, key argmax, readiness
+                    if not np.array_equal(mine[i], theirs[i]):
+                        raise RuntimeError(f"wideband {form} block {b} channel {band}: output {i} differs from one card")
+                worst_val = max(worst_val, float(np.abs(mine[1] - theirs[1]).max()), float(np.abs(mine[4] - theirs[4]).max()))
+                if (mine[1] >= LEVEL).any():
+                    hits.setdefault(band, set()).add(b)
+            worst_lsb = max(worst_lsb, int(np.abs(rec.astype(np.int32) - rrec.astype(np.int32)).max()))
+        if worst_val > 1e-3 or worst_lsb > 1 or set(hits) != {geo.signal_band} or 1 not in hits[geo.signal_band]:
+            raise RuntimeError(f"wideband {form} over {where}: values {worst_val} dB, recordings "
+                               f"{worst_lsb} LSB, detections {hits}")
+        log(f"wideband {form} over {where} vs one card, {MESH_BLOCKS} blocks: indices, votes and counts "
+            f"equal, values within {worst_val:.3g} dB, recordings within {worst_lsb} LSB; channels with candidates "
+            f"above {LEVEL} dB: { {k: sorted(v) for k, v in hits.items()} }; launches {launches[f'wideband_step_{n_shards}_shards_{form}']}")
+        log(f"wideband {form}: {np.mean(t_n[1:]):.1f} ms a block over {where} (the "
+            f"channelizer on each) vs {np.mean(t_1[1:]):.1f} ms one-card (blocks 1..{MESH_BLOCKS - 1}) on {card}")
+    del ring
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cpu_cards(cards: int):
+    """A context in which a CPU session resolves its meshes against
+    ``cards`` visible cards (copies of the CPU device), as a session on
+    that many cards does: the CPU run a card run is held against."""
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+
+    real = sdr_device.visible_cards
+
+    class Patch:
+        def __enter__(self):
+            sdr_device.visible_cards = lambda device: cards if device.type == "cpu" else real(device)
+
+        def __exit__(self, *exc):
+            sdr_device.visible_cards = real
+
+    return Patch()
+
+
+def run_main_time_mesh(dev, card: str, cards: int = 1) -> dict:
+    """Step 10c: main.run with mesh_time 4 and power_bf16 on step 6's
+    capture; the time mesh resolves to the visible cards (1 here: one
+    card). Its payloads against the same config's CPU run on as many
+    copies of the CPU (step 6's bars). Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
+
+    log("---- main.run with mesh_time 4 and power_bf16")
+    shards = min(4, cards)
+    # over several cards the reference's rule grows a block to 300 frames
+    # (4.1 s); a recording is reconciled at block ends, so the signal stays
+    # on across two of them and the stream runs two blocks past it
+    seconds, key = (RT_SECONDS, RT_KEY) if shards == 1 else (2 * RT_SECONDS, (3.0, 14.0))
+    wrappers = kernel_wrappers()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as tmp:
+        capture = Path(tmp) / "capture.cs8"
+        write_capture(capture, RT_RATE, seconds, RT_SHIFT, key)
+        config = runtime_config(capture, RT_RATE, RT_CENTER, mesh_time=4, power_bf16=True)
+        cfg = Config(json.loads(json.dumps(config)))
+        session = Scanner(cfg, cfg.devices[0], NullMqtt(), cfg.recorders_count(), device=dev).device
+        mesh_shape, tmesh_ddc = session._time_mesh.shape, session.tmesh_ddc
+        blocks = int(RT_RATE * seconds) // session.scan_cfg.block_samples
+        config_path = Path(tmp) / "config.json"
+        config_path.write_text(json.dumps(config))
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc, payloads = run_main(config_path)
+        wall_s = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        if rc != 0:
+            raise RuntimeError(f"main.run returned {rc}")
+        with cpu_cards(cards):
+            cpu_payloads, _, cpu_s, _ = run_scanner(config, torch.device("cpu"))
+        stats = compare_payloads(cpu_payloads, payloads)
+        center, n_rec, tone = recorded_tone(payloads, RT_CENTER + RT_SHIFT, 32_000)
+    log(f"main.run (mesh_time 4 -> mesh {mesh_shape}, {session.scan_cfg.frames_per_block} frames a block, "
+        f"time-sharded DDC {tmesh_ddc}, power_bf16): rc {rc}, launches {counts}; card vs CPU payloads: {stats} (CPU "
+        f"run {cpu_s:.1f} s); recorded {n_rec} samples at {center} Hz, tone {tone:.1f} Hz; {wall_s:.1f} s wall with "
+        f"startup on {card}")
+    want = blocks * shards
+    if mesh_shape != {"bands": 1, "time": shards} or counts["psd_frames_int8"] != want or counts["fused_selection"] != want:
+        raise RuntimeError(f"main.run with mesh_time: mesh {mesh_shape}, launches {counts} for {blocks} blocks")
+    if counts["stage_apply_fir"] == 0 or abs(tone - RT_TONE) >= 40 or n_rec < 2 * 32_000:
+        raise RuntimeError(f"main.run with mesh_time: FIR launches {counts}, recording {n_rec} samples, tone {tone}")
+    return {"main_mesh_time_power_bf16": counts}
+
+
+def run_multi_device(dev, card: str) -> dict:
+    """Step 10, the multi-device layer on one card: the time-sharded scan
+    and DDC, the bands-sharded wideband step, main.run with mesh_time and
+    power_bf16. Returns {form: counts}."""
+    launches = run_time_mesh(dev, card)
+    launches.update(run_band_shards(dev, card))
+    launches.update(run_main_time_mesh(dev, card))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="hold and time the kernels, drive no path")
@@ -1360,20 +1724,24 @@ def main() -> int:
     log(f"native host codecs built and loaded in {time.perf_counter() - t0:.1f} s: {native.lib_path()}")
 
     geos = (PATH1, PATH2)
-    timed = geos + (RUNTIME,)  # the kernels at every shape the paths and the session give them
-    wide = (WIDE, WIDE_RT)  # the wideband phases' shapes: selection, and the FIR's stage 2
+    timed = geos + (RUNTIME, TMESH)  # the kernels at every shape the paths, the session and a time shard give them
+    wide = (WIDE, WIDE_RT, WIDE_SHARD)  # the wideband phases' shapes: selection, and the FIR's stage 2
     psd_err, sel_err = check_psd_and_selection(timed, timed + wide, dev)
-    fir_err = check_fir(timed + (WIDE,), dev)
+    fir_err = check_fir(timed + (WIDE, WIDE_SHARD), dev)
     if not args.kernels_only:
         # the paths before any timing: the profiler's tracing, once started,
         # slows every later launch of the process
         launches = {geo.key: run_path(dev, card, geo) for geo in geos}
         check_interpolating_stages(dev)
         launches["runtime"] = run_runtime(dev, card)
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_wideband_step(dev, card))
         launches.update(run_wideband_runtime(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
+        launches.update(run_multi_device(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
     records = time_psd_and_selection(timed, dev, card, psd_err, sel_err, sel_only=wide)
-    records.append(time_fir(timed + (WIDE,), PATH2, dev, card, fir_err))
+    records.append(time_fir(timed + (WIDE, WIDE_SHARD), PATH2, dev, card, fir_err))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

@@ -26,11 +26,22 @@ def to_tensor(a, device: DeviceLike = None) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(resolve_device(device))
 
 
+def bf16_tensor(a, device: DeviceLike = None) -> torch.Tensor:
+    """A bf16 array -> the same bits as a bf16 tensor on device. numpy has
+    no bf16 of its own: ``a`` is a ``bfloat16`` array of the ml_dtypes kind
+    or its uint16 view (the bit patterns)."""
+    bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(resolve_device(device))
+
+
 def scan_state(
     noise: Mapping[str, np.ndarray], averager: Mapping[str, np.ndarray], device: DeviceLike = None
 ) -> ScanState:
-    """noise: threshold/ready/start_ms; averager: ring/total/pos/frames."""
+    """noise: threshold/ready/start_ms; averager: ring/total/pos/frames. A
+    bf16 ring (power_bf16 mode) comes as a ``bfloat16`` array or its uint16
+    view and stays bf16, bit for bit."""
     t = lambda a: to_tensor(a, device)
+    ring = np.asarray(averager["ring"])
     return ScanState(
         noise=NoiseState(
             threshold=t(noise["threshold"]),
@@ -38,7 +49,7 @@ def scan_state(
             start_ms=t(noise["start_ms"]).to(torch.int32),
         ),
         averager=AveragerState(
-            ring=t(averager["ring"]),
+            ring=bf16_tensor(ring, device) if ring.dtype.itemsize == 2 else t(ring),
             total=t(averager["total"]),
             pos=t(averager["pos"]).to(torch.int32),
             frames=t(averager["frames"]).to(torch.int32),

@@ -51,7 +51,14 @@ class ScanConfig:
     grouping_x: int = 21
     grouping_y: int = 21
     noise_learning_ms: int = 2000
+    # tolerance mode: the selection sweeps read bf16 copies of the rows;
+    # reported values stay f32 (ops/detect.compact_detection)
     detection_bf16: bool = False
+    # deeper tolerance: the noise-subtracted rows are STORED in bf16 (the
+    # averager ring, the history-vote rows); the PSD, the noise floor and
+    # the spectrogram stay f32. Only with detection_bf16: create() clears
+    # it otherwise, so state dtypes stay consistent
+    power_bf16: bool = False
 
     @classmethod
     def create(
@@ -77,6 +84,7 @@ class ScanConfig:
             grouping_y=tunables.grouping_y,
             noise_learning_ms=tunables.noise_learning_time_ms,
             detection_bf16=tunables.detection_bf16,
+            power_bf16=tunables.power_bf16 and tunables.detection_bf16,
         )
 
     @property
@@ -127,11 +135,13 @@ class CompactScanOutputs(NamedTuple):
 def init_scan_state(
     cfg: ScanConfig, n_bands: Optional[int] = None, start_ms: int = 0, device: DeviceLike = None
 ) -> ScanState:
-    """Zero carry: single band (``n_bands`` None, no band axis) or banded."""
+    """Zero carry: single band (``n_bands`` None, no band axis) or banded;
+    a bf16 averager ring in power_bf16 mode."""
     dev = resolve_device(device)
+    ring_dtype = torch.bfloat16 if cfg.power_bf16 else torch.float32
     state = ScanState(
         noise=init_noise_state(n_bands or 1, cfg.fft_size, start_ms, dev),
-        averager=init_averager_state(n_bands or 1, cfg.fft_size, cfg.grouping_y, dev),
+        averager=init_averager_state(n_bands or 1, cfg.fft_size, cfg.grouping_y, dev, ring_dtype),
     )
     return state if n_bands is not None else _band_axis(state, add=False)
 
@@ -259,6 +269,10 @@ def _compact_scan_block(
         half_depth = cfg.grouping_y - cfg.grouping_y // 2
         prev_tail = ordered_history(state.averager)[:, -(half_depth - 1) :]
         noise_state, raw_rows = noise_block(state.noise, power, now_ms, cfg.noise_learning_ms)
+        if cfg.power_bf16:
+            # the rows are stored and voted in bf16 (one quantization); the
+            # sums, means and reported values stay f32 arithmetic over them
+            raw_rows = raw_rows.to(torch.bfloat16)
     with record_function("scan.averager"):
         avg_state, mean_rows = averager_block(state.averager, raw_rows)
     state = ScanState(noise_state, avg_state)

@@ -15,17 +15,19 @@ from rtl_sdr_scanner_tpu_torch.constants import NO_DATA
 
 
 class AveragerState(NamedTuple):
-    ring: torch.Tensor  # [NB, depth, fft] f32
+    ring: torch.Tensor  # [NB, depth, fft] f32 (bf16 in power_bf16 mode)
     total: torch.Tensor  # [NB, fft] f32 running column sum
     pos: torch.Tensor  # [NB] i32 next write slot
     frames: torch.Tensor  # [NB] i32, saturates at depth
 
 
 def init_averager_state(
-    n_bands: int, fft_size: int, depth: int, device: torch.device
+    n_bands: int, fft_size: int, depth: int, device: torch.device, dtype: torch.dtype = torch.float32
 ) -> AveragerState:
+    """``dtype`` is the ring's storage (bf16 in power_bf16 mode); the
+    running sum stays f32."""
     return AveragerState(
-        ring=torch.zeros((n_bands, depth, fft_size), dtype=torch.float32, device=device),
+        ring=torch.zeros((n_bands, depth, fft_size), dtype=dtype, device=device),
         total=torch.zeros((n_bands, fft_size), dtype=torch.float32, device=device),
         pos=torch.zeros((n_bands,), dtype=torch.int32, device=device),
         frames=torch.zeros((n_bands,), dtype=torch.int32, device=device),
@@ -47,15 +49,16 @@ def averager_block(
     package's order, kept so the stage compares at f32 rounding.
 
     rows: [NB, F, fft] -> means [NB, F, fft]. The returned ring is stored
-    oldest-first with pos=0.
+    oldest-first with pos=0. Rows are stored in the ring's dtype (one bf16
+    quantization in power_bf16 mode); the sums stay f32.
     """
     nb, depth, fft = state.ring.shape
     f = rows.shape[1]
-    all_rows = torch.cat([ordered_history(state), rows], dim=1)
+    all_rows = torch.cat([ordered_history(state), rows.to(state.ring.dtype)], dim=1)
     cs = torch.cat(
         [
             torch.zeros((nb, 1, fft), dtype=torch.float32, device=rows.device),
-            torch.cumsum(all_rows, dim=1),
+            torch.cumsum(all_rows.to(torch.float32), dim=1),
         ],
         dim=1,
     )

@@ -1,1 +1,2 @@
-"""Multi-band dispatches: the bands layer's one-card forms."""
+"""The (bands, time) mesh layer: placement, halo exchange, collectives and
+the sharded block steps."""

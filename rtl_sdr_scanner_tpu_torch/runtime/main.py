@@ -10,11 +10,11 @@ Usage: python -m rtl_sdr_scanner_tpu_torch.runtime.main /path/to/config.json
 
 Every scanner runs on the card (CUDA); ``run(..., device="cpu")`` runs the
 plain PyTorch versions instead. A device with ``channels >= 2`` runs a
-``WidebandScanner``. A config that needs a path the port does not have yet
-(more than one card: ``mesh_time``, ``multihost``, a ``mesh_bands`` that
-resolves to several cards; ``power_bf16``), or a geometry a kernel on the
-card does not take, is refused with one error and exit code 1 before any
-scanner starts.
+``WidebandScanner``. ``mesh_time`` and ``mesh_bands`` spread a device over
+the visible cards (on the CPU, over copies of the CPU device). A config
+that needs a path the port does not have yet (``multihost``: slice 9), or a
+geometry a kernel on the card does not take, is refused with one error and
+exit code 1 before any scanner starts.
 """
 
 from __future__ import annotations

@@ -117,31 +117,32 @@ def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
     return None
 
 
+def mesh_devices(device: torch.device, n: int) -> List[torch.device]:
+    """The devices of an n-shard mesh a session on ``device`` builds: the
+    session's own device for one shard; cards 0..n-1 on the card (the
+    reference's ``jax.devices()[:n]``); n copies of the CPU device on the
+    CPU, where the tests reach n > 1 by patching ``visible_cards``."""
+    if n == 1:
+        return [device]
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [device] * n
+
+
 def unported_path(
     config: Config, spec: Optional[DeviceSpec] = None, device: Optional[torch.device] = None
 ) -> Optional[str]:
     """Why this config (and device, scanned on the torch ``device``) needs a
     path the port does not have, naming the ROADMAP.md item that brings it,
-    or a geometry its card's kernels do not take; None when it runs."""
+    or a geometry its card's kernels do not take; None when it runs. The
+    time and band shards of a mesh run the kernels at the device's own fft
+    (a shard holds fewer frames or bands, never narrower rows), so the
+    kernel check covers them too."""
     t = config.tunables
-    if spec is not None and spec.channels >= 2 and t.mesh_bands and t.compact_detection:
-        cards = visible_cards(device) if device is not None else 1
-        n = mesh_bands_cards(t.mesh_bands, spec.channels, cards)
-        if n > 1:
-            return (
-                f"device {spec.name}: tunables.mesh_bands={t.mesh_bands} resolves to {n} cards; the "
-                "multi-device layer is not ported yet (ROADMAP.md section 1, slice 8)"
-            )
-    for name in ("mesh_time", "multihost"):
-        if getattr(t, name):
-            return (
-                f"tunables.{name}={getattr(t, name)!r} needs the multi-device layer, "
-                "not ported yet (ROADMAP.md section 1, slice 8)"
-            )
-    if t.power_bf16:
+    if t.multihost:
         return (
-            "tunables.power_bf16=true is not ported yet (ROADMAP.md section 1, "
-            "'power_bf16 and the gather vote form')"
+            f"tunables.multihost={t.multihost!r} needs the multi-host layer "
+            "(torch.distributed), not ported yet (ROADMAP.md section 1, slice 9)"
         )
     if spec is not None and device is not None and device.type == "cuda":
         return _kernel_refusal(config, spec)
@@ -169,6 +170,15 @@ class RecorderSlot:
         return self.shift is not None
 
 
+class PackedOuts:
+    """Stand-in for CompactScanOutputs where a step returns packed rows by
+    other means (the time mesh; a wideband owner's banded step):
+    finish_block reads only .packed."""
+
+    def __init__(self, packed):
+        self.packed = packed
+
+
 class SpectroContainer:
     """Per-center-frequency spectrogram accumulator (spectrogram.cpp:9,45-60)."""
 
@@ -183,9 +193,10 @@ class HostStage:
 
     On the card a pageable copy synchronises the stream; a copy from pinned
     memory with ``non_blocking=True`` does not. Each shape keeps ``depth``
-    pinned buffers; one is refilled only after the copy that last read it
-    has run (an event per buffer), so a caller may hold ``depth - 1`` blocks
-    in flight. Every upload lands in a fresh device tensor the caller owns.
+    pinned buffers; one is refilled only after the copies that last read it
+    have run (an event per copy), so a caller may hold ``depth - 1`` blocks
+    in flight. ``upload_to`` copies one fill to several devices (the band
+    shards of a mesh). Every upload lands in a fresh device tensor the caller owns.
     On the CPU an upload is a plain copy (replay blocks are read-only
     views of the capture file).
     """
@@ -197,25 +208,36 @@ class HostStage:
         self._turn: Dict[tuple, int] = {}
 
     def upload(self, array: np.ndarray) -> torch.Tensor:
+        return self.upload_to(array, [self._dev])[0]
+
+    def upload_to(self, array: np.ndarray, devices) -> List[torch.Tensor]:
+        """One copy of ``array`` on each of ``devices`` from one pinned fill
+        (a device named twice gets the same tensor)."""
         if self._dev.type != "cuda":
-            return torch.from_numpy(np.array(array))
+            out = torch.from_numpy(np.array(array))
+            return [out.to(d) for d in devices]
         key = (array.dtype.str, array.shape)
         ring = self._rings.setdefault(key, [])
         turn = self._turn.get(key, 0)
         self._turn[key] = (turn + 1) % self._depth
         if turn == len(ring):
             dtype = torch.from_numpy(np.empty(0, dtype=array.dtype)).dtype
-            ring.append([torch.empty(array.shape, dtype=dtype, pin_memory=True), None])
-        buf, done = ring[turn]
-        if done is not None:
+            ring.append([torch.empty(array.shape, dtype=dtype, pin_memory=True), ()])
+        buf, pending = ring[turn]
+        for done in pending:
             done.synchronize()
         buf.numpy()[...] = array
-        out = torch.empty(buf.shape, dtype=buf.dtype, device=self._dev)
-        out.copy_(buf, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self._dev))
-        ring[turn][1] = done
-        return out
+        outs, events = {}, []
+        for dev in devices:
+            if dev not in outs:
+                out = torch.empty(buf.shape, dtype=buf.dtype, device=dev)
+                out.copy_(buf, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                outs[dev] = out
+                events.append(done)
+        ring[turn][1] = tuple(events)
+        return [outs[dev] for dev in devices]
 
 
 class SdrDevice:
@@ -280,11 +302,19 @@ class SdrDevice:
         if self._power_sink is not None and self._compact:
             logger.warn(LABEL, "debug_save_full_power forces full-row detection mode")
             self._compact = False
-        if self._compact:
+        self._time_mesh = None
+        self.tmesh_ddc = False
+        if self._compact and t.mesh_time > 0:
+            self._setup_time_mesh(config, recorders_count)
+            cfg = self.scan_cfg
+        elif self._compact:
             self._scan_step = make_compact_scan_step(cfg, self._group_size, t.detection_top_k, device=dev)
         else:
+            if t.mesh_time > 0:
+                logger.warn(LABEL, "mesh_time needs compact detection; staying serial")
             self._scan_step = make_scan_step(cfg, device=dev)
-        self._ddc_step = ddc_pipeline.make_ddc_step(self.ddc_cfg, device=dev)
+        if not self.tmesh_ddc:  # _setup_time_mesh may install the time-sharded DDC
+            self._ddc_step = ddc_pipeline.make_ddc_step(self.ddc_cfg, device=dev)
         self._valid_mask_dev = None  # per-retune device copy of the bin mask
         # the start level on the device, made once: no per-block copy
         self._start_level_dev = torch.tensor(float(spec.start_level), dtype=torch.float32, device=dev)
@@ -357,6 +387,54 @@ class SdrDevice:
             dev,
         )
 
+    # -- time-axis mesh (tunables.mesh_time) ---------------------------------
+
+    def _setup_time_mesh(self, config: Config, recorders_count: int) -> None:
+        """One band's detection frames split over an N-device time mesh
+        (``parallel/sharded_scan.make_time_sharded_scan``), N = mesh_time
+        resolved against the visible cards. The detector carries are
+        stitched across the shard seams; the host consumes the same compact
+        rows. Recording shards over the same mesh where the chain splits
+        exactly (``make_time_sharded_modtap_ddc``); otherwise the DDC stays
+        on one device, with a warning."""
+        from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
+        from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import (
+            make_time_sharded_modtap_ddc,
+            make_time_sharded_scan,
+            time_sharded_modtap_fits,
+        )
+
+        dev = self.torch_device
+        n = min(self._tunables.mesh_time, visible_cards(dev))
+        cfg = self.scan_cfg
+        # frames must split evenly with >= grouping_y frames a shard AND
+        # keep the DDC block divisibility already folded into frames
+        base = cfg.frames_per_block
+        frames = base
+        while frames % n != 0 or frames // n < cfg.grouping_y:
+            frames += base
+        if frames != base:
+            logger.info(LABEL, "frames per block adjusted for time mesh: {} -> {}", base, frames)
+            self.scan_cfg = cfg = dataclasses.replace(cfg, frames_per_block=frames)
+            self.ddc_cfg = ddc_pipeline.DdcConfig.create(
+                self._device.sample_rate,
+                config.recording_bandwidth,
+                recorders_count,
+                cfg.block_samples,
+                self._tunables.resampler_threshold,
+            )
+        self._time_mesh = make_mesh(n_bands=1, n_time=n, devices=mesh_devices(dev, n))
+        self._scan_step = make_time_sharded_scan(
+            cfg, self._time_mesh, self._group_size, self._tunables.detection_top_k
+        )
+        if time_sharded_modtap_fits(self.ddc_cfg, n):
+            self._ddc_step = make_time_sharded_modtap_ddc(self.ddc_cfg, self._time_mesh)
+            self.tmesh_ddc = True
+            logger.info(LABEL, "time-sharded DDC active ({} shards)", n)
+        else:
+            logger.warn(LABEL, "DDC chain does not split {} ways; recording stays single-device", n)
+        logger.info(LABEL, "time mesh: {} devices, {} frames/shard", n, frames // n)
+
     # -- geometry ----------------------------------------------------------
 
     @property
@@ -422,10 +500,13 @@ class SdrDevice:
         for rec in self._recorders:
             if rec.is_recording:
                 self._stop_slot(rec)
-        # averager resets on retune; noise floor persists per center frequency
+        # averager resets on retune; noise floor persists per center
+        # frequency. The reset ring is f32 in every mode, as the reference's
+        # (power_bf16 rows stored in it are bf16 values all the same)
         fresh = init_scan_state(self.scan_cfg, start_ms=now_ms, device=self.torch_device)
+        averager = fresh.averager._replace(ring=fresh.averager.ring.to(torch.float32))
         noise = self._noise_states.get(center, fresh.noise)
-        self._scan_state = ScanState(noise=noise, averager=fresh.averager)
+        self._scan_state = ScanState(noise=noise, averager=averager)
         self._pending_noise_center = center
         self._valid_mask_dev = None  # recomputed lazily for the new range
 
@@ -481,6 +562,26 @@ class SdrDevice:
             else:
                 now_dev = self._stage.upload(now_arr)
         framed = iq_dev.reshape(cfg.frames_per_block, group, 2)
+        if self._time_mesh is not None:
+            with record_function("session.scan"):
+                self._scan_state, body, spectro_sum, ready = self._scan_step(
+                    self._scan_state,
+                    framed,
+                    small[: cfg.frames_per_block],
+                    small[cfg.frames_per_block :],
+                    self._valid_mask_dev,
+                    self._start_level_dev,
+                )
+                packed = torch.cat([body.reshape(-1), ready.to(torch.float32)[None]])
+            self._noise_states[self._pending_noise_center] = self._scan_state.noise
+            return {
+                "outs": PackedOuts(packed),
+                "iq_dev": iq_dev,
+                "now_arr": now_arr,
+                "slot_keys": slot_keys,
+                "block_start_ms": block_start_ms,
+                "spectro_sum": spectro_sum,
+            }
         if self._compact:
             if self._spectro_acc is None:
                 self._spectro_acc = init_spectro_acc(cfg, device=self.torch_device)
@@ -606,6 +707,9 @@ class SdrDevice:
                 # an owner's banded accumulator: it feeds ingest_spectro at
                 # the send cadence
                 pass
+            elif "spectro_sum" in handle:
+                # the time mesh returns the block's spectrogram sum itself
+                self._accumulate_spectrogram(handle["spectro_sum"].cpu().numpy(), int(now_arr[-1]))
             elif self._compact:
                 self._maybe_send_spectrogram(int(now_arr[-1]))
             else:

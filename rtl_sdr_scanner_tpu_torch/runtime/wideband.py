@@ -13,12 +13,17 @@ Enable with ``"channels": B`` on a device config entry. Two forms:
 - serial (default): one channelizer call a block, then B sessions'
   ``submit_block`` / ``finish_block`` on the channel streams, which stay on
   the card;
-- ``tunables.mesh_bands`` (on one card it resolves to that card): one
-  dispatch a block covers the channelizer and all B channels' compact scan
-  (``parallel/sharded_scan``), and, while a slot records, one banded DDC
-  dispatch for all channels (split), or all of it in one dispatch
-  (``tunables.wideband_fused_dispatch``, modulated-taps chains). Trackers,
-  recorders and egress stay per channel on the host.
+- ``tunables.mesh_bands``: the B channels split over N band shards, N
+  resolved against the visible cards (``sdr_device.mesh_bands_cards``; on
+  one card, that card). One step a block covers the channelizer (run on
+  every shard) and all channels' compact scan (``parallel/sharded_scan``),
+  and, while a slot records, one banded DDC step for all channels (split),
+  or all of it in one step (``tunables.wideband_fused_dispatch``,
+  modulated-taps chains). Band state, accumulators, valid masks and DDC
+  tables live on their shards (``sharded_scan``'s per-shard lists); the
+  wideband block is uploaded to every shard, and packed rows and
+  recordings are fetched shard by shard. Trackers, recorders and egress
+  stay per channel on the host.
 """
 
 from __future__ import annotations
@@ -41,26 +46,20 @@ from rtl_sdr_scanner_tpu_torch.ops.channelizer import (
     plan_channelizer,
 )
 from rtl_sdr_scanner_tpu_torch.runtime.config import Config, DeviceSpec
+from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import (
     HostStage,
+    PackedOuts,
     SdrDevice,
     mesh_bands_cards,
+    mesh_devices,
     unported_path,
-    visible_cards,
 )
 from rtl_sdr_scanner_tpu_torch.runtime.sources import make_source
 from rtl_sdr_scanner_tpu_torch.utils import logger
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import format_frequency
 
 LABEL = "wideband"
-
-
-class _PackedOuts:
-    """Stand-in for CompactScanOutputs when the banded step's packed rows
-    are handed to the per-channel sessions (finish_block reads .packed)."""
-
-    def __init__(self, packed: np.ndarray):
-        self.packed = packed
 
 
 class WidebandScanner:
@@ -167,11 +166,12 @@ class WidebandScanner:
     # -- the one-dispatch forms (tunables.mesh_bands) ------------------------
 
     def _setup_mesh(self, mesh_bands: int) -> None:
-        """One dispatch a wideband block for the channelizer and all B
-        channels' compact scan, plus (split) one banded DDC dispatch for all
-        channels while any records, or (fused) all of it in one dispatch.
-        The reference runs its recorder chains concurrently off one source
-        (sdr_device.cpp:39-41); B serial per-band dispatches would not."""
+        """One step a wideband block for the channelizer and all B
+        channels' compact scan, plus (split) one banded DDC step for all
+        channels while any records, or (fused) all of it in one step, over
+        N band shards. The reference runs its recorder chains concurrently
+        off one source (sdr_device.cpp:39-41); B serial per-band dispatches
+        would not."""
         from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
         from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import (
             init_banded_ddc_state,
@@ -179,28 +179,35 @@ class WidebandScanner:
             make_sharded_banded_ddc,
             make_sharded_wideband_fused_step,
             make_sharded_wideband_step,
+            replicate,
+            shard_bands,
         )
 
         b = len(self._sessions)
-        n = mesh_bands_cards(mesh_bands, b, visible_cards(self.torch_device))
+        dev = self.torch_device
+        n = mesh_bands_cards(mesh_bands, b, sdr_device.visible_cards(dev))
         if not self._config.tunables.compact_detection:
             logger.warn(LABEL, "mesh_bands needs compact detection; staying serial")
             return
         session = self._sessions[0]
         cfg = session.scan_cfg
-        dev = self.torch_device
-        self._mesh = make_mesh(n_bands=n, n_time=1, device=dev)
+        self._mesh = mesh = make_mesh(n_bands=n, n_time=1, devices=mesh_devices(dev, n))
+        self._b_loc = b // n
         top_k = self._config.tunables.detection_top_k
         self._wide_step = make_sharded_wideband_step(
-            cfg, session._group_size, top_k, self._mesh, self._plan, self._oversample, b
+            cfg, session._group_size, top_k, mesh, self._plan, self._oversample, b
         )
-        self._band_state = init_banded_state(cfg, b, self._mesh)
-        self._band_acc = torch.zeros((b, cfg.spectro_size), dtype=torch.float32, device=dev)
+        self._band_state = init_banded_state(cfg, b, mesh)
+        self._chan_state = replicate(self._chan_state, mesh)
+        self._band_acc = [
+            torch.zeros((self._b_loc, cfg.spectro_size), dtype=torch.float32, device=d) for d in mesh.band_devices
+        ]
         # parked sessions: ranges never change, so masks are computed once
-        self._band_valid = torch.from_numpy(
-            np.stack([s._tracker._compute_valid_mask() for s in self._sessions])
-        ).to(dev)
-        self._start_level = torch.tensor(float(session._device.start_level), dtype=torch.float32, device=dev)
+        masks = np.stack([s._tracker._compute_valid_mask() for s in self._sessions])
+        self._band_valid = shard_bands(torch.from_numpy(masks), mesh)
+        self._start_level = replicate(
+            torch.tensor(float(session._device.start_level), dtype=torch.float32), mesh
+        )
         self._acc_pending_frames = 0
         self._acc_reset_pending = False
         self._last_spectro_ms = 0
@@ -212,20 +219,20 @@ class WidebandScanner:
         if self._ddc_cfg.modtap:
             self._band_shifts = np.zeros((b, self._ddc_cfg.num_slots), dtype=np.int64)
             self._band_tables = self._build_band_tables()
-            self._ddc_band_state = init_banded_ddc_state(self._ddc_cfg, b, self._mesh)
+            self._ddc_band_state = init_banded_ddc_state(self._ddc_cfg, b, mesh)
             if self._config.tunables.wideband_fused_dispatch:
-                # ONE dispatch a block: channelize + scan + banded DDC. Slot
+                # ONE step a block: channelize + scan + banded DDC. Slot
                 # reconcile applies from the NEXT block (the reference's
                 # notification timing, recorder.cpp:58-73); the split form
                 # records the triggering block itself, as the serial one does
                 self._fused = True
                 self._ddc_band_step = None
                 self._fused_step = make_sharded_wideband_fused_step(
-                    cfg, self._ddc_cfg, session._group_size, top_k, self._mesh, self._plan,
+                    cfg, self._ddc_cfg, session._group_size, top_k, mesh, self._plan,
                     self._oversample, b,
                 )
             else:
-                self._ddc_band_step = make_sharded_banded_ddc(self._ddc_cfg, self._mesh, b)
+                self._ddc_band_step = make_sharded_banded_ddc(self._ddc_cfg, mesh, b)
             for s_ in self._sessions:
                 s_.external_ddc = True
         else:
@@ -235,30 +242,45 @@ class WidebandScanner:
             logger.warn(LABEL, "non-modtap DDC chain: recording stays per-band")
         logger.info(
             LABEL,
-            "bands mesh: {} sub-bands over {} card(s){}",
+            "bands mesh: {} sub-bands over {} device(s){}",
             b,
             n,
             " (fused single dispatch)" if self._fused else "",
         )
 
     @staticmethod
-    def _fetch_band_rows(arr: torch.Tensor) -> np.ndarray:
-        """A band-stacked device tensor read to the host in one transfer (on
-        one card every band is this process's)."""
-        return arr.cpu().numpy()
+    def _fetch_band_rows(shards) -> np.ndarray:
+        """A band-stacked per-shard list read to the host shard by shard and
+        stacked (with one process, every band is this process's)."""
+        return np.concatenate([a.cpu().numpy() for a in shards])
 
-    def _build_band_tables(self):
-        """All channels' DDC tables (host-exact math) for the [B, K] shifts,
-        rebuilt only when some channel's recorder slots changed (recorder
-        start/stop, human-timescale events)."""
+    def _build_band_tables(self) -> list:
+        """Each band shard's DDC tables (host-exact math) for its rows of the
+        [B, K] shifts, made on its device; rebuilt only when some channel's
+        recorder slots changed (recorder start/stop, human-timescale events)."""
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
 
-        return ddc_pipeline.make_tables(self._ddc_cfg, self._band_shifts, device=self.torch_device)
+        b_loc = self._b_loc
+        return [
+            ddc_pipeline.make_tables(self._ddc_cfg, self._band_shifts[i * b_loc : (i + 1) * b_loc], device=d)
+            for i, d in enumerate(self._mesh.band_devices)
+        ]
 
-    def _drain_slot_events(self) -> np.ndarray:
+    def _upload_shards(self, array: np.ndarray, banded: bool) -> list:
+        """``array`` on every band shard's device from one pinned fill: the
+        whole of it (replicated), or (banded) each shard's rows."""
+        devs = self._mesh.band_devices
+        copies = self._stage.upload_to(array, devs)
+        if not banded:
+            return copies
+        b_loc = self._b_loc
+        return [c[i * b_loc : (i + 1) * b_loc] for i, c in enumerate(copies)]
+
+    def _drain_slot_events(self) -> list:
         """Apply the sessions' slot start/stop events to the banded shifts
-        (rebuilding the tables if any) and return the [B, K] keep mask: 0
-        where a slot started (its carry zeroed before the block)."""
+        (rebuilding the tables if any) and return the [B, K] keep mask per
+        band shard: 0 where a slot started (its carry zeroed before the
+        block)."""
         keep_mask = np.ones((len(self._sessions), self._ddc_cfg.num_slots), np.float32)
         dirty = False
         for ch in self._local_bands:
@@ -269,7 +291,7 @@ class WidebandScanner:
                 dirty = True
         if dirty:
             self._band_tables = self._build_band_tables()
-        return keep_mask
+        return self._upload_shards(keep_mask, banded=True)
 
     def _step_mesh(self, pairs: np.ndarray, start_ms: int, now_ms: int) -> None:
         handle = self._submit_mesh(pairs, start_ms)
@@ -297,16 +319,19 @@ class WidebandScanner:
         keys = np.stack([session._tracker.current_keys(s) for session in self._sessions])
         keep = 0.0 if self._acc_reset_pending else 1.0
         self._acc_reset_pending = False
-        x_dev = self._stage.upload(pairs)
+        # the wideband block goes to every band shard (each channelizes it)
+        x_dev = self._upload_shards(pairs, banded=False)
         # the frame times and every channel's tracked keys go up as one copy
-        small = self._stage.upload(np.concatenate([now_arr, keys.reshape(-1).astype(np.int32)]))
-        now_dev, keys_dev = small[:frames], small[frames:].reshape(keys.shape)
+        small = self._upload_shards(np.concatenate([now_arr, keys.reshape(-1).astype(np.int32)]), banded=False)
+        b_loc = self._b_loc
+        now_dev = [c[:frames] for c in small]
+        keys_dev = [c[frames:].reshape(keys.shape)[i * b_loc : (i + 1) * b_loc] for i, c in enumerate(small)]
 
         if self._fused:
             # reconcile BEFORE the dispatch: slot events drained here came
             # from the PREVIOUS block's host processing, so this block's DDC
             # runs with tables and keeps already right for it
-            keep_mask = self._stage.upload(self._drain_slot_events())
+            keep_mask = self._drain_slot_events()
             # each slot recording as of THIS dispatch, with the recording it
             # belongs to: only those rows are valid in this block's DDC output
             # (a slot started, or stopped and restarted, during this block's
@@ -368,8 +393,8 @@ class WidebandScanner:
             feed_sink = session.wants_raw_iq()
             session.finish_block(
                 {
-                    "outs": _PackedOuts(packed[ch]),
-                    "iq_dev": channels[ch] if (not banded_ddc or feed_sink) else None,
+                    "outs": PackedOuts(packed[ch]),
+                    "iq_dev": channels[ch // self._b_loc][ch % self._b_loc] if (not banded_ddc or feed_sink) else None,
                     "now_arr": now_arr,
                     "slot_keys": keys[ch],
                     "block_start_ms": start_ms,
@@ -400,7 +425,7 @@ class WidebandScanner:
             # reconcile the banded DDC slots from the sessions' slot events,
             # then run recording as ONE dispatch over all channels; slot
             # resets ride the keep mask
-            keep_mask = self._stage.upload(self._drain_slot_events())
+            keep_mask = self._drain_slot_events()
             recording = any(self._sessions[ch].is_recording for ch in self._local_bands)
             if recording:
                 self._ddc_band_state, rec_dev = self._ddc_band_step(

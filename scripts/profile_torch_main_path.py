@@ -1,6 +1,7 @@
 """Where one block of the port's main path spends its time on the card.
 
-    python3 scripts/profile_torch_main_path.py [--path 1|2|session|wideband|wideband-session]
+    python3 scripts/profile_torch_main_path.py
+        [--path 1|2|session|wideband|wideband-session|time-mesh|time-mesh-one-card]
         [--form serial|split|fused] [--blocks 3]
 
 Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
@@ -26,7 +27,11 @@ step stage, as for paths 1 and 2. ``--path wideband-session --form F``
 profiles chip_smoke.py's wideband session (2.048 Msps into 16 channels of
 128 kHz) in form F: the host time of each range a block opens (the
 sessions' ranges summed over the 16 channels, the channelizer's and the
-batched step's) beside the device's busy time.
+batched step's) beside the device's busy time. ``--path time-mesh``
+profiles chip_smoke.py's time mesh (path 1's band, 180 frames a block,
+time-sharded scan and DDC over 4 copies of the card; ``time-mesh-one-card``
+the one-card step and DDC at the same geometry): the device span of each
+scan range (summed over the shards) beside the busy time.
 Needs a card; run it from the repository root.
 """
 
@@ -50,7 +55,8 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("1", "2", "session", "wideband", "wideband-session"), default="1",
+    ap.add_argument("--path", choices=("1", "2", "session", "wideband", "wideband-session", "time-mesh",
+                                       "time-mesh-one-card"), default="1",
                     help="chip_smoke.py's path to drive")
     ap.add_argument("--form", choices=[f for f, _ in cs.WB_FORMS], default="fused",
                     help="the wideband session's form (--path wideband-session)")
@@ -76,6 +82,9 @@ def main() -> int:
         path = cs.WidebandStep(dev, geo, True, [])
         path.ring = cs.wide_ring(geo, path.cfg.block_samples, dev)
         STAGES = WIDE_STAGES + STAGES
+    elif args.path.startswith("time-mesh"):
+        geo = cs.TMESH
+        path = cs.TimeMesh(dev, args.path == "time-mesh")
     else:
         geo = cs.PATH1 if args.path == "1" else cs.PATH2
         path = cs.MainPath(dev, geo)

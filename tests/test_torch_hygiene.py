@@ -13,7 +13,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "rtl_sdr_scanner_tpu_torch"
-CARD_SCRIPTS = [ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py"]
+CARD_SCRIPTS = [
+    ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py",
+    ROOT / "scripts" / "mesh_cards_torch.py",
+]
 SCAN_FILE = ROOT / "scripts" / "scan_file_torch.py"
 SOURCES = (
     sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS
@@ -178,3 +181,30 @@ def test_card_scripts_refuse_without_a_card(script):
     out = subprocess.run([sys.executable, str(script)], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 2
     assert "needs an NVIDIA GPU" in out.stderr
+
+
+def test_multi_device_layer_is_checked():
+    """The mesh layer's modules are among the modules and sources checked
+    above, and chip_smoke.py's multi-device phase imports neither JAX nor
+    the JAX package: its functions and the modules they import load and
+    run their imports with both made unimportable."""
+    for name in ("halo", "collectives", "mesh", "sharded_scan"):
+        assert f"rtl_sdr_scanner_tpu_torch.parallel.{name}" in _modules()
+        assert PKG / "parallel" / f"{name}.py" in SOURCES
+    code = (
+        "import sys, inspect, re\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rtl_sdr_scanner_tpu'] = None\n"
+        "import chip_smoke\n"
+        "phase = [chip_smoke.run_multi_device, chip_smoke.run_time_mesh, chip_smoke.run_band_shards,\n"
+        "         chip_smoke.run_main_time_mesh, chip_smoke.time_mesh_configs, chip_smoke.WidebandStep]\n"
+        "import importlib\n"
+        "for fn in phase:\n"
+        "    for mod in re.findall(r'from (rtl_sdr_scanner_tpu_torch[\\w.]*) import', inspect.getsource(fn)):\n"
+        "        importlib.import_module(mod)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -400,3 +400,102 @@ def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
     for serial, single in (("replay0", mqtt.published), ("replay1", single_wide)):
         mine = [(t, p) for t, p in payloads if t.startswith(f"sdr/replay_{serial}/")]
         assert mine and chip_smoke.compare_payloads(single, mine)["transmissions"] > 0
+
+
+def test_time_shards_on_card_match_one_card(dev):
+    """The time axis on a mesh of 4 copies of the card (256 kHz, 84 frames:
+    21 a shard; int8 ingest, FM keyed after the noise learning): the
+    time-sharded scan against the one-card compact step (counts exact,
+    indices rank-equivalent but for < 0.5% near-ties, values within 2e-3
+    dB) and the time-sharded modulated-taps DDC against the one-card DDC
+    (within 1 LSB); the PSD and selection kernels launch once a shard, the
+    FIR kernel once a shard and chunk where the chain has a decimating
+    stage 2 (512 kHz -> 3.2 kHz)."""
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan
+
+    n, rate, frames = 4, 512_000, 84
+    cfg = scan_pipeline.ScanConfig.create(rate, frames)
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
+    assert sharded_scan.time_sharded_modtap_fits(ddc_cfg, n) and len(ddc_cfg.plans) == 2
+    m = mesh.make_mesh(1, n, devices=[dev] * n)
+    group = cfg.fft_size * cfg.decimator_factor
+    t = np.arange(2 * cfg.block_samples) / rate
+    rng = np.random.default_rng(3)
+    x = 0.01 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
+    x += 0.4 * np.exp(2j * np.pi * (30_000 * t + 3000 / 700 * np.sin(2 * np.pi * 700 * t))) * (t >= 2.2)
+    pairs = np.clip(np.round(np.stack([x.real, x.imag], -1) * 127), -128, 127).astype(np.int8)
+    blocks = torch.from_numpy(pairs).to(dev).reshape(2, frames, group, 2)
+    keys = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    valid = torch.ones(cfg.fft_size, dtype=torch.bool, device=dev)
+    level = torch.tensor(LEVEL, device=dev)
+    tables = ddc_pipeline.make_tables(ddc_cfg, np.array([30_000, -50_000]), device=dev)
+    scan_sh = sharded_scan.make_time_sharded_scan(cfg, m, 64, 16)
+    ddc_sh = sharded_scan.make_time_sharded_modtap_ddc(ddc_cfg, m)
+    scan_1 = scan_pipeline.make_compact_scan_step(cfg, 64, 16, device=dev)
+    ddc_1 = ddc_pipeline.make_ddc_step(ddc_cfg, device=dev)
+    s_sh = s_1 = scan_pipeline.init_scan_state(cfg, device=dev)
+    d_sh = d_1 = ddc_pipeline.init_state(ddc_cfg, device=dev)
+    acc = scan_pipeline.init_spectro_acc(cfg, device=dev)
+    k2, row = 32, 3 * 32 + 1 + 16
+    wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
+    for b in range(2):
+        now = torch.from_numpy(((b * frames + 1 + np.arange(frames)) * cfg.frame_interval_ms).astype(np.int32)).to(dev)
+        before = [fn.launches for fn in wrappers]
+        s_sh, body, spectro, ready = scan_sh(s_sh, blocks[b], now, keys, valid, level)
+        d_sh, rec = ddc_sh(d_sh, blocks[b].reshape(-1, 2), tables)
+        torch.cuda.synchronize()
+        assert [fn.launches - b0 for fn, b0 in zip(wrappers, before)] == [n, n, n * ddc_cfg.num_chunks]
+        s_1, acc, outs = scan_1(s_1, acc, blocks[b], now, keys, valid, level, 0.0)
+        d_1, rec_1 = ddc_1(d_1, blocks[b].reshape(-1, 2), tables)
+        got, ref = body.cpu().numpy(), outs.packed[:-1].reshape(frames, row).cpu().numpy()
+        assert (got[:, :k2] != ref[:, :k2]).mean() < 0.005
+        np.testing.assert_allclose(got[:, k2 : 2 * k2], ref[:, k2 : 2 * k2], atol=2e-3)
+        np.testing.assert_array_equal(got[:, 3 * k2], ref[:, 3 * k2])
+        np.testing.assert_allclose(spectro.cpu().numpy(), acc.cpu().numpy(), atol=5e-3)
+        assert bool(ready) == bool(outs.noise_ready)
+        assert (rec.int() - rec_1.int()).abs().max().item() <= 1
+    assert (got[:, 3 * k2] > 0).any() and rec.abs().max().item() > 10
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_band_shards_on_card_match_one_card(fused, dev):
+    """The bands axis on a mesh of 2 copies of the card (8 channels of 256
+    kHz from one int8 stream, 2 slots at 3.2 kHz: a decimating stage 2):
+    the wideband step (and banded DDC, or the fused step) over 2 shards
+    gives the one-shard form's packed rows and recordings exactly."""
+    from rtl_sdr_scanner_tpu_torch.ops import channelizer
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+
+    nb, rate = 8, 256_000
+    cfg = scan_pipeline.ScanConfig.create(rate, 12)
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
+    plan = channelizer.plan_channelizer(nb)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-60, 60, size=(nb * cfg.block_samples, 2), dtype=np.int8)).to(dev)
+    shifts = rng.integers(-rate // 2, rate // 2, size=(nb, 2)).astype(np.int64)
+    outs = {}
+    for shards in (1, 2):
+        m = mesh.make_mesh(shards, 1, devices=[dev] * shards)
+        args = dict(
+            chan=ss.replicate(channelizer.init_channelizer_state(plan, dev), m),
+            state=ss.init_banded_state(cfg, nb, m),
+            acc=ss.shard_bands(torch.zeros((nb, cfg.spectro_size), device=dev), m),
+        )
+        ddc_state = ss.init_banded_ddc_state(ddc_cfg, nb, m)
+        tables = ss.shard_bands(ddc_pipeline.make_tables(ddc_cfg, shifts, device=dev), m)
+        keys = ss.shard_bands(torch.full((nb, 8), -1, dtype=torch.int32, device=dev), m)
+        valid = ss.shard_bands(torch.ones((nb, cfg.fft_size), dtype=torch.bool, device=dev), m)
+        level, keep = ss.replicate(torch.tensor(LEVEL, device=dev), m), ss.shard_bands(torch.ones((nb, 2), device=dev), m)
+        now = ss.replicate(torch.arange(1, 13, dtype=torch.int32, device=dev) * 20, m)
+        xs = ss.replicate(x, m)
+        if fused:
+            step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, 64, 16, m, plan, 1, nb)
+            *_, packed, rec, _ = step(args["chan"], args["state"], args["acc"], ddc_state, xs, now, keys, valid, level,
+                                      1.0, tables, keep)
+        else:
+            wide = ss.make_sharded_wideband_step(cfg, 64, 16, m, plan, 1, nb)
+            *_, packed, channels = wide(args["chan"], args["state"], args["acc"], xs, now, keys, valid, level, 1.0)
+            _, rec = ss.make_sharded_banded_ddc(ddc_cfg, m, nb)(ddc_state, channels, tables, keep)
+        outs[shards] = (ss.gather_bands(packed, dev).cpu(), ss.gather_bands(rec, dev).cpu())
+    assert torch.equal(outs[1][0], outs[2][0]) and torch.equal(outs[1][1], outs[2][1])
+    assert outs[2][1].abs().max().item() > 0

@@ -91,11 +91,12 @@ def test_mod_tables_equal(rate, block):
 
 @pytest.mark.parametrize("rate,frames", [(256_000, 10), (2_048_000, 10), (20_480_000, 45)])
 def test_configs_equal(rate, frames):
-    for bf16 in (False, True):
-        want = jsp.ScanConfig.create(rate, frames, JaxTunables(detection_bf16=bf16, use_pallas_select=True))
-        got = tsp.ScanConfig.create(rate, frames, Tunables(detection_bf16=bf16))
+    for bf16, power in ((False, False), (True, False), (False, True), (True, True)):
+        want = jsp.ScanConfig.create(
+            rate, frames, JaxTunables(detection_bf16=bf16, power_bf16=power, use_pallas_select=True))
+        got = tsp.ScanConfig.create(rate, frames, Tunables(detection_bf16=bf16, power_bf16=power))
         want_fields = dataclasses.asdict(want)
-        assert want_fields.pop("power_bf16") is False  # not ported yet
+        assert want_fields["power_bf16"] == (bf16 and power)  # only with detection_bf16
         # the port has no kernel switches: its wrappers choose by device
         want_fields.pop("use_pallas_psd")
         want_fields.pop("use_pallas_select")

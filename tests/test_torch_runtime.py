@@ -378,35 +378,79 @@ def test_main_exits_on_fatal_scanner_failure(tmp_path, short_capture, monkeypatc
     assert result["rc"] == 1
 
 
-# a wideband device whose bands mesh resolves to more than one card (two
-# visible cards: mesh_bands 2, and -1 for all of them) needs slice 8
+# the multi-device paths and power_bf16 (lifted by slice 8) run, with two
+# visible cards patched in (the CPU mesh: copies of the CPU device);
+# multihost needs the multi-host layer and stays refused (slice 9)
 UNPORTED = {
-    "wideband": ({"mesh_bands": 2}, {"channels": 4}, "slice 8"),
-    "mesh_time": ({"mesh_time": 2}, {}, "slice 8"),
-    "mesh_bands": ({"mesh_bands": -1}, {"channels": 4}, "slice 8"),
-    "multihost": ({"multihost": True}, {}, "slice 8"),
-    "power_bf16": ({"power_bf16": True}, {}, "power_bf16 and the gather vote form"),
+    "wideband": ({"mesh_bands": 2}, {"channels": 4}, None),
+    "mesh_time": ({"mesh_time": 2}, {}, None),
+    "mesh_bands": ({"mesh_bands": -1}, {"channels": 4}, None),
+    "multihost": ({"multihost": True}, {}, "slice 9"),
+    "power_bf16": ({"power_bf16": True}, {}, None),
 }
+
+
+def _run_main_until_drained(path, monkeypatch):
+    """main.run on a worker thread until its one scanner has drained the
+    replay: (rc, payloads, scanner)."""
+    made, mqtts, result = [], [], {}
+    for name in ("Scanner", "WidebandScanner"):
+        real = getattr(tmain, name)
+        watched = type("Watched", (real,), {"__init__": lambda self, *a, _r=real, **k: (_r.__init__(self, *a, **k), made.append(self))[0]})
+        monkeypatch.setattr(tmain, name, watched)
+
+    def make_mqtt(config):
+        m = tmqtt.NullMqtt()
+        m.keep_payloads = True
+        mqtts.append(m)
+        return m
+
+    monkeypatch.setattr(tmain, "make_mqtt", make_mqtt)
+    tmain._is_running = True
+    thread, result = _run_in_thread(path, device="cpu")
+    try:
+        deadline = time.time() + 120
+        while not (made and made[0]._thread is not None and not made[0]._thread.is_alive()):
+            assert time.time() < deadline and thread.is_alive(), "the scanner did not drain"
+            time.sleep(0.05)
+    finally:
+        tmain._is_running = False
+        thread.join(timeout=60)
+    return result.get("rc"), mqtts[0].published, made[0]
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_paths_are_refused(tmp_path, short_capture, monkeypatch, case):
-    """main.run logs one error naming the ROADMAP item and returns 1 before
-    any scanner starts; Scanner and SdrDevice raise NotImplementedError."""
+    """A path the port lacks: main.run logs one error naming the ROADMAP
+    item and returns 1 before any scanner starts; Scanner and SdrDevice
+    raise NotImplementedError. A path slice 8 ported: main.run runs it to
+    the end of the replay (rc 0, payloads published) in the mode asked for."""
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 
     tunables, device_fields, slice_name = UNPORTED[case]
     raw = _raw(short_capture, tunables=tunables)
     raw["devices"][0].update(device_fields)
     monkeypatch.setattr(sdr_device, "visible_cards", lambda device: 2)
+    path = _config_file(tmp_path, raw)
+    cfg = tconfig.Config(raw)
+    if slice_name is None:
+        rc, payloads, scanner = _run_main_until_drained(path, monkeypatch)
+        assert rc == 0 and not scanner.failed and payloads
+        assert any(t.endswith("/spectrogram") for t, _ in payloads)
+        if case == "mesh_time":
+            assert scanner.device._time_mesh.shape == {"bands": 1, "time": 2}
+        elif case == "power_bf16":
+            assert scanner.device.scan_cfg.power_bf16
+        else:
+            assert scanner._mesh.shape == {"bands": 2, "time": 1}
+        return
     errors, made = [], []
     monkeypatch.setattr(tmain.logger, "error", lambda label, msg, *a: errors.append(msg.format(*a)))
     monkeypatch.setattr(tmain, "Scanner", lambda *a, **k: made.append(1))
     monkeypatch.setattr(tmain, "make_mqtt", lambda cfg: made.append("mqtt"))
     tmain._is_running = True
-    assert tmain.run(str(_config_file(tmp_path, raw)), device="cpu") == 1
+    assert tmain.run(str(path), device="cpu") == 1
     assert made == [] and len(errors) == 1 and slice_name in errors[0] and "ROADMAP.md" in errors[0]
-    cfg = tconfig.Config(raw)
     with pytest.raises(NotImplementedError, match=slice_name):
         tscanner.Scanner(cfg, cfg.devices[0], tmqtt.NullMqtt(), 1, device="cpu")
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -417,13 +461,19 @@ def test_mesh_bands_on_one_card_or_without_a_wideband_device_runs(tmp_path, shor
     """mesh_bands resolves as the reference's does (at most the cards and
     the channels): on one card a wideband device takes the one-card batched
     form; a device without channels ignores it (only a wideband scanner
-    reads it), and main.run starts its scanner and returns 0."""
+    reads it), and main.run starts its scanner and returns 0. A mesh builds
+    on explicit devices (one device named more than once), and one asking
+    for more devices than it is given raises."""
     from rtl_sdr_scanner_tpu_torch.parallel import mesh
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
     from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
 
     assert sdr_device.mesh_bands_cards(-1, 16, 1) == 1 and sdr_device.mesh_bands_cards(3, 4, 8) == 2
     assert sdr_device.mesh_bands_cards(-1, 16, 4) == 4 and sdr_device.mesh_bands_cards(8, 16, 4) == 4
+    cuda1 = torch.device("cuda", 1)
+    assert sdr_device.mesh_devices(cuda1, 1) == [cuda1]  # one shard: the session's own device
+    assert sdr_device.mesh_devices(cuda1, 3) == [torch.device("cuda", i) for i in range(3)]
+    assert sdr_device.mesh_devices(torch.device("cpu"), 3) == [torch.device("cpu")] * 3
     raw = _raw(short_capture, tunables={"mesh_bands": -1})
     cfg = tconfig.Config(raw)
     assert sdr_device.unported_path(cfg, cfg.devices[0], torch.device("cpu")) is None
@@ -439,10 +489,79 @@ def test_mesh_bands_on_one_card_or_without_a_wideband_device_runs(tmp_path, shor
     assert sdr_device.unported_path(wcfg, wcfg.devices[0], torch.device("cpu")) is None
     scanner = WidebandScanner(wcfg, wcfg.devices[0], tmqtt.NullMqtt(), 4, device="cpu")
     assert scanner._mesh is not None and scanner._mesh.device.type == "cpu"
-    assert mesh.band_sharding(scanner._mesh) == mesh.replicated(scanner._mesh) == torch.device("cpu")
+    assert mesh.band_sharding(scanner._mesh) == mesh.replicated(scanner._mesh) == [torch.device("cpu")]
+    cpu = torch.device("cpu")
     for bands, time_ in ((2, 1), (1, 2)):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            mesh.make_mesh(bands, time_, device="cpu")
+        m = mesh.make_mesh(bands, time_, devices=["cpu"] * 2)
+        assert m.shape == {"bands": bands, "time": time_} and mesh.replicated(m) == [cpu, cpu]
+        assert mesh.band_sharding(m) == [cpu] * bands and m.time_devices == [cpu] * time_
+        with pytest.raises(ValueError, match="exceeds 1 devices"):
+            mesh.make_mesh(bands, time_, devices=["cpu"])
+
+
+def _time_mesh_capture(tmp_path):
+    """tests/test_mesh_runtime.py:135-146's scene: 8 s, FM at +30 kHz keyed 3-6 s."""
+    rng = np.random.default_rng(21)
+    n = int(RATE * 8.0)
+    t = np.arange(n) / RATE
+    iq = 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    phase = 2 * np.pi * 30000 * t + 2 * np.pi * 3000 * np.cumsum(np.sin(2 * np.pi * 900 * t)) / RATE
+    iq += 0.4 * np.exp(1j * phase) * ((t >= 3.0) & (t < 6.0))
+    capture = tmp_path / "one.cf32"
+    _write(capture, iq, "cf32")
+    return capture
+
+
+def test_time_mesh_session_matches_serial_and_jax(tmp_path, monkeypatch):
+    """mesh_time=4 over four CPU shards (four visible cards patched in):
+    the time-sharded scan and modulated-taps DDC give the serial session's
+    transmission payloads byte for byte and its spectrogram bins within 1
+    (tests/test_mesh_runtime.py:129-200), and the JAX package's serial
+    session's payloads within compare_payloads' bars."""
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+
+    monkeypatch.setattr(sdr_device, "visible_cards", lambda device: 4)
+    capture = _time_mesh_capture(tmp_path)
+    serial_raw = _raw(capture, tunables={"frames_per_block": 96, "mesh_time": 0})
+    meshed, scanner, _ = _scan("torch", _raw(capture, tunables={"frames_per_block": 96, "mesh_time": 4}))
+    assert scanner.device._time_mesh.shape == {"bands": 1, "time": 4}
+    assert scanner.device.tmesh_ddc, "time-sharded DDC did not engage"
+    assert scanner.device.scan_cfg.frames_per_block == 96
+    serial, _, _ = _scan("torch", serial_raw)
+    s_trans = [p for t_, p in serial if t_.endswith("/transmission/uint8")]
+    m_trans = [p for t_, p in meshed if t_.endswith("/transmission/uint8")]
+    assert s_trans and m_trans == s_trans, "transmission payloads diverged (time mesh vs serial)"
+    s_spec, m_spec = _spectrograms(serial), _spectrograms(meshed)
+    assert len(s_spec) == len(m_spec) > 0
+    for (ts, a0, a1, st, sb), (tm, b0, b1, mt, mb) in zip(s_spec, m_spec):
+        assert (ts, a0, a1, st) == (tm, b0, b1, mt)
+        assert np.abs(sb.astype(np.int32) - mb.astype(np.int32)).max() <= 1
+    jax_serial, _, _ = _scan("jax", serial_raw)
+    assert compare_payloads(jax_serial, meshed)["transmissions"] == len(m_trans)
+    assert abs(recorded_tone(meshed, CENTER + 30_000, 16000)[2] - 900) < 40
+
+
+@pytest.mark.parametrize("form", ["split", "fused"])
+@pytest.mark.parametrize("mesh_bands", [2, -1])
+def test_wideband_band_shards_match_one_card(tmp_path, monkeypatch, mesh_bands, form):
+    """A wideband session over band shards (four visible cards patched in:
+    mesh_bands 2 -> 2 shards, -1 -> 4) gives the one-card batched run's
+    payloads byte for byte, in the split and the fused form."""
+    from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+    from tests.test_torch_wideband import _raw as wide_raw
+    from tests.test_torch_wideband import _scan as wide_scan
+    from tests.test_torch_wideband import _scene as wide_scene
+    from tests.test_torch_wideband import _write as wide_write
+
+    capture = tmp_path / "wide.cs8"
+    wide_write(capture, wide_scene(), "cs8")
+    tun = {"wideband_fused_dispatch": form == "fused"}
+    one, one_scanner = wide_scan("torch", wide_raw(capture, "cs8", {**tun, "mesh_bands": 1}))
+    monkeypatch.setattr(sdr_device, "visible_cards", lambda device: 4)
+    got, scanner = wide_scan("torch", wide_raw(capture, "cs8", {**tun, "mesh_bands": mesh_bands}))
+    assert one_scanner._mesh.shape["bands"] == 1
+    assert scanner._mesh.shape == {"bands": 2 if mesh_bands == 2 else 4, "time": 1} and scanner._fused == (form == "fused")
+    assert got == one and sum(1 for t, _ in got if t.endswith("/transmission/uint8")) > 10
 
 
 class _Idle:

@@ -356,3 +356,21 @@ def test_reset_slot2_matches():
     np.testing.assert_array_equal(got.phase[0].numpy(), want.phase)
     np.testing.assert_array_equal(got.x_tail[0].numpy(), want.x_tail)
     np.testing.assert_array_equal(got.tails[0][0].numpy(), want.tails[0])
+
+
+@pytest.mark.parametrize("scale", [127.0, 100.0])
+def test_complex_to_interleaved_int8(scale):
+    """ops/quantize against the JAX function: seeded values, the saturation
+    ends, and round-half-to-even at the .5 edges (I then Q)."""
+    from rtl_sdr_scanner_tpu.ops import quantize as jq
+    from rtl_sdr_scanner_tpu_torch.ops import quantize as tq
+
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((3, 257)) + 1j * rng.standard_normal((3, 257))).astype(np.complex64) * 0.7
+    edges = np.array([0.5, 1.5, -0.5, -2.5, 127.5, -128.5, 200.0, -300.0, 126.5, -127.5], dtype=np.float32) / scale
+    x[0, : edges.size] = edges + 1j * edges[::-1]
+    want = np.asarray(jq.complex_to_interleaved_int8(jnp.asarray(x), scale))
+    got = tq.complex_to_interleaved_int8(torch.from_numpy(x), scale)
+    assert got.dtype == torch.int8 and got.shape == (3, 257, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.numpy().min() == -128 and got.numpy().max() == 127
