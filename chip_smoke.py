@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                          # everything below
     python3 chip_smoke.py --kernels-only [--root DIR]
+    python3 chip_smoke.py --child MODE RANK WORLD PORT ROOT ...  # a step 11 process; the script starts them
 
 1. Builds the hand-written kernels from ``rtl_sdr_scanner_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/kernels``).
@@ -101,6 +102,26 @@
    capture (one visible card: the mesh resolves to 1 shard), payloads
    against the same config's CPU run. Prints ms a block of each form next
    to its one-card counterpart.
+11. The multi-host layer (``parallel/multihost.py``), two processes of this
+   script (``--child``) joined in one process group through the env
+   contract, both on card 0 (each on its own card where the machine has
+   one a process); a child that fails or outlives its time fails the run.
+   No CUDA collective runs. (a) The session: ``runtime.main.run`` in each
+   process on ``tests/test_multihost.py``'s scene (8 s at 2.048 Msps cs8,
+   8 channels, FM keyed 3-6 s in channels 2 and 5, ``mesh_bands`` -1,
+   ``multihost``, 16 kHz recordings); each process's payloads equal the
+   one-process card run's on 2 band shards of copies of the card, filtered
+   to its bands, to step 8's bars; together the processes cover every
+   channel once, and both transmissions are recorded and demodulate to
+   their tones. Prints each process's ms a block and real-time factor. (b)
+   Full width: step 7's wideband step, each process running its 4 channels
+   (one of 2 global band shards) on its card, fused and split, 3 blocks;
+   packed rows and recordings bit-equal to the matching shard of the
+   one-process 2-shard form, the FM in channel 3 found by its owner only.
+   (c) ``dryrun.dryrun_multichip(4)`` on 4 copies of the card. (d) The
+   gather vote form (``ops/detect.VOTE_FORM``): paths 1 and 2, 3 blocks,
+   in f32 and bf16 detection, packed outputs bit-equal to the code form's;
+   prints ``compact_detection``'s ms a block (CUDA events) of each form.
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
@@ -220,6 +241,26 @@ BAND_SHARDS = 2
 WIDE_SHARD = dataclasses.replace(WIDE, key="wideband_step_2_shards", bands=WIDE.bands // BAND_SHARDS,
                                  name="wideband step over 2 band shards (4 channels a shard)")
 MESH_BLOCKS = 3  # the bands-sharded wideband step's blocks
+# step 11, the multi-host layer: MH_WORLD processes; the session's scene is
+# tests/test_multihost.py's (channel b's core is centered at (b mod 8) *
+# 256 kHz from the center: +500 kHz in channel 2, -750 kHz in channel 5)
+MH_WORLD = 2
+MH_RATE = 2_048_000
+MH_CHANNELS = 8
+MH_SECONDS = 8.0
+MH_CENTER = 145_000_000
+MH_SIGNALS = ((500_000, 800.0), (-750_000, 1200.0))
+MH_KEY = (3.0, 6.0)
+MH_RECORDING = {"max_noise_time_ms": 1000, "min_sample_rate": 16000, "min_time_ms": 1000, "step": 2500}
+ENV_CONTRACT = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
+CHILD_TIMEOUT_S = 300
+# a process's band shard in the session: 4 channels of 256 kHz (fft 1024, 16
+# frames, 16 kHz recordings: the selection kernel's shape there)
+MH_SHARD = Geometry("multihost_session", "multi-host session (a process's 4 channels of 256 kHz)",
+                    MH_RATE // MH_CHANNELS, 16, 16_000, 0, bands=MH_CHANNELS // MH_WORLD, slots=1)
+# step 11d: blocks a form; the noise learning (WIDE_LEARN_MS) ends inside
+# block 0, so the signal keyed from block 1 clears the floor
+VOTE_BLOCKS = 3
 
 
 def log(*args):
@@ -919,11 +960,12 @@ def run_scanner(config: dict, device, timer: bool = False):
     return mqtt.published, scanner.device, time.perf_counter() - t0, clock
 
 
-def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners: int = 1):
+def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners: int = 1, on_made=None):
     """``runtime.main.run(config)`` on a worker thread, as a user runs it;
     stopped through ``main._is_running`` once its ``scanners`` scanners
     (``Scanner`` or ``WidebandScanner``, a thread each) have drained their
-    replays. Returns (rc, payloads)."""
+    replays. ``on_made(scanner)`` runs on each scanner before it starts.
+    Returns (rc, payloads)."""
     from rtl_sdr_scanner_tpu_torch.runtime import main as rt_main
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
 
@@ -935,6 +977,8 @@ def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners:
             def __init__(self, *args, **kwargs):
                 super().__init__(*args, **kwargs)
                 made.append(self)
+                if on_made is not None:
+                    on_made(self)
 
         return Watched
 
@@ -1060,11 +1104,11 @@ class WidebandStep:
     (``parallel/sharded_scan``'s per-shard lists: the channelizer runs on
     every shard, each keeps its own channels)."""
 
-    def __init__(self, dev, geo: Geometry, fused: bool, ring: list, shards: int = 1, devices=None):
+    def __init__(self, dev, geo: Geometry, fused: bool, ring: list, shards: int = 1, devices=None, mesh=None):
         from rtl_sdr_scanner_tpu_torch.constants import Tunables
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
         from rtl_sdr_scanner_tpu_torch.ops.channelizer import init_channelizer_state, plan_channelizer
-        from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+        from rtl_sdr_scanner_tpu_torch.parallel import mesh as mesh_mod, sharded_scan as ss
 
         self.dev, self.geo, self.fused, self.ring = dev, geo, fused, ring
         cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames, Tunables(noise_learning_time_ms=WIDE_LEARN_MS))
@@ -1074,7 +1118,8 @@ class WidebandStep:
         b = geo.bands
         plan = plan_channelizer(b)
         devices = list(devices) if devices else [dev] * shards  # distinct cards, or copies of one
-        m = self.mesh = mesh.make_mesh(len(devices), 1, devices=devices)
+        # ``mesh``: this process's part of a multi-host bands mesh (its shards only)
+        m = self.mesh = mesh or mesh_mod.make_mesh(len(devices), 1, devices=devices)
         if fused:
             self.step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, self.group_size, TOP_K, m, plan, 1, b)
         else:
@@ -1092,8 +1137,8 @@ class WidebandStep:
         self.keep_mask = ss.shard_bands(torch.ones((b, geo.slots), dtype=torch.float32, device=dev), m)
 
     def run_block(self, blk: int):
-        """One block (ring slot blk % WIDE_RING); returns (packed, rec), all
-        channels' rows gathered on the card."""
+        """One block (ring slot blk % WIDE_RING); returns (packed, rec), the
+        mesh's channels' rows gathered on the card."""
         from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
 
         f = self.geo.frames
@@ -1259,6 +1304,7 @@ class WidebandTimer(SessionTimer):
     def __init__(self, scanner):
         self.block = 0
         self.spans, self.walls, self.ddc_calls = [], [], 0
+        self.stamps = []  # (start, end) of each block on the host's epoch clock
         targets = [(scanner, "_channelize")]
         for session in scanner.sessions:
             targets += [(session, "_scan_step"), (session, "_ddc_step")]
@@ -1269,20 +1315,22 @@ class WidebandTimer(SessionTimer):
         step = scanner.step
 
         def timed_step():
-            t0 = time.perf_counter()
+            t0, e0 = time.perf_counter(), time.time()
             more = step()
             torch.cuda.synchronize()
             if more:
                 self.walls.append((time.perf_counter() - t0) * 1e3)
+                self.stamps.append((e0, time.time()))
                 self.block += 1
             return more
 
         scanner.step = timed_step
 
 
-def run_wideband_scanner(config: dict, device, timer: bool = False):
+def run_wideband_scanner(config: dict, device, timer: bool = False, cards=None):
     """One replay scan through ``WidebandScanner.run_to_completion()`` and
-    ``stop()``: (payloads, scanner, wall seconds, WidebandTimer or None)."""
+    ``stop()`` (its meshes over ``cards`` where given, else the visible
+    cards): (payloads, scanner, wall seconds, WidebandTimer or None)."""
     from rtl_sdr_scanner_tpu_torch.runtime.config import Config
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
     from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
@@ -1290,7 +1338,7 @@ def run_wideband_scanner(config: dict, device, timer: bool = False):
     cfg = Config(json.loads(json.dumps(config)))
     mqtt = NullMqtt()
     mqtt.keep_payloads = True
-    scanner = WidebandScanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device)
+    scanner = WidebandScanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device, cards=cards)
     clock = WidebandTimer(scanner) if timer else None
     t0 = time.perf_counter()
     scanner.run_to_completion()
@@ -1684,7 +1732,418 @@ def run_multi_device(dev, card: str) -> dict:
     return launches
 
 
+# -- step 11: the multi-host layer -------------------------------------------------
+
+
+def machine_cards() -> int:
+    """The machine's cards (``nvidia-smi -L``; CUDA_VISIBLE_DEVICES does not
+    hide any from it)."""
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, check=True, timeout=60)
+    return sum(1 for line in out.stdout.splitlines() if line.startswith("GPU "))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv_of, world: int, timeout_s: float, env_of=lambda rank: {}, cwd=None) -> list:
+    """``world`` processes, rank r running ``argv_of(r, port)`` (``port``: a
+    free localhost port for their process group) in this environment with
+    ``env_of(r)`` over it and the env contract taken out. Returns each
+    rank's (exit code, output). If they outlive ``timeout_s``, every child
+    is killed by its PID and this raises with their output."""
+    port = free_port()
+    procs, outs = [], [None] * world
+    try:
+        for rank in range(world):
+            env = dict(os.environ, **env_of(rank))
+            for name in ENV_CONTRACT:
+                env.pop(name, None)
+            procs.append(subprocess.Popen(
+                [str(a) for a in argv_of(rank, port)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=cwd,
+            ))
+        deadline = time.monotonic() + timeout_s
+        for rank, p in enumerate(procs):
+            outs[rank] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        logs = [out if out is not None else p.communicate()[0] for p, out in zip(procs, outs)]
+        raise RuntimeError(f"children outlived {timeout_s} s:\n" + "\n---\n".join(o[-4000:] for o in logs)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def run_children(mode: str, root: Path, *args, timeout_s: float = CHILD_TIMEOUT_S) -> list:
+    """MH_WORLD processes of this script in child ``mode`` (ranks 0..n-1,
+    one process group), each rank on its own card where the machine has one
+    a rank, else all on card 0. Returns their output; a child that exits
+    non-zero, or outlives ``timeout_s``, raises."""
+    own_cards = machine_cards() >= MH_WORLD
+    ran = spawn_ranks(
+        lambda rank, port: [sys.executable, Path(__file__).resolve(), "--child", mode, rank, MH_WORLD, port, root, *args],
+        MH_WORLD, timeout_s, env_of=lambda rank: {"CUDA_VISIBLE_DEVICES": str(rank) if own_cards else "0"},
+    )
+    outs = [out for _, out in ran]
+    for rank, (rc, out) in enumerate(ran):
+        if rc != 0:
+            raise RuntimeError(f"{mode} child {rank} exited {rc}:\n{out[-4000:]}")
+        for line in out.splitlines():
+            if line.startswith("child "):
+                log(f"[rank {rank}] {line}")
+    return outs
+
+
+def band_of(frequency: int) -> int:
+    """The multi-host scene's channel whose core holds ``frequency``."""
+    core = MH_RATE // MH_CHANNELS
+    return int(round((frequency - MH_CENTER) / core) % MH_CHANNELS)
+
+
+def payload_band(topic: str, payload: bytes) -> int:
+    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_spectrogram, decode_transmission
+
+    decode = decode_transmission if topic.endswith("/transmission/uint8") else decode_spectrogram
+    _, s0, s1, _, _ = decode(payload)
+    return band_of((s0 + s1) // 2)
+
+
+def session_pace(walls: list, device_ms: list, block_samples: int) -> str:
+    """ms a block (wall, device span) of a timed wideband session's blocks
+    1.., and its real-time factor over them and over every block (the
+    first holds the cuBLAS and allocator warm-up)."""
+    wall, device = float(np.mean(walls[1:])), float(np.mean(device_ms[1:]))
+    block_s = block_samples / MH_RATE
+    return (f"{wall:.2f} ms a block (device {device:.2f}, host {wall - device:.2f}; blocks 1..{len(walls) - 1}; "
+            f"first {walls[0]:.1f}), real-time factor {block_s / (wall / 1e3):.2f} over blocks 1.. and "
+            f"{len(walls) * block_s / (sum(walls) / 1e3):.2f} over all")
+
+
+def run_multihost_session(dev, card: str, root: Path) -> dict:
+    """Step 11a: the one-process card run on 2 band shards of copies of the
+    card, then MH_WORLD processes through main.run; each process's payloads
+    against the one-process run's of its bands. Returns {form: counts}."""
+    import pickle
+
+    log(f"---- step 11a: the multi-host session, {MH_WORLD} processes through main.run")
+    wrappers = kernel_wrappers()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        capture = Path(tmp) / "mh.cs8"
+        write_capture(capture, MH_RATE, MH_SECONDS, MH_SIGNALS, MH_KEY, seed=23)
+        config = runtime_config(capture, MH_RATE, MH_CENTER, channels=MH_CHANNELS, mesh_bands=-1, multihost=True)
+        config["recording"] = dict(MH_RECORDING)
+        config_path = Path(tmp) / "config.json"
+        config_path.write_text(json.dumps(config))
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        one, scanner, _, clock = run_wideband_scanner(config, dev, timer=True, cards=[dev] * MH_WORLD)
+        launches["multihost_one_process"] = {name: fn.launches for name, fn in wrappers.items()}
+        if scanner._mesh.shape != {"bands": MH_WORLD, "time": 1}:
+            raise RuntimeError(f"the one-process run's mesh is {scanner._mesh.shape}")
+        wide_block = scanner._wide_block
+        recorded = []
+        for shift, tone in MH_SIGNALS:
+            center, n_rec, got = recorded_tone(one, MH_CENTER + shift, 16_000)
+            if abs(got - tone) >= 40 or n_rec < 2 * 16_000:
+                raise RuntimeError(f"one process: the transmission at {shift:+d} Hz was not recorded ({n_rec}, {got} Hz)")
+            recorded.append((band_of(center), n_rec, round(got, 1)))
+        log(f"one process, {MH_WORLD} band shards of one card: {len(one)} payloads, recorded (channel, samples, tone) "
+            f"{recorded}; {session_pace(clock.walls, clock.device_ms(), wide_block)}; launches "
+            f"{launches['multihost_one_process']} on {card}")
+        run_children("session", root, config_path, Path(tmp) / "session{rank}.pkl")
+        children = []
+        for rank in range(MH_WORLD):
+            with open(Path(tmp) / f"session{rank}.pkl", "rb") as fh:
+                children.append(pickle.load(fh))
+        # the span in which every process ran its blocks after the first
+        together = (max(c["stamps"][1][0] for c in children), min(c["stamps"][-1][1] for c in children))
+        seen = []
+        for rank, child in enumerate(children):
+            bands = set(child["bands"])
+            seen += child["bands"]
+            want = [(t, p) for t, p in one if payload_band(t, p) in bands]
+            if not child["multihost"] or not child["published"]:
+                raise RuntimeError(f"process {rank}: multihost {child['multihost']}, {len(child['published'])} payloads")
+            stats = compare_payloads(want, child["published"])
+            launches[f"multihost_session_rank{rank}"] = child["launches"]
+            if child["launches"]["fused_selection"] != child["blocks"]:
+                raise RuntimeError(f"process {rank}: launches {child['launches']} over {child['blocks']} blocks")
+            both = [w for w, (t0, t1) in zip(child["walls"][1:], child["stamps"][1:])
+                    if together[0] <= t0 and t1 <= together[1]]
+            log(f"process {rank}/{MH_WORLD}: channels {child['bands']} (global band shards {child['shards']} of "
+                f"{child['n_shards']}), {len(child['published'])} payloads against the one-process run's of its "
+                f"channels: {stats}; {session_pace(child['walls'], child['device_ms'], wide_block)}; of these, "
+                f"{len(both)} blocks while every process ran its own: "
+                f"{np.mean(both) if both else float('nan'):.2f} ms a block; launches {child['launches']} on {card}")
+        if sorted(seen) != list(range(MH_CHANNELS)):
+            raise RuntimeError(f"the processes' channels {sorted(seen)} do not cover the {MH_CHANNELS} once")
+    return launches
+
+
+def run_multihost_step(dev, card: str, root: Path) -> dict:
+    """Step 11b: step 7's wideband step, the one-process 2-shard form on
+    copies of the card, then each of MH_WORLD processes on its own shard;
+    each process's rows and recordings against its shard's. Returns
+    {form: counts}."""
+    import pickle
+
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    log(f"---- step 11b: the wideband step at full width, {MH_WORLD} processes of one band shard each")
+    geo = WIDE
+    cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
+    ring = wide_ring(geo, cfg.block_samples, dev)
+    wrappers = kernel_wrappers()
+    ref, launches = {}, {}
+    for fused in (True, False):
+        form = "fused" if fused else "split"
+        step = WidebandStep(dev, geo, fused, ring, MH_WORLD)
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        ref[form] = run_step_blocks(step)
+        launches[f"multihost_step_one_process_{form}"] = {name: fn.launches for name, fn in wrappers.items()}
+        del step
+    del ring
+    torch.cuda.empty_cache()
+    b_loc = geo.bands // MH_WORLD
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mhs_") as tmp:
+        run_children("step", root, Path(tmp) / "step{rank}.pkl")
+        children = []
+        for rank in range(MH_WORLD):
+            with open(Path(tmp) / f"step{rank}.pkl", "rb") as fh:
+                children.append(pickle.load(fh))
+    for form in ("fused", "split"):
+        packed_1, rec_1, ms_1 = ref[form]
+        hits, paces = {}, []
+        for rank, child in enumerate(children):
+            (g,) = child["shards"]
+            packed, rec, ms = child[form]["run"]
+            rows = slice(g * b_loc, (g + 1) * b_loc)
+            if not (np.array_equal(packed, packed_1[:, rows]) and np.array_equal(rec, rec_1[:, rows])):
+                raise RuntimeError(f"wideband {form}: process {rank}'s rows or recordings differ from band shard {g} "
+                                   "of the one-process run")
+            counts = child[form]["launches"]
+            ddc_cfg = child["ddc"]
+            want = {"psd_frames_int8": 0, "fused_selection": MESH_BLOCKS,
+                    "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1]}
+            if counts != want:
+                raise RuntimeError(f"wideband {form}: process {rank} launches {counts}, want {want}")
+            launches[f"multihost_step_rank{rank}_{form}"] = counts
+            for b in range(MESH_BLOCKS):
+                for ch in range(b_loc):
+                    if (scan_pipeline.unpack_compact(packed[b, ch], geo.frames, TOP_K, KEY_SLOTS)[1] >= LEVEL).any():
+                        hits.setdefault(rank, set()).add(g * b_loc + ch)
+            paces.append(f"process {rank} {np.mean(ms[1:]):.1f}")
+        owner = geo.signal_band // b_loc
+        if hits != {owner: {geo.signal_band}}:
+            raise RuntimeError(f"wideband {form}: channels with candidates above {LEVEL} dB by process: {hits}")
+        log(f"wideband {form}: each process's rows and recordings bit-equal to its shard of the one-process run; "
+            f"FM in channel {geo.signal_band} found by process {owner} only; ms a block (blocks 1..{MESH_BLOCKS - 1}): "
+            f"{', '.join(paces)} vs one process on {MH_WORLD} shards {np.mean(ms_1[1:]):.1f} on {card}")
+    return launches
+
+
+def run_step_blocks(step) -> tuple:
+    """MESH_BLOCKS blocks of a WidebandStep: (packed [blocks, B, L], rec
+    [blocks, B, K, out, 2], ms a block)."""
+    packed, rec, ms = [], [], []
+    for b in range(MESH_BLOCKS):
+        t0 = time.perf_counter()
+        p, r = step.run_block(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        packed.append(p.cpu().numpy())
+        rec.append(r.cpu().numpy())
+    return np.stack(packed), np.stack(rec), ms
+
+
+def run_dryrun(dev, card: str) -> dict:
+    """Step 11c: dryrun_multichip(4) on 4 copies of the card."""
+    from rtl_sdr_scanner_tpu_torch.dryrun import dryrun_multichip
+
+    log("---- step 11c: dryrun_multichip(4) on 4 copies of the card")
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=dev)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"dryrun_multichip(4): {time.perf_counter() - t0:.1f} s, launches {counts} on {card}")
+    return {"dryrun_multichip": counts}
+
+
+def run_vote_forms(dev, card: str) -> dict:
+    """Step 11d: paths 1 and 2 (VOTE_BLOCKS blocks, the signal from block 1)
+    through the fused step with the gather vote form and the code form, in
+    f32 and bf16 detection; the packed outputs must be bit-equal. Times
+    compact_detection with CUDA events. Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
+    from rtl_sdr_scanner_tpu_torch.ops import detect
+
+    log("---- step 11d: the gather vote form against the code form")
+    wrappers = kernel_wrappers()
+    launches = {}
+    real = scan_pipeline.compact_detection
+    try:
+        for geo in (PATH1, PATH2):
+            g = dataclasses.replace(geo, blocks=VOTE_BLOCKS, signal_from_block=1)
+            path = MainPath(dev, g)
+            for bf16 in (False, True):
+                cfg = dataclasses.replace(path.cfg, detection_bf16=bf16, noise_learning_ms=WIDE_LEARN_MS)
+                dtype = "bf16" if bf16 else "f32"
+                runs = {}
+                for form in ("code", "gather"):
+                    detect.VOTE_FORM = form
+                    spans = []
+
+                    def timed(*args, **kwargs):
+                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        out = real(*args, **kwargs)
+                        end.record()
+                        spans.append((start, end))
+                        return out
+
+                    scan_pipeline.compact_detection = timed
+                    path.step = fused_step.make_banded_fused_step(cfg, path.ddc_cfg, path.group_size, TOP_K, device=dev)
+                    path.state = [
+                        scan_pipeline.init_scan_state(cfg, g.bands, 0, device=dev),
+                        scan_pipeline.init_spectro_acc(cfg, g.bands, device=dev),
+                        ddc_pipeline.init_state(path.ddc_cfg, g.bands, device=dev),
+                    ]
+                    torch.cuda.synchronize()
+                    for fn in wrappers.values():
+                        fn.launches = 0
+                    packed = [path.run_block(b).packed.cpu().numpy() for b in range(VOTE_BLOCKS)]
+                    launches[f"vote_{form}_{dtype}_{geo.key}"] = {name: fn.launches for name, fn in wrappers.items()}
+                    torch.cuda.synchronize()
+                    runs[form] = (packed, [s.elapsed_time(e) for s, e in spans])
+                    scan_pipeline.compact_detection = real
+                (code, code_ms), (gather, gather_ms) = runs["code"], runs["gather"]
+                for b, (x, y) in enumerate(zip(code, gather)):
+                    if not np.array_equal(x, y):
+                        raise RuntimeError(f"{geo.name}, {dtype} detection, block {b}: the gather form's packed output "
+                                           "differs from the code form's")
+                moved = live = 0
+                for p in gather:
+                    for band in range(g.bands):
+                        idx, val, best = scan_pipeline.unpack_compact(p[band], g.frames, TOP_K, KEY_SLOTS)[:3]
+                        moved += int((best != idx).sum())
+                        live += int((val >= LEVEL).sum()) if band == g.signal_band else 0
+                if moved == 0 or live == 0:
+                    raise RuntimeError(f"{geo.name}, {dtype} detection: no vote moved a candidate ({moved}) or no "
+                                       f"candidate cleared the level in the signal's band ({live})")
+                log(f"{geo.name}, {dtype} detection: gather and code forms bit-equal over {VOTE_BLOCKS} blocks "
+                    f"({moved} candidates moved by their vote, {live} above {LEVEL} dB in band {g.signal_band}); "
+                    f"compact_detection ms a block (CUDA events, blocks "
+                    f"1..{VOTE_BLOCKS - 1}): gather {np.mean(gather_ms[1:]):.2f}, code {np.mean(code_ms[1:]):.2f} "
+                    f"on {card}")
+            del path
+            torch.cuda.empty_cache()
+    finally:
+        scan_pipeline.compact_detection = real
+        detect.VOTE_FORM = "code"
+    return launches
+
+
+def run_multi_host(dev, card: str, root: Path) -> dict:
+    """Step 11: the session and the wideband step over MH_WORLD processes,
+    the dry run on 4 copies of the card, the gather vote form. Returns
+    {form: counts}."""
+    torch.cuda.empty_cache()
+    launches = run_multihost_session(dev, card, root)
+    launches.update(run_multihost_step(dev, card, root))
+    launches.update(run_dryrun(dev, card))
+    launches.update(run_vote_forms(dev, card))
+    return launches
+
+
+def child_main(argv) -> int:
+    """A step 11 process: ``--child MODE RANK WORLD PORT ROOT ARGS``, on card
+    0 of what CUDA_VISIBLE_DEVICES shows it."""
+    import pickle
+
+    mode, rank, world, port, root, *rest = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, root)
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import build
+    from rtl_sdr_scanner_tpu_torch.parallel import multihost
+
+    build.library()  # built by the parent
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    if mode == "session":
+        # the runtime's launch contract: main.run joins the group itself
+        os.environ.update(JAX_COORDINATOR_ADDRESS=f"localhost:{port}", JAX_NUM_PROCESSES=str(world),
+                          JAX_PROCESS_ID=str(rank))
+        config_path, out_path = rest
+        watch = []
+
+        def on_made(scanner):
+            watch.append((scanner, WidebandTimer(scanner)))
+            # start both scanners together (an object collective: gloo), so
+            # that their blocks run on the card at the same time
+            torch.distributed.all_gather_object([None] * world, rank)
+
+        rc, payloads = run_main(Path(config_path), dev, on_made=on_made)
+        if rc != 0 or len(watch) != 1:
+            raise RuntimeError(f"main.run returned {rc} with {len(watch)} wideband scanner(s)")
+        scanner, clock = watch[0]
+        result = dict(bands=scanner._local_bands, multihost=scanner._multihost, shards=list(scanner._mesh.band_shards),
+                      n_shards=scanner._mesh.n_band_shards, published=payloads, walls=clock.walls, stamps=clock.stamps,
+                      device_ms=clock.device_ms(), blocks=clock.block,
+                      launches={name: fn.launches for name, fn in wrappers.items()})
+        said = f"channels {scanner._local_bands}, {len(payloads)} payloads"
+    elif mode == "step":
+        from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+        (out_path,) = rest
+        multihost.initialize(f"localhost:{port}", world, rank, device=dev)
+        try:
+            local = multihost.local_mesh(multihost.make_global_mesh(1, cards=1), [dev])
+            geo = WIDE
+            cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames)
+            ring = wide_ring(geo, cfg.block_samples, dev)
+            result = {"shards": list(local.band_shards)}
+            for fused in (True, False):
+                step = WidebandStep(dev, geo, fused, ring, mesh=local)
+                result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)))
+                for fn in wrappers.values():
+                    fn.launches = 0
+                run = run_step_blocks(step)
+                result["fused" if fused else "split"] = {
+                    "run": run, "launches": {name: fn.launches for name, fn in wrappers.items()}}
+                del step
+        finally:
+            multihost.shutdown()
+        said = f"band shard {result['shards']}"
+    else:
+        raise ValueError(f"unknown child mode {mode!r}")
+    with open(out_path.format(rank=rank), "wb") as fh:
+        pickle.dump(result, fh)
+    print(f"child {mode} {rank}/{world}: {said}", flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--child"]:
+        return child_main(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true", help="hold and time the kernels, drive no path")
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
@@ -1725,7 +2184,9 @@ def main() -> int:
 
     geos = (PATH1, PATH2)
     timed = geos + (RUNTIME, TMESH)  # the kernels at every shape the paths, the session and a time shard give them
-    wide = (WIDE, WIDE_RT, WIDE_SHARD)  # the wideband phases' shapes: selection, and the FIR's stage 2
+    # the wideband phases' shapes: selection, and the FIR's stage 2 (a
+    # multi-host process's session shard takes no FIR stage)
+    wide = (WIDE, WIDE_RT, WIDE_SHARD, MH_SHARD)
     psd_err, sel_err = check_psd_and_selection(timed, timed + wide, dev)
     fir_err = check_fir(timed + (WIDE, WIDE_SHARD), dev)
     if not args.kernels_only:
@@ -1739,6 +2200,8 @@ def main() -> int:
         launches.update(run_wideband_runtime(dev, card))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_multi_device(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
+        launches.update(run_multi_host(dev, card, root))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
     records = time_psd_and_selection(timed, dev, card, psd_err, sel_err, sel_only=wide)
     records.append(time_fir(timed + (WIDE, WIDE_SHARD), PATH2, dev, card, fir_err))

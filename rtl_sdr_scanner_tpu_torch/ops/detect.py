@@ -20,6 +20,13 @@ import torch.nn.functional as F
 
 K_SEP = 16  # margin-separated candidate slots
 
+# History-vote form: "code" = the int8-code sliding table
+# (sliding_argmax_code + _vote_windows_code; the f32+i32 pair tables for
+# windows wider than 128 bins), "gather" = candidate-window gathers
+# (_vote_windows_gather: only the consumed cells, any width). Read at each
+# call; no config key selects it, as in the reference.
+VOTE_FORM = "code"
+
 # suppression sentinel of the margin greedy and the selection kernel
 SUPPRESSED = -3.3e38
 # value compact_detection writes into masked-out bins
@@ -168,6 +175,39 @@ def _vote_windows(
     return hist_val[at].to(torch.float32), hist_idx[at]
 
 
+def _vote_windows_gather(
+    hist: torch.Tensor, cand_idx: torch.Tensor, half: int, level: torch.Tensor, half_depth: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """History vote by candidate-window gathers instead of the sliding table:
+    hist [NB, R, fft] (f32 or bf16, R = H-1+F), cand_idx [NB, F, K] ->
+    (idxs [NB, F, H, K] i32, valid [NB, F, H, K] bool).
+
+    The history is padded with ``half`` -inf bins a side (edge windows
+    shrink like the host get_max_index; padding never wins) and made
+    bin-major, so a candidate's window is 2*half+1 consecutive rows. Each
+    (frame, candidate) takes its window over the H history rows it votes on
+    (frame k: rows k..k+H-1), then the max and the first-occurrence argmax
+    over the window: the same cells the reference selects after reducing
+    all R rows. Validity compares the window max with the level in f32, as
+    the code form does; the reference casts the level down to the history
+    dtype, which in bf16 disagrees with its code form for maxima in
+    [round_bf16(level), level). The windows are ``Tensor.unfold`` views;
+    the reference's two gather lowerings are XLA choices that give the same
+    cells, and this one equals both."""
+    nb, f, _ = cand_idx.shape
+    w = 2 * half + 1
+    dev = hist.device
+    hist_t = F.pad(hist, (half, half), value=-torch.inf).transpose(1, 2)  # [NB, fft + 2*half, R]
+    band = torch.arange(nb, device=dev)[:, None, None, None]
+    start = cand_idx.long()[..., None]  # window start in padded coords = the candidate's bin
+    row = _history_rows(f, half_depth, dev)[None, :, None, :]  # [1, F, 1, H]
+    g = hist_t.unfold(1, w, 1)[band, start, row]  # [NB, F, K, H, w]
+    vmax, varg = torch.max(g, dim=-1)  # the first maximal index
+    valid = vmax.to(torch.float32) >= level.to(torch.float32)
+    idxs = cand_idx[..., None] - half + varg.to(torch.int32)
+    return idxs.transpose(2, 3), valid.transpose(2, 3)
+
+
 def _mode_median_ties_unrolled(
     votes: torch.Tensor, valid: torch.Tensor, fallback: torch.Tensor
 ) -> torch.Tensor:
@@ -274,7 +314,9 @@ def compact_detection(
     if bf16:
         hist = hist.to(torch.bfloat16)
     half_depth = prev_tail.shape[1] + 1
-    if 2 * half + 1 <= 128:
+    if VOTE_FORM == "gather":
+        idxs, votes_valid = _vote_windows_gather(hist, cand_idx, half, level, half_depth)
+    elif 2 * half + 1 <= 128:
         code_tbl = sliding_argmax_code(hist, half, level)
         codes = _vote_windows_code(code_tbl, cand_idx, half_depth)  # [NB, F, H, K]
         votes_valid = codes >= 0

@@ -16,6 +16,13 @@ then runs on that device, in turn, which is how the tests and a one-card
 smoke run reach n > 1. The runtime never builds such a mesh: it resolves
 its shard count against the visible cards, as the reference resolves it
 against ``jax.devices()``.
+
+Under multi-host (``parallel/multihost.py``) a process holds only its own
+rows of a global bands mesh: ``band_shards`` names the global index of each
+row and ``n_band_shards`` the global count, so that a bands step slices its
+rows of a band-stacked value (``parallel/sharded_scan.py``) by global
+position. A mesh built by ``make_mesh`` is the whole of it: rows
+0..n-1 of n.
 """
 
 from __future__ import annotations
@@ -36,6 +43,11 @@ class Mesh:
     """``devices[b][t]``: the device of band shard b, time shard t."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    # the global index of each band shard (row) here, and the band shards
+    # of the whole (global) mesh: 0..n-1 and n unless this is one
+    # process's part of a multi-host mesh
+    band_shards: Tuple[int, ...]
+    n_band_shards: int
 
     @property
     def shape(self) -> dict:
@@ -84,7 +96,7 @@ def make_mesh(
     if n_bands < 1 or n_time < 1 or n_bands * n_time > len(devs):
         raise ValueError(f"mesh {n_bands}x{n_time} exceeds {len(devs)} devices")
     grid = tuple(tuple(devs[b * n_time : (b + 1) * n_time]) for b in range(n_bands))
-    return Mesh(devices=grid)
+    return Mesh(devices=grid, band_shards=tuple(range(n_bands)), n_band_shards=n_bands)
 
 
 def band_sharding(mesh: Mesh) -> List[torch.device]:

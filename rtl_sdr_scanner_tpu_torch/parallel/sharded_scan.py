@@ -16,6 +16,12 @@ tree) to and from this layout. The wideband steps run the channelizer on
 every shard (its state replicated) and each shard keeps its own channels,
 as the JAX package does; they do not channelize once and scatter.
 
+Under multi-host a process's mesh holds only its own band shards
+(``Mesh.band_shards``, their global indices, of ``Mesh.n_band_shards``):
+B/n counts the global shards, and every slice of a band-stacked value
+(``shard_bands``, each shard's own channels) is taken at the shard's global
+position, so a process never scans another's bands.
+
 Time axis. One band's block splits into n consecutive time shards on
 ``mesh.time_devices``. A time-sharded step keeps the serial step's
 signature: it takes whole-block tensors and returns them on ``mesh.device``,
@@ -89,7 +95,7 @@ def _map(fn, *trees):
 
 
 def _bands_per_shard(mesh: Mesh, n_bands: int) -> int:
-    n_dev = mesh.shape["bands"]
+    n_dev = mesh.n_band_shards
     if n_bands % n_dev != 0:
         raise ValueError(f"{n_bands} bands do not split over {n_dev} band shards")
     return n_bands // n_dev
@@ -97,11 +103,13 @@ def _bands_per_shard(mesh: Mesh, n_bands: int) -> int:
 
 def shard_bands(tree, mesh: Mesh) -> list:
     """A band-stacked tree ([B, ...] leaves) -> the per-shard list: shard i
-    holds bands [i*B/n, (i+1)*B/n) on its device."""
-    devs = mesh.band_devices
+    (global index) holds bands [i*B/n, (i+1)*B/n) on its device."""
     n_bands = (tree if isinstance(tree, torch.Tensor) else _leaves(tree)[0]).shape[0]
     b_loc = _bands_per_shard(mesh, n_bands)
-    return [_map(lambda a, i=i, d=d: to(a[i * b_loc : (i + 1) * b_loc], d), tree) for i, d in enumerate(devs)]
+    return [
+        _map(lambda a, i=i, d=d: to(a[i * b_loc : (i + 1) * b_loc], d), tree)
+        for i, d in zip(mesh.band_shards, mesh.band_devices)
+    ]
 
 
 def replicate(tree, mesh: Mesh) -> list:
@@ -190,7 +198,7 @@ def _keep_slots(state: Ddc2State, keep: torch.Tensor) -> Ddc2State:
 
 def _shard_channels(chan_fn, i: int, b_loc: int, chan_state, x_pairs):
     """The channelizer on one shard (every band), and the shard's own
-    channels [B/n, n_sub, 2]."""
+    channels [B/n, n_sub, 2] (``i``: its global index)."""
     with record_function("channelize"):
         chan_state, channels = chan_fn(chan_state, x_pairs)  # [B, n_sub, 2]
     return chan_state, channels[i * b_loc : (i + 1) * b_loc]
@@ -223,12 +231,13 @@ def make_sharded_wideband_step(
     chan_fn = _channelizer(plan, oversample)
     b_loc = _bands_per_shard(mesh, n_bands)
     devs = mesh.band_devices
+    shards = mesh.band_shards
 
     def step(chan_states, states, accs, x_pairs, now, keys, valid, level, keep):
         results = []
         for i, dev in enumerate(devs):
             with on(dev):
-                chan_state, local = _shard_channels(chan_fn, i, b_loc, chan_states[i], x_pairs[i])
+                chan_state, local = _shard_channels(chan_fn, shards[i], b_loc, chan_states[i], x_pairs[i])
                 state, acc, outs = _scan_channels(
                     cfg, group_size, top_k, b_loc, states[i], accs[i], local, now[i], keys[i], valid[i], level[i], keep
                 )
@@ -263,12 +272,13 @@ def make_sharded_wideband_fused_step(
     chan_fn = _channelizer(plan, oversample)
     b_loc = _bands_per_shard(mesh, n_bands)
     devs = mesh.band_devices
+    shards = mesh.band_shards
 
     def step(chan_states, states, accs, ddc_states, x_pairs, now, keys, valid, level, keep, tables, keep_mask):
         results = []
         for i, dev in enumerate(devs):
             with on(dev):
-                chan_state, local = _shard_channels(chan_fn, i, b_loc, chan_states[i], x_pairs[i])
+                chan_state, local = _shard_channels(chan_fn, shards[i], b_loc, chan_states[i], x_pairs[i])
                 state, acc, outs = _scan_channels(
                     cfg, group_size, top_k, b_loc, states[i], accs[i], local, now[i], keys[i], valid[i], level[i], keep
                 )

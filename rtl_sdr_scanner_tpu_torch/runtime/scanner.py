@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +43,7 @@ class Scanner:
         loop_replay: bool = False,
         prefer_int8_ingest: Optional[bool] = None,
         device: DeviceLike = None,
+        cards: Optional[Sequence[DeviceLike]] = None,
     ):
         device = resolve_device(device)  # a missing card raises before any source opens
         # refuse an unported path before the source opens its hardware
@@ -65,6 +66,7 @@ class Scanner:
             recorders_count,
             session_epoch_ms=getattr(self._source, "session_epoch_ms", 0),
             device=device,
+            cards=cards,
         )
         self._noise_path = (
             f"{config.tunables.noise_state_path}.{device_spec.name}.npz"
@@ -250,8 +252,11 @@ class Scanner:
                 logger.error(LABEL, "scanner thread failed: {}", exc)
             logger.info(LABEL, "thread stopped")
 
-        self._thread = threading.Thread(target=worker, name="scanner", daemon=True)
-        self._thread.start()
+        thread = threading.Thread(target=worker, name="scanner", daemon=True)
+        thread.start()
+        # published once running: a watcher that reads "not alive" from it
+        # then knows the worker has ended, not that it has yet to begin
+        self._thread = thread
 
     def stop(self) -> None:
         self._running = False

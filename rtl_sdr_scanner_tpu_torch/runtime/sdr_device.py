@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -117,11 +117,23 @@ def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
     return None
 
 
-def mesh_devices(device: torch.device, n: int) -> List[torch.device]:
+def session_cards(device: torch.device, cards: Optional[Sequence[torch.device]]) -> int:
+    """Cards a session's meshes may span: its explicit ``cards`` where the
+    caller gave them, else the visible cards."""
+    return len(cards) if cards is not None else visible_cards(device)
+
+
+def mesh_devices(
+    device: torch.device, n: int, cards: Optional[Sequence[torch.device]] = None
+) -> List[torch.device]:
     """The devices of an n-shard mesh a session on ``device`` builds: the
-    session's own device for one shard; cards 0..n-1 on the card (the
-    reference's ``jax.devices()[:n]``); n copies of the CPU device on the
-    CPU, where the tests reach n > 1 by patching ``visible_cards``."""
+    first n of its explicit ``cards`` where the caller gave them (a dry run
+    gives n copies of one card); else the session's own device for one
+    shard, cards 0..n-1 on the card (the reference's ``jax.devices()[:n]``),
+    and n copies of the CPU device on the CPU, where the tests reach n > 1
+    by patching ``visible_cards``."""
+    if cards is not None:
+        return list(cards[:n])
     if n == 1:
         return [device]
     if device.type == "cuda":
@@ -133,17 +145,12 @@ def unported_path(
     config: Config, spec: Optional[DeviceSpec] = None, device: Optional[torch.device] = None
 ) -> Optional[str]:
     """Why this config (and device, scanned on the torch ``device``) needs a
-    path the port does not have, naming the ROADMAP.md item that brings it,
-    or a geometry its card's kernels do not take; None when it runs. The
-    time and band shards of a mesh run the kernels at the device's own fft
-    (a shard holds fewer frames or bands, never narrower rows), so the
-    kernel check covers them too."""
-    t = config.tunables
-    if t.multihost:
-        return (
-            f"tunables.multihost={t.multihost!r} needs the multi-host layer "
-            "(torch.distributed), not ported yet (ROADMAP.md section 1, slice 9)"
-        )
+    path the port does not have, or a geometry its card's kernels do not
+    take; None when it runs. Every path of the JAX package is ported, so
+    only kernel geometries remain. The time and band shards of a mesh run
+    the kernels at the device's own fft (a shard holds fewer frames or
+    bands, never narrower rows), so the kernel check covers them too, on
+    every process of a multi-host run."""
     if spec is not None and device is not None and device.type == "cuda":
         return _kernel_refusal(config, spec)
     return None
@@ -249,7 +256,10 @@ class SdrDevice:
         recorders_count: int,
         session_epoch_ms: int = 0,
         device: DeviceLike = None,
+        cards: Optional[Sequence[DeviceLike]] = None,
     ):
+        """``cards``: the devices this session's time mesh may span (default:
+        the visible cards)."""
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -257,6 +267,7 @@ class SdrDevice:
         if reason is not None:
             raise NotImplementedError(reason)
         self.torch_device = dev
+        self._cards = None if cards is None else [resolve_device(d) for d in cards]
         self._config = config
         self._device = spec
         self._tunables = config.tunables
@@ -392,11 +403,14 @@ class SdrDevice:
     def _setup_time_mesh(self, config: Config, recorders_count: int) -> None:
         """One band's detection frames split over an N-device time mesh
         (``parallel/sharded_scan.make_time_sharded_scan``), N = mesh_time
-        resolved against the visible cards. The detector carries are
-        stitched across the shard seams; the host consumes the same compact
-        rows. Recording shards over the same mesh where the chain splits
-        exactly (``make_time_sharded_modtap_ddc``); otherwise the DDC stays
-        on one device, with a warning."""
+        resolved against the visible cards. Under multi-host too the mesh
+        stays on this process's cards (the reference takes
+        ``jax.devices()[:n]``, which may reach another host's): the time
+        axis never crosses a process (``parallel/multihost.py``). The
+        detector carries are stitched across the shard seams; the host
+        consumes the same compact rows. Recording shards over the same mesh
+        where the chain splits exactly (``make_time_sharded_modtap_ddc``);
+        otherwise the DDC stays on one device, with a warning."""
         from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
         from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import (
             make_time_sharded_modtap_ddc,
@@ -405,7 +419,7 @@ class SdrDevice:
         )
 
         dev = self.torch_device
-        n = min(self._tunables.mesh_time, visible_cards(dev))
+        n = min(self._tunables.mesh_time, session_cards(dev, self._cards))
         cfg = self.scan_cfg
         # frames must split evenly with >= grouping_y frames a shard AND
         # keep the DDC block divisibility already folded into frames
@@ -423,7 +437,7 @@ class SdrDevice:
                 cfg.block_samples,
                 self._tunables.resampler_threshold,
             )
-        self._time_mesh = make_mesh(n_bands=1, n_time=n, devices=mesh_devices(dev, n))
+        self._time_mesh = make_mesh(n_bands=1, n_time=n, devices=mesh_devices(dev, n, self._cards))
         self._scan_step = make_time_sharded_scan(
             cfg, self._time_mesh, self._group_size, self._tunables.detection_top_k
         )

@@ -24,6 +24,14 @@ Enable with ``"channels": B`` on a device config entry. Two forms:
   wideband block is uploaded to every shard, and packed rows and
   recordings are fetched shard by shard. Trackers, recorders and egress
   stay per channel on the host.
+
+Multi-host (``tunables.multihost``, the process group ``runtime/main.py``
+joins): the bands mesh spans every process's cards (``mesh_bands`` -1 =
+all of them, ``parallel/multihost.py``); each process runs only its own
+band shards, feeds and publishes only their channels (``_local_bands``),
+and arms a manual recording only where it owns the channel. Every process
+reads the whole wideband stream (each shard channelizes it). No data
+crosses a process.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,13 +54,13 @@ from rtl_sdr_scanner_tpu_torch.ops.channelizer import (
     plan_channelizer,
 )
 from rtl_sdr_scanner_tpu_torch.runtime.config import Config, DeviceSpec
-from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import (
     HostStage,
     PackedOuts,
     SdrDevice,
     mesh_bands_cards,
     mesh_devices,
+    session_cards,
     unported_path,
 )
 from rtl_sdr_scanner_tpu_torch.runtime.sources import make_source
@@ -71,7 +79,10 @@ class WidebandScanner:
         recorders_count: int,
         loop_replay: bool = False,
         device: DeviceLike = None,
+        cards: Optional[Sequence[DeviceLike]] = None,
     ):
+        """``cards``: the devices this process's bands mesh may span
+        (default: the visible cards; a dry run gives copies of one card)."""
         if device_spec.channels < 2:
             raise ValueError("wideband mode needs channels >= 2")
         if not device_spec.ranges:
@@ -88,6 +99,7 @@ class WidebandScanner:
         if reason is not None:
             raise NotImplementedError(reason)
         self.torch_device = dev
+        self._cards = None if cards is None else [resolve_device(d) for d in cards]
         self._stage = HostStage(dev)
 
         self._config = config
@@ -147,6 +159,7 @@ class WidebandScanner:
         self._thread: Optional[threading.Thread] = None
         self._mesh = None
         self._local_bands = list(range(b))
+        self._multihost = False
         self._int8_ingest = config.tunables.int8_ingest
         # pipelined ingest: one wideband block in flight on the card while
         # the host consumes the previous block's packed rows (same contract
@@ -171,7 +184,9 @@ class WidebandScanner:
         channels while any records, or (fused) all of it in one step, over
         N band shards. The reference runs its recorder chains concurrently
         off one source (sdr_device.cpp:39-41); B serial per-band dispatches
-        would not."""
+        would not. Under multi-host N counts every process's cards and this
+        process runs its own shards of the N."""
+        from rtl_sdr_scanner_tpu_torch.parallel import multihost
         from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
         from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import (
             init_banded_ddc_state,
@@ -185,14 +200,42 @@ class WidebandScanner:
 
         b = len(self._sessions)
         dev = self.torch_device
-        n = mesh_bands_cards(mesh_bands, b, sdr_device.visible_cards(dev))
+        session = self._sessions[0]
+        cards = session_cards(dev, self._cards)
+        # multi-host (tunables.multihost + the joined group): the mesh spans
+        # every process's cards and THIS process feeds and publishes only
+        # the bands of the shards it owns (parallel/multihost.py placement);
+        # in a single process that is every band
+        self._multihost = multihost.process_count() > 1
+        if self._multihost:
+            world = multihost.make_global_mesh(1, cards=cards)
+            n = mesh_bands_cards(mesh_bands, b, world.shape["bands"])
+        else:
+            n = mesh_bands_cards(mesh_bands, b, cards)
         if not self._config.tunables.compact_detection:
             logger.warn(LABEL, "mesh_bands needs compact detection; staying serial")
             return
-        session = self._sessions[0]
+        if self._multihost and not session.ddc_cfg.modtap:
+            # other chains record per channel, outside the bands mesh
+            raise ValueError("multihost wideband needs the modulated-taps chain")
         cfg = session.scan_cfg
-        self._mesh = mesh = make_mesh(n_bands=n, n_time=1, devices=mesh_devices(dev, n))
-        self._b_loc = b // n
+        if self._multihost:
+            mesh = multihost.local_mesh(world.bands(n), mesh_devices(dev, cards, self._cards))
+        else:
+            mesh = make_mesh(n_bands=n, n_time=1, devices=mesh_devices(dev, n, self._cards))
+        self._mesh = mesh
+        self._b_loc = b_loc = b // n
+        # global band shard -> its place in this process's per-shard lists
+        self._shard_pos = {g: i for i, g in enumerate(mesh.band_shards)}
+        self._local_bands = [band for g in mesh.band_shards for band in range(g * b_loc, (g + 1) * b_loc)]
+        if self._multihost:
+            logger.info(
+                LABEL,
+                "multihost process {}/{}: feeding bands {}",
+                multihost.process_index(),
+                multihost.process_count(),
+                self._local_bands,
+            )
         top_k = self._config.tunables.detection_top_k
         self._wide_step = make_sharded_wideband_step(
             cfg, session._group_size, top_k, mesh, self._plan, self._oversample, b
@@ -200,7 +243,7 @@ class WidebandScanner:
         self._band_state = init_banded_state(cfg, b, mesh)
         self._chan_state = replicate(self._chan_state, mesh)
         self._band_acc = [
-            torch.zeros((self._b_loc, cfg.spectro_size), dtype=torch.float32, device=d) for d in mesh.band_devices
+            torch.zeros((b_loc, cfg.spectro_size), dtype=torch.float32, device=d) for d in mesh.band_devices
         ]
         # parked sessions: ranges never change, so masks are computed once
         masks = np.stack([s._tracker._compute_valid_mask() for s in self._sessions])
@@ -236,7 +279,7 @@ class WidebandScanner:
             for s_ in self._sessions:
                 s_.external_ddc = True
         else:
-            self._ddc_band_step = None
+            self._ddc_band_step = None  # (under multi-host refused above)
             if self._config.tunables.wideband_fused_dispatch:
                 logger.warn(LABEL, "wideband_fused_dispatch needs the modulated-taps chain")
             logger.warn(LABEL, "non-modtap DDC chain: recording stays per-band")
@@ -248,22 +291,29 @@ class WidebandScanner:
             " (fused single dispatch)" if self._fused else "",
         )
 
-    @staticmethod
-    def _fetch_band_rows(shards) -> np.ndarray:
-        """A band-stacked per-shard list read to the host shard by shard and
-        stacked (with one process, every band is this process's)."""
-        return np.concatenate([a.cpu().numpy() for a in shards])
+    def _fetch_band_rows(self, shards) -> dict:
+        """This process's rows of a band-stacked per-shard list, read to the
+        host shard by shard and keyed by global band (with one process,
+        every band)."""
+        rows = {}
+        b_loc = self._b_loc
+        for g, a in zip(self._mesh.band_shards, shards):
+            data = a.cpu().numpy()
+            for off in range(data.shape[0]):
+                rows[g * b_loc + off] = data[off]
+        return rows
 
     def _build_band_tables(self) -> list:
-        """Each band shard's DDC tables (host-exact math) for its rows of the
-        [B, K] shifts, made on its device; rebuilt only when some channel's
-        recorder slots changed (recorder start/stop, human-timescale events)."""
+        """Each of this process's band shards' DDC tables (host-exact math)
+        for its rows of the [B, K] shifts, made on its device; rebuilt only
+        when some channel's recorder slots changed (recorder start/stop,
+        human-timescale events)."""
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
 
         b_loc = self._b_loc
         return [
-            ddc_pipeline.make_tables(self._ddc_cfg, self._band_shifts[i * b_loc : (i + 1) * b_loc], device=d)
-            for i, d in enumerate(self._mesh.band_devices)
+            ddc_pipeline.make_tables(self._ddc_cfg, self._band_shifts[g * b_loc : (g + 1) * b_loc], device=d)
+            for g, d in zip(self._mesh.band_shards, self._mesh.band_devices)
         ]
 
     def _upload_shards(self, array: np.ndarray, banded: bool) -> list:
@@ -274,7 +324,7 @@ class WidebandScanner:
         if not banded:
             return copies
         b_loc = self._b_loc
-        return [c[i * b_loc : (i + 1) * b_loc] for i, c in enumerate(copies)]
+        return [c[g * b_loc : (g + 1) * b_loc] for g, c in zip(self._mesh.band_shards, copies)]
 
     def _drain_slot_events(self) -> list:
         """Apply the sessions' slot start/stop events to the banded shifts
@@ -325,7 +375,9 @@ class WidebandScanner:
         small = self._upload_shards(np.concatenate([now_arr, keys.reshape(-1).astype(np.int32)]), banded=False)
         b_loc = self._b_loc
         now_dev = [c[:frames] for c in small]
-        keys_dev = [c[frames:].reshape(keys.shape)[i * b_loc : (i + 1) * b_loc] for i, c in enumerate(small)]
+        keys_dev = [
+            c[frames:].reshape(keys.shape)[g * b_loc : (g + 1) * b_loc] for g, c in zip(self._mesh.band_shards, small)
+        ]
 
         if self._fused:
             # reconcile BEFORE the dispatch: slot events drained here came
@@ -394,7 +446,11 @@ class WidebandScanner:
             session.finish_block(
                 {
                     "outs": PackedOuts(packed[ch]),
-                    "iq_dev": channels[ch // self._b_loc][ch % self._b_loc] if (not banded_ddc or feed_sink) else None,
+                    "iq_dev": (
+                        channels[self._shard_pos[ch // self._b_loc]][ch % self._b_loc]
+                        if (not banded_ddc or feed_sink)
+                        else None
+                    ),
                     "now_arr": now_arr,
                     "slot_keys": keys[ch],
                     "block_start_ms": start_ms,
@@ -424,7 +480,11 @@ class WidebandScanner:
         elif self._ddc_band_step is not None:
             # reconcile the banded DDC slots from the sessions' slot events,
             # then run recording as ONE dispatch over all channels; slot
-            # resets ride the keep mask
+            # resets ride the keep mask. The step runs while a band of THIS
+            # process records, under multi-host too: the reference runs it
+            # every block there only because every process must issue the
+            # same SPMD program, while here each process runs its own
+            # shards and waits on no peer
             keep_mask = self._drain_slot_events()
             recording = any(self._sessions[ch].is_recording for ch in self._local_bands)
             if recording:
@@ -452,7 +512,11 @@ class WidebandScanner:
         return self._sessions
 
     def manual_record(self, frequency: int, duration_ms: int) -> bool:
-        """Route a manual recording to the sub-band session covering it."""
+        """Route a manual recording to the sub-band session covering it.
+
+        Under multi-host every process receives the MQTT request; only the
+        process that owns the covering band arms it (its sessions are the
+        only ones fed), so exactly one recording happens."""
         for ch in self._local_bands:
             session = self._sessions[ch]
             lo, hi = session._frequency_range
@@ -523,8 +587,11 @@ class WidebandScanner:
                 logger.error(LABEL, "wideband scanner thread failed: {}", exc)
             logger.info(LABEL, "thread stopped")
 
-        self._thread = threading.Thread(target=worker, name="wideband", daemon=True)
-        self._thread.start()
+        thread = threading.Thread(target=worker, name="wideband", daemon=True)
+        thread.start()
+        # published once running: a watcher that reads "not alive" from it
+        # then knows the worker has ended, not that it has yet to begin
+        self._thread = thread
 
     def stop(self) -> None:
         self._running = False

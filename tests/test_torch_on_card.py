@@ -499,3 +499,18 @@ def test_band_shards_on_card_match_one_card(fused, dev):
         outs[shards] = (ss.gather_bands(packed, dev).cpu(), ss.gather_bands(rec, dev).cpu())
     assert torch.equal(outs[1][0], outs[2][0]) and torch.equal(outs[1][1], outs[2][1])
     assert outs[2][1].abs().max().item() > 0
+
+
+def test_two_gloo_ranks_on_one_card(dev):
+    """Two processes in one group (gloo for objects; NCCL named for tensors
+    but never used), both on card 0: each builds the global mesh, one band
+    shard a process, and its banded scan step on its own bands equals a
+    one-process run of those bands on the card (tests/test_torch_multihost.py's
+    children, on the card)."""
+    # the test module by its file's name: this directory is on sys.path
+    # (pytest's prepend import mode), and a site package may own "tests"
+    from test_torch_multihost import run_children
+
+    logs = run_children("mesh", 2, device="cuda", env={"CUDA_VISIBLE_DEVICES": "0"})
+    joined = "".join(logs)
+    assert "shards=[0]" in joined and "shards=[1]" in joined, joined

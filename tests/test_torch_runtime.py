@@ -378,14 +378,15 @@ def test_main_exits_on_fatal_scanner_failure(tmp_path, short_capture, monkeypatc
     assert result["rc"] == 1
 
 
-# the multi-device paths and power_bf16 (lifted by slice 8) run, with two
-# visible cards patched in (the CPU mesh: copies of the CPU device);
-# multihost needs the multi-host layer and stays refused (slice 9)
+# the multi-device paths and power_bf16 (lifted by slice 8) and multihost
+# (slice 9: one process here, so initialize joins no group, over the bands mesh of
+# a wideband device) run, with two visible cards patched in (the CPU mesh:
+# copies of the CPU device); no path is refused any more
 UNPORTED = {
     "wideband": ({"mesh_bands": 2}, {"channels": 4}, None),
     "mesh_time": ({"mesh_time": 2}, {}, None),
     "mesh_bands": ({"mesh_bands": -1}, {"channels": 4}, None),
-    "multihost": ({"multihost": True}, {}, "slice 9"),
+    "multihost": ({"multihost": True, "mesh_bands": -1}, {"channels": 4}, None),
     "power_bf16": ({"power_bf16": True}, {}, None),
 }
 
@@ -423,8 +424,9 @@ def _run_main_until_drained(path, monkeypatch):
 def test_unported_paths_are_refused(tmp_path, short_capture, monkeypatch, case):
     """A path the port lacks: main.run logs one error naming the ROADMAP
     item and returns 1 before any scanner starts; Scanner and SdrDevice
-    raise NotImplementedError. A path slice 8 ported: main.run runs it to
-    the end of the replay (rc 0, payloads published) in the mode asked for."""
+    raise NotImplementedError. A path slices 8 and 9 ported: main.run runs
+    it to the end of the replay (rc 0, payloads published) in the mode
+    asked for."""
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 
     tunables, device_fields, slice_name = UNPORTED[case]
