@@ -8,7 +8,8 @@
    with nvcc for sm_90a (into ``build/kernels``).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes each path and the runtime session give it: the PSD within 0.02 dB on every bin within
-   60 dB of its frame's peak (median |diff| <= 1e-3 dB) and the selection
+   60 dB of its frame's peak, median |diff| <= 1e-3 dB over every bin, |dP| <= 1e-5 of the
+   frame's peak power on every bin (``psd_agreement``), and the selection
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
    frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
@@ -122,13 +123,40 @@
    gather vote form (``ops/detect.VOTE_FORM``): paths 1 and 2, 3 blocks,
    in f32 and bf16 detection, packed outputs bit-equal to the code form's;
    prints ``compact_detection``'s ms a block (CUDA events) of each form.
+12. Every fft the JAX package scans. (a) The kernels' forms beyond steps 2's
+   shapes against their plain versions: the PSD's small-frame form at fft
+   16-128 (decimations 1-4, odd frame counts up to 1801) and its
+   8-sequence scratch passes at 2^21 and 2^22; the selection's register
+   form at fft 16-128 (top_k 8-64, zones narrower and wider than the row,
+   masked tails) and its table at 2^21, bit-exact in bf16 and f32. (b)
+   ``runtime.main.run`` on a 6 s capture at 2.048 Msps with ``"channels":
+   64`` (32 kHz channels: fft 128, decim 5, 16 frames, 0.32 s blocks; FM in
+   channels 3 and 57 keyed 3-5 s; 16 kHz recordings), in the split and the
+   fused form, each against the same form's CPU run (step 6's bars), both
+   transmissions recorded at their tones, the selection kernel launched.
+   (c) One int8 band of 32 kHz (fft 128: the PSD's small-frame form and the
+   selection's register form, 4 slots at 16 kHz) through ``Scanner`` on the
+   card against the CPU, its transmission recorded. (d) The single-band
+   block step at 491.52 Msps (fft 2^21, decim 4, 16 frames: 268 MB of
+   int8 a 0.273 s block; 2 slots at 30 kHz, FIR stages (1, 8), (1, 16),
+   (1, 16)) for 3 blocks, the noise learning cut to 200 ms so that it ends
+   in block 0; FM at +50 MHz from block 1 must be detected there and
+   recorded (slot 0 >= 10 dB above slot 1, its tone); the first 2 blocks
+   through the same step on the CPU (the plain versions), held against
+   the card's: counts and readiness equal, candidate indices and voted
+   bins equal but for < 0.5% near-ties, values within the PSD bar's 0.02
+   dB, recordings within 1 LSB; each block's PSD rows held against the
+   plain version under step 2's bar; prints ms a block and the PSD
+   kernel's ms. Step 2 holds the
+   PSD and the selection at (b)'s, (c)'s and (d)'s shapes too, and step 9
+   times them there.
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
 raises. The last lines are the card's name and power limit, the kernels' JSON record and ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
 
-``--kernels-only`` runs steps 1, 2 and 9 and ends with the kernels' record;
+``--kernels-only`` runs steps 1, 2, 12a and 9 and ends with the kernels' record;
 ``--root DIR`` takes the package from another checkout (an older tree
 unpacked under ``build/``), so that two trees' kernels are timed by the
 same code on the same card: old, new, new, old.
@@ -160,7 +188,10 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 PSD_TOL_DB = 0.02
 PSD_MEDIAN_TOL_DB = 1e-3
+PSD_NEAR_DB = 60.0  # the dB bars hold on the bins within this of their row's peak
+PSD_LINEAR_TOL = 1e-5  # |dP| over the row's peak power, on every bin
 FIR_REL_TOL = 2e-5
+PROFILE_TRIES = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +292,47 @@ MH_SHARD = Geometry("multihost_session", "multi-host session (a process's 4 chan
 # step 11d: blocks a form; the noise learning (WIDE_LEARN_MS) ends inside
 # block 0, so the signal keyed from block 1 clears the floor
 VOTE_BLOCKS = 3
+# step 12, every fft the JAX package scans: the kernels' small forms (fft <=
+# 128) and the PSD's 8-sequence scratch passes (fft 2^21-2^22).
+# (fft, decim, frames): odd frame counts, decimations 1-4
+NARROW_PSD_CASES = ((16, 1, 7), (32, 2, 33), (64, 3, 129), (128, 4, 1801), (128, 1, 1),
+                    (1 << 21, 1, 3), (1 << 22, 2, 3))  # step 2 holds the 491.52 Msps block's
+# (fft, top_k, k_sep, submargin, rows): top_k 8-64, zones narrower and wider
+# than the row, masked tails the top-K reaches into; the 491.52 Msps rows
+NARROW_SELECT_CASES = ((16, 16, 16, 40, CHECK_ROWS), (32, 8, 4, 3, CHECK_ROWS), (64, 64, 16, 16, CHECK_ROWS),
+                       (64, 32, 16, 100, CHECK_ROWS), (128, 64, 16, 32, 1024), (128, 64, 16, 0, CHECK_ROWS),
+                       (1 << 21, 64, 16, 64, 16))
+# 12b: an RTL-SDR at 2.048 Msps split into 64 channels of 32 kHz (fft 128,
+# decim 5, 16 frames: 0.32 s blocks), FM in channels 3 and 57 keyed after
+# the noise learning, 16 kHz recordings (one modulated-taps stage)
+NW_RATE = 2_048_000
+NW_CHANNELS = 64
+NW_SECONDS = 6.0
+NW_SIGNALS = ((100_000, 800.0), (-230_000, 1300.0))
+NW_KEY = (3.0, 5.0)
+NW_FORMS = (("split", {"mesh_bands": 1}), ("fused", {"mesh_bands": 1, "wideband_fused_dispatch": True}))
+NARROW_REC_RATE = 16_000
+# 12c: one int8 band of 32 kHz (fft 128), FM at +3 kHz keyed 3-6 s
+NB_RATE = 32_000
+NB_SECONDS = 8.2
+NB_SHIFT = 3_000
+NB_KEY = (3.0, 6.0)
+NARROW_WIDE = Geometry("narrow_wideband", "64-channel session (64 x 32 kHz channels, fft 128)",
+                       NW_RATE // NW_CHANNELS, 16, NARROW_REC_RATE, 0, bands=NW_CHANNELS, slots=1)
+NARROW_RT = Geometry("narrow_session", "32 kHz session (one int8 band, fft 128, 4 slots at 16 kHz)", NB_RATE, 16,
+                     NARROW_REC_RATE, 0, bands=1, slots=4)
+# 12d: one band at 491.52 Msps (an RFSoC/X410-class receiver): fft 2^21,
+# decim 4, 16 frames (268 MB of int8 a 0.273 s block); 30 kHz recordings,
+# a power-of-two chain (8, 8, 16, 16), so the block keeps its 16 frames
+BAND_491 = Geometry("band_491", "one band at 491.52 Msps (fft 2^21, decim 4, 16 frames, 2 slots at 30 kHz)",
+                    491_520_000, 16, 30_000, -100_000_000, bands=1, blocks=3, signal_band=0,
+                    signal_offset_hz=50_000_000, signal_from_block=1)
+# its depth is cut to 3 blocks, so its noise learning to 200 ms (it ends at
+# frame 12 of block 0, 17.1 ms a frame), as step 7's is; and its first
+# blocks go through the same step on the CPU (the plain versions): block 0
+# and block 1, the signal's first (depth cut: the CPU's time)
+BAND_491_LEARN_MS = 200
+BAND_491_CPU_BLOCKS = 2
 
 
 def log(*args):
@@ -296,14 +368,19 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if not us:
-        raise RuntimeError(f"the profiler saw no launch of *{kernel}* in {reps} calls")
+    # a session whose kernel records the profiler dropped whole (seen once
+    # on an H100, late in step 9's sessions) is traced again
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if us:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no launch of *{kernel}* in {PROFILE_TRIES} x {reps} calls")
     # mean a record times records a call: a record the profiler dropped
     # (it happens, rarely) leaves the mean as it is
     return sum(us) / len(us) * max(1, round(len(us) / reps)) / 1e3
@@ -398,12 +475,12 @@ def fir_stages(ddc_cfg, shards: int = 1) -> list:
     return stages
 
 
-def selection_rows(fft: int, dtype, dev) -> torch.Tensor:
-    """CHECK_ROWS rows: random, tied, clustered, zones across a segment
-    border, all-masked, and values exactly at the level."""
+def selection_rows(fft: int, dtype, dev, n_rows: int = CHECK_ROWS) -> torch.Tensor:
+    """n_rows rows: random, tied, clustered, zones across a segment border,
+    all-masked and masked tails, and values exactly at the level."""
     rng = np.random.default_rng(1)
-    rows = rng.normal(0.0, 6.0, size=(CHECK_ROWS, fft)).astype(np.float32)
-    r = CHECK_ROWS // 6
+    rows = rng.normal(0.0, 6.0, size=(n_rows, fft)).astype(np.float32)
+    r = n_rows // 6
     rows[r : 2 * r] = np.round(rows[r : 2 * r] / 2.0)  # many exact ties
     for c in (100, 1020, 1024, 1030, fft // 2, fft - 1):  # clusters, segment borders
         rows[2 * r : 3 * r, max(0, c - 60) : c + 60] += 20.0 * rng.random((r, 1))
@@ -414,18 +491,37 @@ def selection_rows(fft: int, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(rows).to(dev).to(dtype)
 
 
+def psd_agreement(got_db: torch.Tensor, want_db: torch.Tensor) -> dict:
+    """Two PSD dB arrays [rows, fft] under the PSD bar: the max |diff| (dB)
+    on the bins within PSD_NEAR_DB of their row's peak, the median |diff|
+    and the max over every bin, and the largest |dP| over the row's peak
+    power on any bin (f32 FFTs that round differently agree in power; at a
+    deep null a dB difference has no bound)."""
+    got, want = got_db.double(), want_db.double()
+    diff = (got - want).abs()
+    peak = want.amax(dim=1, keepdim=True)
+    near = want >= peak - PSD_NEAR_DB
+    d_power = (torch.pow(10.0, got / 10) - torch.pow(10.0, want / 10)).abs()
+    return dict(max_db=diff[near].max().item(), median_db=diff.median().item(),
+                all_max_db=diff.max().item(), linear=(d_power / torch.pow(10.0, peak / 10)).max().item())
+
+
+def psd_within_bar(agreement: dict) -> bool:
+    return (agreement["max_db"] <= PSD_TOL_DB and agreement["median_db"] <= PSD_MEDIAN_TOL_DB
+            and agreement["linear"] <= PSD_LINEAR_TOL)
+
+
 def psd_form(fft: int) -> str:
     """Which form of the PSD kernel takes fft, as the library reports it."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build, psd_kernel
 
-    lib = build.library()
-    logs = [n.bit_length() - 1 for n in psd_kernel._split_n(fft)]
-    if lib.psd_scratch_bytes(*logs):
-        return "scratch form"
-    clusters = lib.psd_max_active_clusters(*logs)
-    if clusters < 0:
-        raise RuntimeError(f"psd kernel: cudaOccupancyMaxActiveClusters failed at fft {fft}: {-clusters}")
-    return f"cluster form, {clusters} clusters resident" if clusters else "one block a frame"
+    form = psd_kernel.form(fft)
+    if form != "cluster form":
+        return form
+    clusters = build.library().psd_max_active_clusters(*(n.bit_length() - 1 for n in psd_kernel._split_n(fft)))
+    if clusters <= 0:
+        raise RuntimeError(f"psd kernel: cudaOccupancyMaxActiveClusters gave {clusters} at fft {fft}")
+    return f"cluster form, {clusters} clusters resident"
 
 
 def check_psd(fft: int, decim: int, rows: int, gen, dev, rate: float = 2.048e7) -> float:
@@ -439,36 +535,35 @@ def check_psd(fft: int, decim: int, rows: int, gen, dev, rate: float = 2.048e7) 
     torch.cuda.synchronize()
     if not (torch.isfinite(got).all() and got.shape == want.shape):
         raise RuntimeError("psd kernel: non-finite output or wrong shape")
-    near = want >= want.amax(dim=1, keepdim=True) - 60.0
-    diff = (got - want).abs()
-    psd_max = diff[near].max().item()
-    psd_med = diff[near].median().item()
+    a = psd_agreement(got, want)
     log(f"psd kernel vs plain [{rows}, {fft * decim}, 2] (fft {fft}, decim {decim}; {psd_form(fft)}): "
-        f"max {psd_max:.3g} dB, median {psd_med:.3g} dB on bins within 60 dB of the peak; "
-        f"all-bin max {diff.max().item():.3g} dB")
-    if psd_max > PSD_TOL_DB or psd_med > PSD_MEDIAN_TOL_DB:
-        raise RuntimeError(f"psd kernel disagrees at fft {fft}: max {psd_max} dB, median {psd_med} dB")
-    return psd_max
+        f"max {a['max_db']:.3g} dB on bins within {PSD_NEAR_DB:g} dB of the peak; all-bin median "
+        f"{a['median_db']:.3g} dB, max {a['all_max_db']:.3g} dB, |dP| {a['linear']:.3g} of the peak")
+    if not psd_within_bar(a):
+        raise RuntimeError(f"psd kernel disagrees at fft {fft}: {a}")
+    return a["max_db"]
 
 
-def check_selection(fft: int, submargin: int, dev) -> float:
+def check_selection(fft: int, submargin: int, dev, top_k: int = TOP_K, k_sep: int = 16,
+                    n_rows: int = CHECK_ROWS) -> float:
     """Selection kernel bit-exact against its plain version in bf16 and f32
-    on CHECK_ROWS rows at one path's fft and submargin; returns 0.0."""
+    on n_rows rows at one path's fft and submargin; returns 0.0."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
 
     level = torch.tensor(LEVEL, device=dev)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        t = selection_rows(fft, dtype, dev)
-        got = select_kernel.fused_selection(t, level, TOP_K, 16, submargin)
-        want = select_kernel.fused_selection_plain(t, level, TOP_K, 16, submargin)
+        t = selection_rows(fft, dtype, dev, n_rows)
+        got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)
+        want = select_kernel.fused_selection_plain(t, level, top_k, k_sep, submargin)
         torch.cuda.synchronize()
         for name, g, w in zip(("top_val", "top_idx", "sep_val", "sep_idx", "count"), got, want):
             if g.dtype != w.dtype or not torch.equal(g, w):
                 bad = (g != w).nonzero()[:5].tolist()
                 raise RuntimeError(f"selection kernel {dtype} {name} disagrees at fft {fft}: {bad}")
             err = max(err, (g.float() - w.float()).abs().max().item())
-        log(f"selection kernel vs plain [{CHECK_ROWS}, {fft}] submargin {submargin} {dtype}: bit-exact")
+        log(f"selection kernel vs plain [{n_rows}, {fft}] top_k {top_k} k_sep {k_sep} submargin {submargin} "
+            f"{dtype}: bit-exact")
     return err
 
 
@@ -483,7 +578,8 @@ def check_psd_and_selection(psd_geos, sel_geos, dev):
     psd_err = sel_err = 0.0
     for geo in psd_geos:
         cfg, _, _ = configs(geo)
-        rows = geo.frames if geo.time_shards > 1 else CHECK_ROWS  # a time shard's frames
+        # a time shard's frames, or a block's where a frame is 2^21 points
+        rows = geo.frames if geo.time_shards > 1 or cfg.fft_size > 1 << 20 else CHECK_ROWS
         psd_err = max(psd_err, check_psd(cfg.fft_size, cfg.decimator_factor, rows, gen, dev,
                                          float(cfg.sample_rate)))
     for fft, decim, rows in PSD_FORM_CASES:
@@ -531,7 +627,7 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float,
         # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
         bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
         log(f"psd [{rows}, {fft * decim}, 2] ({geo.name}; {psd_form(fft)}): {fmt(t)}, torch.fft.fft alone "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}")
+            f"{library_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}) on {card}")
         record_time(psd, geo, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         del big, frames_c
         time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
@@ -546,9 +642,9 @@ def time_selection(sel: dict, geo: Geometry, rows: int, fft: int, group_size: in
     spec = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
     t = timings(lambda: select_kernel.fused_selection(spec, level, TOP_K, 16, submargin),
                 lambda: select_kernel.fused_selection_plain(spec, level, TOP_K, 16, submargin), 20,
-                "selection_kernel", 3)
+                "selection_", 3)  # the table form (selection_kernel) or the register form (selection_small)
     bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
-    log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4f} ms ({bound_by}) "
+    log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4g} ms ({bound_by}) "
         f"on {card}")
     record_time(sel, geo, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -641,7 +737,8 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
         log(f"fir [{rows}, 2, {n}] M={m} R={plan.poly_rows} ({geo.name}): {fmt(t)}, F.conv1d on the "
             f"polyphase view {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} "
             f"MB, {flops / 1e9:.2f} GFLOP TF32) on {card}")
-        times[geo.key] = (geo, dict(**t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        # a path's first (widest) stage stands for it in the record
+        times.setdefault(geo.key, (geo, dict(**t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)))
         del x, tail
     record = dict(
         name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
@@ -657,17 +754,24 @@ class MainPath:
     """One geometry at full width: configs, the step with default Tunables,
     a ring of synthetic cs8 on the card, and the carried state."""
 
-    def __init__(self, dev, geo: Geometry):
+    def __init__(self, dev, geo: Geometry, ring=None, learn_ms: int = 0):
+        """``ring``: blocks to copy to ``dev`` in place of a new ring;
+        ``learn_ms``: the noise learning, where not the default."""
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 
         self.dev, self.geo = dev, geo
         self.cfg, self.ddc_cfg, self.group_size = configs(geo)
+        if learn_ms:
+            self.cfg = dataclasses.replace(self.cfg, noise_learning_ms=learn_ms)
         cfg = self.cfg
         self.step = fused_step.make_banded_fused_step(cfg, self.ddc_cfg, self.group_size, TOP_K, device=dev)
         t0 = time.perf_counter()
-        self.ring = make_ring(geo, cfg, dev)
-        log(f"ring: {geo.blocks} blocks of [{geo.bands}, {geo.frames}, {cfg.fft_size * cfg.decimator_factor}, 2] "
-            f"int8 on the card in {time.perf_counter() - t0:.1f} s")
+        if ring is not None:
+            self.ring = [block.to(dev) for block in ring]
+        else:
+            self.ring = make_ring(geo, cfg, dev)
+            log(f"ring: {geo.blocks} blocks of [{geo.bands}, {geo.frames}, {cfg.fft_size * cfg.decimator_factor}, "
+                f"2] int8 on the card in {time.perf_counter() - t0:.1f} s")
         self.state = [
             scan_pipeline.init_scan_state(cfg, geo.bands, 0, device=dev),
             scan_pipeline.init_spectro_acc(cfg, geo.bands, device=dev),
@@ -710,8 +814,6 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
     0 just before; check the counts (PSD and selection once a block, the FIR
     once a chunk for each stage it takes), then what came out; return the
     counts."""
-    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
-
     log(f"---- {geo.name}")
     path = MainPath(dev, geo)
     cfg, ddc_cfg, group_size = path.cfg, path.ddc_cfg, path.group_size
@@ -747,21 +849,7 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
         raise RuntimeError(f"recording {tuple(rec.shape)} {rec.dtype}, want {want_shape} int8")
     if not rec.any() or not rec[geo.signal_band, 0].any():
         raise RuntimeError("recording is all zero where the signal is")
-    planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
-    hits = {}
-    for b in range(geo.signal_from_block, geo.blocks):
-        for band in range(geo.bands):
-            out = scan_pipeline.unpack_compact(packed[b][band], geo.frames, TOP_K, KEY_SLOTS)
-            cand_idx, cand_val, _, cand_count, _, _, ready = out
-            if not np.isfinite(packed[b][band]).all() or not ready:
-                raise RuntimeError(f"block {b} band {band}: non-finite output or noise not learned")
-            live = cand_val >= LEVEL
-            if live.any():
-                hits.setdefault(band, []).append(np.abs(cand_idx[live] - planted).min())
-    log(f"bands with candidates above {LEVEL} dB in blocks {geo.signal_from_block}..{geo.blocks - 1}: "
-        f"{ {k: int(min(v)) for k, v in hits.items()} } (bins from the planted {planted})")
-    if set(hits) != {geo.signal_band} or min(hits[geo.signal_band]) > group_size:
-        raise RuntimeError(f"planted signal not detected in band {geo.signal_band} only: {hits}")
+    check_detected(packed, geo, cfg, group_size)
     power = rec.float().square().sum(dim=-1).mean(dim=-1)  # [bands, slots]
     quiet = (geo.signal_band + 1) % geo.bands
     gain_db = 10 * math.log10(power[geo.signal_band, 0].item() / max(power[quiet, 0].item(), 1e-3))
@@ -779,6 +867,29 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
     del path
     torch.cuda.empty_cache()
     return launches
+
+
+def check_detected(packed: list, geo: Geometry, cfg, group_size: int) -> None:
+    """The step's packed rows of each block (a list): from the signal's
+    first block on, finite, the noise learned, and candidates above LEVEL
+    in the signal's band only, within a group of the planted bin."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
+    hits = {}
+    for b in range(geo.signal_from_block, geo.blocks):
+        for band in range(geo.bands):
+            out = scan_pipeline.unpack_compact(packed[b][band], geo.frames, TOP_K, KEY_SLOTS)
+            cand_idx, cand_val, _, cand_count, _, _, ready = out
+            if not np.isfinite(packed[b][band]).all() or not ready:
+                raise RuntimeError(f"block {b} band {band}: non-finite output or noise not learned")
+            live = cand_val >= LEVEL
+            if live.any():
+                hits.setdefault(band, []).append(np.abs(cand_idx[live] - planted).min())
+    log(f"bands with candidates above {LEVEL} dB in blocks {geo.signal_from_block}..{geo.blocks - 1}: "
+        f"{ {k: int(min(v)) for k, v in hits.items()} } (bins from the planted {planted})")
+    if set(hits) != {geo.signal_band} or min(hits[geo.signal_band]) > group_size:
+        raise RuntimeError(f"planted signal not detected in band {geo.signal_band} only: {hits}")
 
 
 def check_interpolating_stages(dev) -> None:
@@ -825,12 +936,13 @@ def write_capture(path: Path, rate: int, seconds: float, shift, key, seed: int =
             np.clip(np.round(pairs), -128, 127).astype(np.int8).tofile(f)
 
 
-def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, **tunables) -> dict:
-    """One replay device parked on one range (width <= the hop split rate;
-    with ``channels`` >= 2 a wideband device over the whole capture), 4
-    recorder slots, the reference's recording defaults (32 kHz), logs at
-    warn on the console only."""
-    half = rate // 2 if channels >= 2 else 1_000_000 if rate >= 2_000_000 else 100_000
+def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, recording_rate: int = 32_000,
+                   **tunables) -> dict:
+    """One replay device parked on one range (width <= the hop split rate
+    and the band; with ``channels`` >= 2 a wideband device over the whole
+    capture), 4 recorder slots, the reference's recording defaults (32 kHz
+    unless ``recording_rate`` says), logs at warn on the console only."""
+    half = rate // 2 if channels >= 2 else min(1_000_000 if rate >= 2_000_000 else 100_000, rate // 2)
     return {
         "devices": [{
             "enabled": True, "serial": "replay0", "driver": "replay", "sample_rate": rate,
@@ -840,7 +952,8 @@ def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, **t
         }],
         "ignored_frequencies": [],
         "output": {"color_log_enabled": False, "console_log_level": "warn", "file_log_level": "warn"},
-        "recording": {"max_noise_time_ms": 2000, "min_sample_rate": 32000, "min_time_ms": 2000, "step": 2500},
+        "recording": {"max_noise_time_ms": 2000, "min_sample_rate": recording_rate, "min_time_ms": 2000,
+                      "step": 2500},
         "tunables": {"log_file_name": "", **tunables},
         "version": 2,
         "workers": 4,
@@ -2071,6 +2184,241 @@ def run_multi_host(dev, card: str, root: Path) -> dict:
     return launches
 
 
+# -- step 12: every fft the JAX package scans --------------------------------------
+
+
+def check_narrow_kernels(dev) -> tuple:
+    """Step 12a: the PSD kernel's small-frame form and 8-sequence scratch
+    passes, and the selection kernel's register form (and its table at
+    2^21), against their plain versions; returns the max |diff| of each."""
+    log("---- step 12a: the kernels' forms for fft <= 128 and 2^21-2^22")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    psd_err = max(check_psd(fft, decim, frames, gen, dev) for fft, decim, frames in NARROW_PSD_CASES)
+    sel_err = max(check_selection(fft, submargin, dev, top_k, k_sep, n_rows)
+                  for fft, top_k, k_sep, submargin, n_rows in NARROW_SELECT_CASES)
+    return psd_err, sel_err
+
+
+def run_narrow_wideband(dev, card: str, tmp: Path) -> dict:
+    """Step 12b: the 64-channel session through main.run on the card in
+    each batched form, against the same form's CPU run; returns {form:
+    counts}."""
+    log(f"---- step 12b: {NARROW_WIDE.name}, main.run")
+    wrappers = kernel_wrappers()
+    capture = tmp / "narrow_wide.cs8"
+    write_capture(capture, NW_RATE, NW_SECONDS, NW_SIGNALS, NW_KEY, seed=11)
+    launches = {}
+    for form, tunables in NW_FORMS:
+        config = runtime_config(capture, NW_RATE, WB_CENTER, channels=NW_CHANNELS, recording_rate=NARROW_REC_RATE,
+                                **tunables)
+        config_path = tmp / f"narrow_wide_{form}.json"
+        config_path.write_text(json.dumps(config))
+        sessions = []
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc, card_payloads = run_main(config_path, dev, on_made=sessions.append)
+        wall_s = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        if rc != 0:
+            raise RuntimeError(f"main.run returned {rc}")
+        scanner = sessions[0]
+        cfg = scanner.sessions[0].scan_cfg
+        blocks = counts["fused_selection"]
+        log(f"{form}: {NW_CHANNELS} channels of {cfg.sample_rate} sps, fft {cfg.fft_size} decim "
+            f"{cfg.decimator_factor} frames {cfg.frames_per_block}; launches over the card run: {counts} (f32 "
+            f"channels: no PSD kernel; 32 -> 16 kHz is one modulated-taps stage: no FIR stage)")
+        if counts["fused_selection"] == 0 or counts["psd_frames_int8"] != 0:
+            raise RuntimeError(f"64-channel session {form} launches {counts}")
+        launches[f"narrow_wideband_{form}"] = counts
+        cpu_payloads, _, cpu_s, _ = run_wideband_scanner(config, torch.device("cpu"))
+        stats = compare_payloads(cpu_payloads, card_payloads)
+        found = []
+        for shift, tone in NW_SIGNALS:
+            center, n_rec, got = recorded_tone(card_payloads, WB_CENTER + shift, NARROW_REC_RATE)
+            if abs(got - tone) >= 40 or n_rec < NARROW_REC_RATE:
+                raise RuntimeError(f"the transmission at {shift} Hz was not recorded: {n_rec} samples, tone {got}")
+            found.append((center, n_rec, round(got, 1)))
+        stream_s = blocks * cfg.block_samples * NW_CHANNELS / NW_RATE
+        log(f"{form}: card (main.run) vs CPU payloads: {stats} (CPU run {cpu_s:.1f} s); recorded {found}; "
+            f"{blocks} blocks, {stream_s:.2f} s of stream in {wall_s:.2f} s of main.run (session set-up "
+            f"included) on {card}")
+    return launches
+
+
+def run_narrow_session(dev, card: str, tmp: Path) -> dict:
+    """Step 12c: one int8 32 kHz band (fft 128: the PSD's small-frame form
+    and the selection's register form) through Scanner on the card against
+    the CPU; returns the card run's counts."""
+    log(f"---- step 12c: {NARROW_RT.name}")
+    wrappers = kernel_wrappers()
+    capture = tmp / "narrow.cs8"
+    write_capture(capture, NB_RATE, NB_SECONDS, NB_SHIFT, NB_KEY)
+    config = runtime_config(capture, NB_RATE, RT_CENTER, recording_rate=NARROW_REC_RATE)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    card_payloads, session, wall_s, clock = run_scanner(config, dev, timer=True)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    cfg, blocks = session.scan_cfg, clock.block
+    log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {cfg.frames_per_block}, DDC stages "
+        f"{[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks; launches {counts}")
+    if counts["psd_frames_int8"] != blocks or counts["fused_selection"] != blocks:
+        raise RuntimeError(f"32 kHz session launches {counts}, want PSD and selection {blocks} each")
+    cpu_payloads, _, cpu_s, _ = run_scanner(config, torch.device("cpu"))
+    stats = compare_payloads(cpu_payloads, card_payloads)
+    center, n_rec, tone = recorded_tone(card_payloads, RT_CENTER + NB_SHIFT, NARROW_REC_RATE)
+    if abs(tone - RT_TONE) >= 40 or n_rec < 2 * NARROW_REC_RATE:
+        raise RuntimeError(f"the 32 kHz band's transmission was not recorded: {n_rec} samples, tone {tone} Hz")
+    stream_s = blocks * cfg.block_samples / cfg.sample_rate
+    wall_ms = float(np.mean(clock.walls[1:]))
+    log(f"card vs CPU payloads: {stats} (CPU run {cpu_s:.2f} s); recorded {n_rec} samples at {center} Hz, tone "
+        f"{tone:.1f} Hz; {wall_ms:.2f} ms a block (blocks 1..{blocks - 1}), real-time factor "
+        f"{stream_s / wall_s:.1f} on {card}")
+    return counts
+
+
+def hold_step_against_cpu(got: list, want: list, frames: int) -> dict:
+    """The compact step's (packed, recording) blocks from the card against
+    the same blocks through the step on the CPU: noise readiness and the
+    counts at level equal; candidate indices and voted bins equal but for <
+    0.5% near-ties, where the top-K values at a differing rank lie within the
+    PSD bar (PSD_TOL_DB: the values are functions of PSD rows held to it);
+    values where the indices agree and key values within PSD_TOL_DB;
+    recordings within 1 LSB. Raises where they differ; returns the worst."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+
+    def close(a, b):
+        d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        d[a == b] = 0.0  # equal sentinels (inf) included
+        return d
+
+    worst = dict(idx_mismatch=0.0, tie_val=0.0, val=0.0, rec_lsb=0, rec_differ=0)
+    for b, ((packed, rec), (ref_packed, ref_rec)) in enumerate(zip(got, want)):
+        for band in range(packed.shape[0]):
+            g = scan_pipeline.unpack_compact(packed[band], frames, TOP_K, KEY_SLOTS)
+            w = scan_pipeline.unpack_compact(ref_packed[band], frames, TOP_K, KEY_SLOTS)
+            (idx, val, best, count, key_val, key_idx, ready) = g
+            (r_idx, r_val, r_best, r_count, r_key_val, r_key_idx, r_ready) = w
+            if not np.isfinite(packed[band]).all() or ready != r_ready or not np.array_equal(count, r_count):
+                raise RuntimeError(f"block {b} band {band}: non-finite, readiness {ready}/{r_ready} or counts differ "
+                                   f"from the CPU's")
+            mism = (idx != r_idx) | (best != r_best)
+            d_val = close(val, r_val)
+            tie = d_val[:, :TOP_K][mism[:, :TOP_K]].max(initial=0.0)
+            agree = max(d_val[~mism].max(initial=0.0), close(key_val, r_key_val).max(initial=0.0))
+            d = np.abs(rec[band].astype(np.int32) - ref_rec[band].astype(np.int32))
+            worst = dict(idx_mismatch=max(worst["idx_mismatch"], float(mism.mean())),
+                         tie_val=max(worst["tie_val"], float(tie)), val=max(worst["val"], float(agree)),
+                         rec_lsb=max(worst["rec_lsb"], int(d.max())),
+                         rec_differ=worst["rec_differ"] + int((d > 0).sum()))
+            if (mism.mean() >= 0.005 or tie > PSD_TOL_DB or agree > PSD_TOL_DB or not np.array_equal(key_idx, r_key_idx)
+                    or d.max() > 1):
+                diffs = [(int(r), int(c), int(idx[r, c]), int(r_idx[r, c]), float(val[r, c]), float(r_val[r, c]))
+                         for r, c in zip(*np.nonzero(mism))][:8]
+                raise RuntimeError(f"block {b} band {band}: {worst} against the CPU; differing (frame, rank, index, "
+                                   f"CPU index, value, CPU value): {diffs}")
+    return worst
+
+
+def run_band_491(dev, card: str) -> dict:
+    """Step 12d: the single-band block step at 491.52 Msps on the card for
+    BAND_491.blocks blocks (launch counts set to 0 just before, read just
+    after), the planted signal detected and recorded, its first
+    BAND_491_CPU_BLOCKS blocks through the same step on the CPU and held
+    against the card's (``hold_step_against_cpu``), and each card block's
+    PSD rows (the step's first stage) against the plain version under the
+    PSD bar; returns the counts."""
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel
+
+    geo = BAND_491
+    log(f"---- step 12d: {geo.name}")
+    path = MainPath(dev, geo, learn_ms=BAND_491_LEARN_MS)
+    cfg, ddc_cfg = path.cfg, path.ddc_cfg
+    log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {geo.frames} ({cfg.block_samples * 2 / 1e6:.1f} MB "
+        f"of int8, {cfg.block_samples / cfg.sample_rate * 1e3:.1f} ms a block), DDC stages "
+        f"{[(p.interp, p.decim) for p in ddc_cfg.plans]}, {ddc_cfg.num_chunks} chunks of {ddc_cfg.chunk}, noise "
+        f"learning {cfg.noise_learning_ms} ms")
+    wrappers = kernel_wrappers()
+    block_ms, card_out = [], []
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    for b in range(geo.blocks):
+        t0 = time.perf_counter()
+        outs = path.run_block(b)
+        torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+        card_out.append((outs.packed.cpu().numpy(), outs.recording.cpu().numpy()))
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    want = {"psd_frames_int8": geo.blocks, "fused_selection": geo.blocks,
+            "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    log(f"launches over {geo.blocks} blocks: {counts}")
+    if counts != want:
+        raise RuntimeError(f"491.52 Msps step launches {counts}, want {want}")
+    check_detected([packed for packed, _ in card_out], geo, cfg, path.group_size)
+    rec = card_out[-1][1]
+    if rec.shape != (geo.bands, geo.slots, ddc_cfg.out_per_block, 2):
+        raise RuntimeError(f"recording {rec.shape}, want {(geo.bands, geo.slots, ddc_cfg.out_per_block, 2)}")
+    power = (rec[0].astype(np.float32) ** 2).sum(axis=-1).mean(axis=-1)  # [slots]
+    gain_db = 10 * math.log10(power[0] / max(power[1], 1e-3))
+    tone = fm_tone(rec[0, 0], geo.bandwidth)
+    log(f"recording, last block: slot 0 (on the signal) {gain_db:.1f} dB above slot 1, FM-demodulates to "
+        f"{tone:.1f} Hz")
+    if gain_db < 10 or abs(tone - RT_TONE) >= 40:
+        raise RuntimeError(f"the 491.52 Msps signal was not recorded: {gain_db:.1f} dB, {tone:.1f} Hz")
+
+    t0 = time.perf_counter()
+    ref = MainPath(torch.device("cpu"), geo, ring=path.ring[:BAND_491_CPU_BLOCKS], learn_ms=BAND_491_LEARN_MS)
+    ref_out = []
+    for b in range(BAND_491_CPU_BLOCKS):
+        outs = ref.run_block(b)
+        ref_out.append((outs.packed.numpy(), outs.recording.numpy()))
+    cpu_s = time.perf_counter() - t0
+    del ref
+    held = hold_step_against_cpu(card_out[:BAND_491_CPU_BLOCKS], ref_out, geo.frames)
+    log(f"card vs CPU step, blocks 0..{BAND_491_CPU_BLOCKS - 1} ({cpu_s:.1f} s on the CPU): counts and readiness "
+        f"equal; {held['idx_mismatch']:.4%} of candidate indices and voted bins differ at most in a block (bar "
+        f"0.5%: near-ties; top-K values there within {held['tie_val']:.3g} dB), values where they agree and key "
+        f"values within {held['val']:.3g} dB (bar {PSD_TOL_DB:g}), recordings within {held['rec_lsb']} LSB "
+        f"({held['rec_differ']} samples differ)")
+    worst = {}
+    for b in range(geo.blocks):
+        block = path.ring[b]
+        got = scan_pipeline._frames_power(cfg, block)[0]
+        want_rows = psd_kernel.psd_frames_int8_plain(block[0], float(cfg.sample_rate), cfg.fft_size,
+                                                     cfg.decimator_factor)
+        a = psd_agreement(got, want_rows)
+        if not psd_within_bar(a):
+            raise RuntimeError(f"block {b}: the step's PSD rows are off the plain version's: {a}")
+        worst = max(worst, a, key=lambda x: x.get("max_db", -1.0))
+    frames = path.ring[0][0]
+    psd_ms = cuda_ms(lambda: psd_kernel.psd_frames_int8(frames, float(cfg.sample_rate), cfg.fft_size,
+                                                         cfg.decimator_factor), 5)
+    steady = float(np.mean(block_ms[1:]))
+    log(f"PSD rows vs plain, worst block: max {worst['max_db']:.3g} dB within {PSD_NEAR_DB:g} dB of the peak, "
+        f"all-bin median {worst['median_db']:.3g} dB, |dP| {worst['linear']:.3g} of the peak")
+    log(f"{geo.name}: {steady:.1f} ms a block (blocks 1..{geo.blocks - 1}; first {block_ms[0]:.1f}), real time "
+        f"{cfg.block_samples / cfg.sample_rate * 1e3:.1f} ms; the PSD kernel {psd_ms:.3f} ms a block (CUDA events) "
+        f"on {card}")
+    del path
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_every_fft(dev, card: str) -> dict:
+    """Step 12b-d; returns {phase: counts}."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_narrow_") as tmp:
+        launches.update(run_narrow_wideband(dev, card, Path(tmp)))
+        launches["narrow_session"] = run_narrow_session(dev, card, Path(tmp))
+    launches["band_491"] = run_band_491(dev, card)
+    return launches
+
+
 def child_main(argv) -> int:
     """A step 11 process: ``--child MODE RANK WORLD PORT ROOT ARGS``, on card
     0 of what CUDA_VISIBLE_DEVICES shows it."""
@@ -2187,8 +2535,13 @@ def main() -> int:
     # the wideband phases' shapes: selection, and the FIR's stage 2 (a
     # multi-host process's session shard takes no FIR stage)
     wide = (WIDE, WIDE_RT, WIDE_SHARD, MH_SHARD)
-    psd_err, sel_err = check_psd_and_selection(timed, timed + wide, dev)
-    fir_err = check_fir(timed + (WIDE, WIDE_SHARD), dev)
+    # step 12's paths are held at their own shapes here too (the 491.52
+    # Msps selection at its 16 rows in step 12a)
+    psd_err, sel_err = check_psd_and_selection(timed + (NARROW_RT, BAND_491), timed + wide + (NARROW_WIDE, NARROW_RT),
+                                               dev)
+    fir_err = check_fir(timed + (WIDE, WIDE_SHARD, BAND_491), dev)
+    narrow_psd_err, narrow_sel_err = check_narrow_kernels(dev)
+    psd_err, sel_err = max(psd_err, narrow_psd_err), max(sel_err, narrow_sel_err)
     if not args.kernels_only:
         # the paths before any timing: the profiler's tracing, once started,
         # slows every later launch of the process
@@ -2203,8 +2556,11 @@ def main() -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_multi_host(dev, card, root))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
-    records = time_psd_and_selection(timed, dev, card, psd_err, sel_err, sel_only=wide)
-    records.append(time_fir(timed + (WIDE, WIDE_SHARD), PATH2, dev, card, fir_err))
+        launches.update(run_every_fft(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
+    records = time_psd_and_selection(timed + (NARROW_RT, BAND_491), dev, card, psd_err, sel_err,
+                                     sel_only=wide + (NARROW_WIDE,))
+    records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491), PATH2, dev, card, fir_err))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

@@ -52,19 +52,37 @@
 //   operations are ~70% of the byte bound's time at fft 131072) keep it
 //   above the byte bound; PERF.md has the split.
 //
-// * Scratch form, fft > 2^17 (2^18..2^20: wideband front ends at the 250 Hz
-//   step). The cluster form stops at 2^17 = 16 blocks of 8192 points (a
-//   cluster holds at most 16 blocks; 2^19 would not fit 16 blocks' shared
-//   memory at all), so two passes of radix-2 FFTs in shared memory pass a
-//   complex f32 scratch in global memory between them:
-//     pass 1: one block per (frame, 16 columns n2) loads its int8 pairs,
-//             dequantizes and windows them, runs sixteen N1-point FFTs,
+// * Scratch form, fft > 2^17 (2^18..2^22: wideband front ends at the 250 Hz
+//   step, up to a 1.048 Gsps band). The cluster form stops at 2^17 = 16
+//   blocks of 8192 points (a cluster holds at most 16 blocks; 2^19 would not
+//   fit 16 blocks' shared memory at all), so two passes of radix-2 FFTs in
+//   shared memory pass a complex f32 scratch in global memory between them:
+//     pass 1: one block per (frame, S columns n2) loads its int8 pairs,
+//             dequantizes and windows them, runs S N1-point FFTs,
 //             multiplies by the twiddle and writes C[k1][n2] to the scratch;
-//     pass 2: one block per (frame, 16 rows k1) loads C[k1][:], runs sixteen
+//     pass 2: one block per (frame, S rows k1) loads C[k1][:], runs S
 //             N2-point FFTs and writes the dB of X[k2*N1 + k1].
+//   S = 16 sequences a block up to N1 = N2 = 1024 (2^20, as before); a pass
+//   over 2048-point sequences (fft 2^21: N1 = 2048; 2^22: both) takes S = 8,
+//   so that its S x 2048 complex points and twiddles fit a block's shared
+//   memory (136 KB). S >= 8 keeps pass 1's int8 reads in runs of 16 B and
+//   pass 2's dB writes in 32 B sectors, so 2^22 is the largest fft.
 //   Its scratch round trip costs 2 x 8 B per point on top of the 6 B the
-//   function must move. The wrapper asks psd_scratch_bytes() whether a size
+//   function must move: 22 B a point. Bound (bytes, the larger): 16 frames
+//   of 2^21 (the 491.52 Msps block) must move 0.201 GB, 0.060 ms at 3.35
+//   TB/s (their 5 N log2 N operations: 0.053 ms at the f32 peak); 16 of
+//   2^22, 0.120 ms. The wrapper asks psd_scratch_bytes() whether a size
 //   needs the scratch; the on-chip forms take none.
+//
+// * Small-frame form, fft <= 128 (a band of 32 kHz or less at 250 Hz bins).
+//   The one-block form's passes hold 32 points a thread and need N2 >= 16,
+//   and a 128-point frame is 4 threads' work, so a block takes 4096 / N
+//   frames (32 at fft 128, 256 at fft 16): it loads their int8 pairs in
+//   bit-reversed order into shared memory (32 KB), runs their radix-2 FFTs
+//   side by side (neighbouring threads on neighbouring butterflies) and
+//   writes the dB rows, contiguous across the block's frames. Bound (bytes,
+//   the larger): 6 B a point, 1.38 MB and 0.41 us for 1800 frames of fft
+//   128 at 3.35 TB/s; at these sizes the launch sets its time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -83,8 +101,23 @@ constexpr int kOnChipMaxLog = 17;  // a cluster of 16 blocks, the most the card 
 
 // ---- scratch form
 constexpr int kThreads = 256;
-constexpr int kCols = 16;  // pass 1: n2 columns per block
-constexpr int kRows = 16;  // pass 2: k1 rows per block
+constexpr int kScratchMaxLog = 22;  // S >= 8 sequences a pass's block up to 2048 points
+constexpr int kSeqLog = 10;  // sequences up to 1024 points go 16 a block, 2048 go 8
+
+// ---- small-frame form
+constexpr int kSmallMaxLog = 7;  // fft <= 128
+constexpr int kSmallPointsLog = 12;  // 4096 points a block: 4096 / N frames
+
+// The forms as psd_form() numbers them (ops/cuda/psd_kernel.FORMS names
+// them); the dispatcher and the queries below all decide by form_of().
+enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3, kScratch8 = 4 };
+
+Form form_of(int log_n) {
+  if (log_n <= kSmallMaxLog) return kSmall;
+  if (log_n <= kSingleMaxLog) return kBlock;
+  if (log_n <= kOnChipMaxLog) return kCluster;
+  return (log_n + 1) / 2 <= kSeqLog ? kScratch : kScratch8;  // N1 = 2^ceil(log_n / 2)
+}
 
 __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
   return __brev(x) >> (32 - bits);
@@ -554,9 +587,12 @@ __device__ void fft_batch(float2* s, const float2* tw, int log_n, int log_batch,
   }
 }
 
+// LOG_COLS: log2 of the n2 columns a block (4: 16, 3: 8)
+template <int LOG_COLS>
 __global__ void __launch_bounds__(kThreads)
 psd_pass1(const char2* __restrict__ iq, const float* __restrict__ win,
           float2* __restrict__ scratch, int log_n1, int log_n2, int decim) {
+  constexpr int kCols = 1 << LOG_COLS;
   extern __shared__ float2 smem[];
   const int n1 = 1 << log_n1, n2 = 1 << log_n2;
   const long long n = (long long)n1 * n2;
@@ -576,7 +612,7 @@ psd_pass1(const char2* __restrict__ iq, const float* __restrict__ win,
         make_float2((float)v.x / 127.5f * w, (float)v.y / 127.5f * w);
   }
   __syncthreads();
-  fft_batch(a, tw, log_n1, 4, kCols, 1, true);  // kCols = 2^4
+  fft_batch(a, tw, log_n1, LOG_COLS, kCols, 1, true);
   float2* c = scratch + frame * n;
   for (int e = threadIdx.x; e < n1 * kCols; e += blockDim.x) {
     const int g = e % kCols, k1 = e / kCols;
@@ -587,9 +623,12 @@ psd_pass1(const char2* __restrict__ iq, const float* __restrict__ win,
   }
 }
 
+// LOG_ROWS: log2 of the k1 rows a block (4: 16, 3: 8)
+template <int LOG_ROWS>
 __global__ void __launch_bounds__(kThreads)
 psd_pass2(const float2* __restrict__ scratch, float* __restrict__ out,
           int log_n1, int log_n2, float rate) {
+  constexpr int kRows = 1 << LOG_ROWS;
   extern __shared__ float2 smem[];
   const int n1 = 1 << log_n1, n2 = 1 << log_n2;
   const long long n = (long long)n1 * n2;
@@ -604,7 +643,7 @@ psd_pass2(const float2* __restrict__ scratch, float* __restrict__ out,
     d[r * n2 + bitrev(i, log_n2)] = c[e];
   }
   __syncthreads();
-  fft_batch(d, tw, log_n2, 4, 1, n2, false);  // kRows = 2^4
+  fft_batch(d, tw, log_n2, LOG_ROWS, 1, n2, false);
   float* o = out + frame * n;
   for (int e = threadIdx.x; e < kRows * n2; e += blockDim.x) {
     const int r = e % kRows, k2 = e / kRows;
@@ -614,28 +653,104 @@ psd_pass2(const float2* __restrict__ scratch, float* __restrict__ out,
   }
 }
 
+template <int LOG_COLS>
+cudaError_t launch_pass1(const void* iq, const void* win, void* scratch, int frames, int log_n1,
+                         int log_n2, int decim, cudaStream_t s) {
+  const int n1 = 1 << log_n1;
+  const int sm = (int)((n1 / 2 + ((size_t)n1 << LOG_COLS)) * sizeof(float2));
+  const cudaError_t err =
+      cudaFuncSetAttribute(psd_pass1<LOG_COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+  if (err != cudaSuccess) return err;
+  psd_pass1<LOG_COLS><<<dim3((1 << log_n2) >> LOG_COLS, frames), kThreads, sm, s>>>(
+      (const char2*)iq, (const float*)win, (float2*)scratch, log_n1, log_n2, decim);
+  return cudaSuccess;
+}
+
+template <int LOG_ROWS>
+cudaError_t launch_pass2(const void* scratch, void* out, int frames, int log_n1, int log_n2,
+                         float rate, cudaStream_t s) {
+  const int n2 = 1 << log_n2;
+  const int sm = (int)((n2 / 2 + ((size_t)n2 << LOG_ROWS)) * sizeof(float2));
+  const cudaError_t err =
+      cudaFuncSetAttribute(psd_pass2<LOG_ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+  if (err != cudaSuccess) return err;
+  psd_pass2<LOG_ROWS><<<dim3((1 << log_n1) >> LOG_ROWS, frames), kThreads, sm, s>>>(
+      (const float2*)scratch, (float*)out, log_n1, log_n2, rate);
+  return cudaSuccess;
+}
+
 int launch_scratch(const void* iq, const void* win, void* scratch, void* out, int frames,
                    int log_n1, int log_n2, int decim, float rate, cudaStream_t s) {
-  const int n1 = 1 << log_n1, n2 = 1 << log_n2;
-  const int sm1 = (int)((n1 / 2 + (size_t)n1 * kCols) * sizeof(float2));
-  const int sm2 = (int)((n2 / 2 + (size_t)kRows * n2) * sizeof(float2));
-  cudaError_t err = cudaFuncSetAttribute(psd_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, sm1);
+  cudaError_t err = log_n1 <= kSeqLog
+                        ? launch_pass1<4>(iq, win, scratch, frames, log_n1, log_n2, decim, s)
+                        : launch_pass1<3>(iq, win, scratch, frames, log_n1, log_n2, decim, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(psd_pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, sm2);
+  err = log_n2 <= kSeqLog ? launch_pass2<4>(scratch, out, frames, log_n1, log_n2, rate, s)
+                          : launch_pass2<3>(scratch, out, frames, log_n1, log_n2, rate, s);
   if (err != cudaSuccess) return (int)err;
-  psd_pass1<<<dim3(n2 / kCols, frames), kThreads, sm1, s>>>(
-      (const char2*)iq, (const float*)win, (float2*)scratch, log_n1, log_n2, decim);
-  psd_pass2<<<dim3(n1 / kRows, frames), kThreads, sm2, s>>>(
-      (const float2*)scratch, (float*)out, log_n1, log_n2, rate);
+  return (int)cudaGetLastError();
+}
+
+// ---- small-frame form (fft <= 128)
+
+// A block's 4096 / N frames of N = 2^log_n points: frame f of the block at
+// a[f*N ...], loaded bit-reversed, transformed in place by fft_batch (lanes
+// along the butterflies of a frame), written out as dB rows. Slots past the
+// last frame transform zeros and write nothing.
+__global__ void __launch_bounds__(kThreads)
+psd_small(const char2* __restrict__ iq, const float* __restrict__ win, float* __restrict__ out,
+          int frames, int log_n, int decim, float rate) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << log_n;
+  const int log_f = kSmallPointsLog - log_n;  // frames a block, log2
+  float2* tw = smem;          // [n/2]
+  float2* a = smem + n / 2;  // [4096]
+  const long long f0 = (long long)blockIdx.x << log_f;
+  fill_twiddles(tw, n);
+  for (int e = threadIdx.x; e < (1 << kSmallPointsLog); e += blockDim.x) {
+    const int f = e >> log_n, i = e & (n - 1);
+    const long long frame = f0 + f;
+    float2 x = make_float2(0.0f, 0.0f);
+    if (frame < frames) {  // the Decimator keeps the first N pairs of each N*decim group
+      const char2 v = iq[frame * n * decim + i];
+      const float w = win[i];
+      x = make_float2((float)v.x / 127.5f * w, (float)v.y / 127.5f * w);
+    }
+    a[(f << log_n) + (int)bitrev(i, log_n)] = x;
+  }
+  __syncthreads();
+  fft_batch(a, tw, log_n, log_f, 1, n, false);
+  const long long valid = ((long long)frames - f0) << log_n;  // points of real frames here
+  float* o = out + (f0 << log_n);
+  for (int e = threadIdx.x; e < (1 << kSmallPointsLog) && e < valid; e += blockDim.x) {
+    const float2 v = a[e];
+    const float p = v.x * v.x + v.y * v.y;
+    o[e] = 10.0f * log10f(fmaxf(p, 1e-30f) / rate);
+  }
+}
+
+int launch_small(const void* iq, const void* win, void* out, int frames, int log_n, int decim,
+                 float rate, cudaStream_t s) {
+  const int n = 1 << log_n;
+  const int sm = (int)((n / 2 + (1 << kSmallPointsLog)) * sizeof(float2));
+  const int log_f = kSmallPointsLog - log_n;
+  const int blocks = (int)(((long long)frames + (1 << log_f) - 1) >> log_f);
+  psd_small<<<blocks, kThreads, sm, s>>>((const char2*)iq, (const float*)win, (float*)out, frames,
+                                         log_n, decim, rate);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of global scratch one frame needs: 0 for the on-chip forms
-// (fft <= 2^17), a complex f32 frame for the scratch form.
+// The form that takes fft = 2^log_n (enum Form), or -1 outside [2, 2^22].
+extern "C" int psd_form(int log_n) {
+  return log_n < 1 || log_n > kScratchMaxLog ? -1 : (int)form_of(log_n);
+}
+
+// Bytes of global scratch one frame needs: 0 for the on-chip and
+// small-frame forms (fft <= 2^17), a complex f32 frame for the scratch form.
 extern "C" int psd_scratch_bytes(int log_n1, int log_n2) {
-  return log_n1 + log_n2 > kOnChipMaxLog ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
+  return form_of(log_n1 + log_n2) >= kScratch ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
 }
 
 // Clusters of the cluster form that the card holds at once
@@ -643,7 +758,7 @@ extern "C" int psd_scratch_bytes(int log_n1, int log_n2) {
 // negative CUDA error code on failure.
 extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
   const int log_n = log_n1 + log_n2;
-  if (log_n <= kSingleMaxLog || log_n > kOnChipMaxLog) return 0;
+  if (form_of(log_n) != kCluster) return 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   OnChipKernel fn;
@@ -655,8 +770,9 @@ extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
 
 // iq: [frames, fft*decim, 2] int8; win: [fft] f32 (Hamming * (-1)^n);
 // scratch: psd_scratch_bytes() per frame, or null where that is 0;
-// out: [frames, fft] f32. fft = 2^(log_n1 + log_n2) with
-// 16 <= 2^log_n2 <= 2^log_n1 <= 1024 and log_n1 - log_n2 <= 1 (_split_n).
+// out: [frames, fft] f32. fft = 2^(log_n1 + log_n2), 2 <= fft <= 2^22, with
+// log_n1 = ceil(log2(fft) / 2) (_split_n); fft <= 128 takes the small-frame
+// form, which splits nothing.
 // Returns cudaGetLastError(); a launch the card refuses (a cluster it cannot
 // place) is returned, never rerouted.
 extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, void* out,
@@ -664,11 +780,16 @@ extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, v
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int log_n = log_n1 + log_n2;
-  if (log_n > kOnChipMaxLog) {
+  if (frames <= 0 || decim <= 0 || log_n < 1 || log_n1 != (log_n + 1) / 2 ||
+      log_n > kScratchMaxLog) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Form form = form_of(log_n);
+  if (form == kSmall) return launch_small(iq, win, out, frames, log_n, decim, rate, s);
+  if (form >= kScratch) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     return launch_scratch(iq, win, scratch, out, frames, log_n1, log_n2, decim, rate, s);
   }
-  if (log_n1 != (log_n + 1) / 2) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   OnChipKernel fn;

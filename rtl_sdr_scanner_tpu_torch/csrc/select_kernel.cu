@@ -37,6 +37,18 @@
 //     new zone covers whole become (sentinel, first bin); the <= 2 it cuts
 //     are re-reduced together, every bin tested against the zones so far.
 //
+// Rows of at most 128 bins (fft 1-128: narrow channels and bands, 32 kHz
+// and less at 250 Hz bins) take a second form, selection_small: a table of
+// whole leaves does not fit them (fft 128 is 4 leaves, fft 16 half a lane
+// set). A warp owns a row and holds it in registers, bin b in lane b mod 32
+// at slot b / 32 (4 slots), so no shared memory is used. A winner is one
+// argmax over the lanes' bests (2 redux.sync); top-K takes the winner out
+// of the race (a taken bit a slot), the margin phase sets every bin within
+// +-submargin of it to the sentinel's key (a zone may cover the whole row,
+// and the suppressed bins stay in the race, as the TPU kernel has them).
+// Its bound is its latency too: K + K_SEP winners a row, each a few
+// register compares and two reductions.
+//
 // Tie and sentinel rules are the TPU kernel's, bit for bit: (value desc,
 // index asc) at every level; a suppressed bin compares as the sentinel
 // -3.3e38 cast to the row dtype (passed in as `neg`), including the
@@ -57,6 +69,8 @@ constexpr int kLeavesALoad = 8;  // one warp load spans 8 leaves
 constexpr int kUnroll = 4;      // 16-byte loads a lane in flight while the last 4 are reduced
 constexpr uint32_t kNone = 0u;  // key below every value's: an exhausted leaf
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmallMaxFft = 128;  // the register form's rows: 4 slots of 32 lanes
+constexpr int kSmallSlots = kSmallMaxFft / 32;
 constexpr int kMaxDevices = 64;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, what one block may use
 
@@ -385,6 +399,90 @@ selection_kernel(const T* __restrict__ rows, const float* __restrict__ level,
   }
 }
 
+// The register form, rows of fft <= 128 bins: lane l holds bins l + 32 e
+// (e < kSmallSlots) of its warp's row; a bin past the row is out of both
+// races. Slots are indexed by unrolled loops only (register arrays).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+selection_small(const T* __restrict__ rows, const float* __restrict__ level,
+                T* __restrict__ top_val, int* __restrict__ top_idx, T* __restrict__ sep_val,
+                int* __restrict__ sep_idx, int* __restrict__ count, int n_rows, int fft, int top_k,
+                int k_sep, int submargin, float neg) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= n_rows) return;  // whole warps only
+  const T* row = rows + r * fft;
+  const float lev = to_row_dtype(*level, rows);
+  const uint32_t nk = key_of(neg);
+  float v[kSmallSlots];
+  uint32_t key[kSmallSlots];
+  uint32_t live = 0, cnt = 0;  // live: a bit a slot inside the row
+#pragma unroll
+  for (int e = 0; e < kSmallSlots; ++e) {
+    const int b = lane + 32 * e;
+    v[e] = b < fft ? load(row, b) : 0.0f;
+    key[e] = key_of(v[e]);
+    if (b < fft) {
+      live |= 1u << e;
+      cnt += v[e] >= lev;
+    }
+  }
+  cnt = __reduce_add_sync(kFull, cnt);
+  if (lane == 0) count[r] = (int)cnt;
+
+  // ---- phase 1: exact top-K; a winner leaves the race (K <= fft: a bin is left)
+  uint32_t racing = live;
+  for (int i = 0; i < top_k; ++i) {
+    uint32_t bk = kNone, bi = 0xffffffffu;
+#pragma unroll
+    for (int e = 0; e < kSmallSlots; ++e) {
+      const uint32_t b = (uint32_t)(lane + 32 * e);
+      if (((racing >> e) & 1u) && better(key[e], b, bk, bi)) {
+        bk = key[e];
+        bi = b;
+      }
+    }
+    warp_best(bk, bi);
+    if ((int)(bi & 31u) == lane) {
+#pragma unroll
+      for (int e = 0; e < kSmallSlots; ++e) {
+        if ((int)(bi >> 5) == e) {
+          racing &= ~(1u << e);
+          store(top_val, r * top_k + i, v[e]);
+        }
+      }
+      top_idx[r * top_k + i] = (int)bi;
+    }
+  }
+
+  // ---- phase 2: margin-separated greedy; a zone's bins compare as the sentinel
+  uint32_t supp = 0;
+  for (int i = 0; i < k_sep; ++i) {
+    uint32_t bk = kNone, bi = 0xffffffffu;
+#pragma unroll
+    for (int e = 0; e < kSmallSlots; ++e) {
+      const uint32_t b = (uint32_t)(lane + 32 * e);
+      const uint32_t k = ((supp >> e) & 1u) ? nk : key[e];
+      if (((live >> e) & 1u) && better(k, b, bk, bi)) {
+        bk = k;
+        bi = b;
+      }
+    }
+    warp_best(bk, bi);
+    if ((int)(bi & 31u) == lane) {
+#pragma unroll
+      for (int e = 0; e < kSmallSlots; ++e) {
+        if ((int)(bi >> 5) == e) store(sep_val, r * k_sep + i, ((supp >> e) & 1u) ? neg : v[e]);
+      }
+      sep_idx[r * k_sep + i] = (int)bi;
+    }
+#pragma unroll
+    for (int e = 0; e < kSmallSlots; ++e) {
+      if (abs(lane + 32 * e - (int)bi) <= submargin) supp |= 1u << e;
+    }
+  }
+}
+
 bool g_ready[kMaxDevices][2];
 std::mutex g_ready_mutex;  // sessions on several host threads may share a card
 
@@ -417,8 +515,9 @@ int launch(int slot, const void* rows, const void* level, void* top_val, void* t
 }  // namespace
 
 // rows: [n_rows, fft] f32 (is_bf16 = 0) or bf16 (1), 16-byte aligned;
-// leaf_w: bins a leaf (ops/cuda/select_kernel.leaf_width: a power of 2 >= 32
-// dividing fft into a multiple of 8 leaves, and of 32 above 32 leaves);
+// fft <= 128 takes the register form (leaf_w unused); above, leaf_w: bins a
+// leaf (ops/cuda/select_kernel.leaf_width: a power of 2 >= 32 dividing fft
+// into a multiple of 8 leaves, and of 32 above 32 leaves);
 // k_sep <= 32 (a lane a zone);
 // level: one f32 on the
 // device; outputs top_val/sep_val in the row dtype, top_idx/sep_idx/count
@@ -427,15 +526,30 @@ extern "C" int fused_selection(const void* rows, int is_bf16, const void* level,
                                void* top_idx, void* sep_val, void* sep_idx, void* count,
                                int n_rows, int fft, int leaf_w, int top_k, int k_sep,
                                int submargin, float neg, void* stream) {
-  const int n_leaf = leaf_w > 0 ? fft / leaf_w : 0;
-  if (n_rows <= 0 || leaf_w < 32 || (leaf_w & (leaf_w - 1)) != 0 || fft % leaf_w != 0 ||
-      n_leaf % kLeavesALoad != 0 || (n_leaf > kGroups && n_leaf % kGroups != 0) ||
-      top_k < 1 || top_k > fft || k_sep < 1 || k_sep > 32 ||
-      submargin < 0 ||
-      ((uintptr_t)rows & 15) != 0) {
+  if (n_rows <= 0 || fft < 1 || top_k < 1 || top_k > fft || k_sep < 1 || k_sep > 32 ||
+      submargin < 0 || ((uintptr_t)rows & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  if (fft <= kSmallMaxFft) {
+    const int blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    if (is_bf16) {
+      selection_small<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+          (const __nv_bfloat16*)rows, (const float*)level, (__nv_bfloat16*)top_val, (int*)top_idx,
+          (__nv_bfloat16*)sep_val, (int*)sep_idx, (int*)count, n_rows, fft, top_k, k_sep, submargin,
+          neg);
+    } else {
+      selection_small<float><<<blocks, kThreads, 0, s>>>(
+          (const float*)rows, (const float*)level, (float*)top_val, (int*)top_idx, (float*)sep_val,
+          (int*)sep_idx, (int*)count, n_rows, fft, top_k, k_sep, submargin, neg);
+    }
+    return (int)cudaGetLastError();
+  }
+  const int n_leaf = leaf_w > 0 ? fft / leaf_w : 0;
+  if (leaf_w < 32 || (leaf_w & (leaf_w - 1)) != 0 || fft % leaf_w != 0 ||
+      n_leaf % kLeavesALoad != 0 || (n_leaf > kGroups && n_leaf % kGroups != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (is_bf16) {
     return launch<__nv_bfloat16>(1, rows, level, top_val, top_idx, sep_val, sep_idx, count,
                                  n_rows, fft, leaf_w, top_k, k_sep, submargin, neg, s);

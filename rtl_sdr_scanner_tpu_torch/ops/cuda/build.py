@@ -34,6 +34,7 @@ _F = ctypes.c_float
 # cudaGetLastError; the psd_ queries return a count)
 SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "psd_form": [_I],
     "psd_scratch_bytes": [_I, _I],
     "psd_max_active_clusters": [_I, _I],
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -3,9 +3,9 @@ and its plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas/psd_kernel.py``
 (``psd_frames_int8_pallas``). The kernel's note says which form runs for
-which fft (on chip up to 2^17: one block or one thread-block cluster per
-frame; a global scratch above), what bounds each and what its design does
-about it.
+which fft (up to 128: many frames a block; on chip up to 2^17: one block or
+one thread-block cluster per frame; a global scratch above, up to 2^22),
+what bounds each and what its design does about it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,12 @@ import torch
 from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, device_window, psd_frames
 
 
+MAX_FFT = 1 << 22  # the scratch form's passes keep >= 8 sequences of <= 2048 points a block
+# the kernel's forms, in the order of the library's psd_form() numbers
+FORMS = ("small-frame form", "one block a frame", "cluster form", "scratch form",
+         "scratch form, 8 sequences a pass's block")
+
+
 def _split_n(n: int) -> Tuple[int, int]:
     """N = N1*N2 with N1 >= N2, both powers of two (N a power of two)."""
     log = n.bit_length() - 1
@@ -25,12 +31,21 @@ def _split_n(n: int) -> Tuple[int, int]:
 
 
 def takes_fft(fft_size: int) -> bool:
-    """Whether the kernel takes frames of ``fft_size``: a power of two in
-    [256, 2^20]."""
-    if fft_size <= 0 or fft_size & (fft_size - 1):
-        return False
-    n1, n2 = _split_n(fft_size)
-    return n2 >= 16 and n1 <= 1024
+    """Whether the kernel takes frames of ``fft_size``: a power of two from 2
+    (the function's fftshift rides in the window, so the fft is even) to
+    2^22 (a 1.048 Gsps band at 250 Hz bins)."""
+    return 2 <= fft_size <= MAX_FFT and fft_size & (fft_size - 1) == 0
+
+
+def form(fft_size: int) -> str:
+    """The kernel's form for frames of ``fft_size``, as the library (built
+    on the card's machine) reports it."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.build import library
+
+    number = library().psd_form(fft_size.bit_length() - 1)
+    if number < 0 or not takes_fft(fft_size):
+        raise ValueError(f"psd_frames_int8: no form takes fft {fft_size}")
+    return FORMS[number]
 
 
 def psd_frames_int8_plain(
@@ -63,7 +78,7 @@ def psd_frames_int8(
     if not iq_int8.is_contiguous():
         raise ValueError("psd_frames_int8: input must be contiguous")
     if n1 * n2 != fft_size or not takes_fft(fft_size):
-        raise ValueError(f"psd_frames_int8: fft {fft_size} must be a power of two in [256, 2^20]")
+        raise ValueError(f"psd_frames_int8: fft {fft_size} must be a power of two in [2, 2^22]")
     if not 0 < frames <= 65535:
         raise ValueError(f"psd_frames_int8: {frames} frames outside the grid's 1..65535")
     from rtl_sdr_scanner_tpu_torch.ops.cuda.build import check, library

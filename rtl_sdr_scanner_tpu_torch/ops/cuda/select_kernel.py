@@ -27,6 +27,7 @@ LEAVES_A_LOAD = 8  # one warp load of the table pass spans 8 leaves
 FFT_MULTIPLE = LEAVES_A_LOAD * LEAF_MIN  # fft must be a multiple (256): whole loads of whole leaves
 MAX_LEAVES = 1024  # leaves widen (doubling) while a row has more
 MAX_K_SEP = 32  # margin winners: the kernel tests a bin against the zones, a lane a zone
+SMALL_MAX_FFT = 128  # rows of at most this many bins take the register form (4 bins a lane)
 
 
 def leaf_width(fft: int) -> int:
@@ -40,10 +41,13 @@ def leaf_width(fft: int) -> int:
 
 
 def takes_fft(fft: int) -> bool:
-    """Whether the kernel's table fits rows of ``fft`` bins: whole warp loads
-    of whole leaves (fft a multiple of 256), and whole groups of leaves where
-    a row has more than 32 leaves (below, a group is a leaf). Every power of
-    two from 256 up."""
+    """Whether the kernel takes rows of ``fft`` bins: any row of at most 128
+    bins (its register form, a row held in its warp's registers), and above
+    that rows its table fits: whole warp loads of whole leaves (fft a
+    multiple of 256), and whole groups of leaves where a row has more than
+    32 leaves (below, a group is a leaf). Every power of two."""
+    if 0 < fft <= SMALL_MAX_FFT:
+        return True
     n_leaf = fft // leaf_width(fft)
     return fft > 0 and fft % FFT_MULTIPLE == 0 and (n_leaf <= GROUPS or n_leaf % GROUPS == 0)
 
@@ -55,8 +59,9 @@ def check_args(rows: torch.Tensor, top_k: int, k_sep: int, submargin: int) -> No
     fft = rows.shape[1]
     if not takes_fft(fft) or not 1 <= top_k <= fft or not 1 <= k_sep <= MAX_K_SEP or submargin < 0:
         raise ValueError(
-            f"fused_selection: fft {fft} must be a multiple of {FFT_MULTIPLE} (of {GROUPS * LEAF_MIN} "
-            f"above {GROUPS} leaves), 1 <= top_k <= fft, 1 <= k_sep <= {MAX_K_SEP}, submargin >= 0"
+            f"fused_selection: fft {fft} must be at most {SMALL_MAX_FFT} or a multiple of {FFT_MULTIPLE} "
+            f"(of {GROUPS * LEAF_MIN} above {GROUPS} leaves), 1 <= top_k <= fft, 1 <= k_sep <= {MAX_K_SEP}, "
+            "submargin >= 0"
         )
     if not rows.is_contiguous() or rows.data_ptr() % 16 != 0:
         raise ValueError("fused_selection: rows must be contiguous and 16-byte aligned")

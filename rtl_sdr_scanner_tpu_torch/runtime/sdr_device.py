@@ -96,23 +96,26 @@ def _channel_rate(config: Config, spec: DeviceSpec) -> int:
 
 
 def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
-    """A geometry of this device that a kernel on its card does not take."""
+    """A geometry of this device that a kernel on its card does not take:
+    compact detection at an fft below ``detection_top_k`` (the JAX package's
+    top-k raises on it too), or an int8 fft above the PSD kernel's 2^22 (or
+    of 1, a band below 250 sps). The selection kernel takes every
+    power-of-two fft, and every fft here is one."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda.psd_kernel import takes_fft as psd_takes_fft
-    from rtl_sdr_scanner_tpu_torch.ops.cuda.select_kernel import takes_fft as select_takes_fft
 
     t = config.tunables
     rate = _channel_rate(config, spec)
     fft = ScanConfig.create(rate, tunables=t).fft_size
-    if t.compact_detection and not select_takes_fft(fft):
+    if t.compact_detection and fft < t.detection_top_k:
         return (
-            f"device {spec.name}: fft {fft} at {rate} sps is outside the selection kernel "
-            "(a power of two from 256 up) on the card"
+            f"device {spec.name}: fft {fft} at {rate} sps is below detection_top_k {t.detection_top_k}, "
+            "which the selection kernel on the card cannot take (the JAX package's top-k raises on it too)"
         )
     # a wideband device's channels reach the scan as f32 pairs (no PSD kernel)
     if spec.channels < 2 and t.int8_ingest and not psd_takes_fft(fft):
         return (
-            f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel "
-            "(a power of two in [256, 2^20]) on the card; set tunables.int8_ingest=false"
+            f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel's [2, 2^22] "
+            "on the card; set tunables.int8_ingest=false"
         )
     return None
 
@@ -146,11 +149,13 @@ def unported_path(
 ) -> Optional[str]:
     """Why this config (and device, scanned on the torch ``device``) needs a
     path the port does not have, or a geometry its card's kernels do not
-    take; None when it runs. Every path of the JAX package is ported, so
-    only kernel geometries remain. The time and band shards of a mesh run
-    the kernels at the device's own fft (a shard holds fewer frames or
-    bands, never narrower rows), so the kernel check covers them too, on
-    every process of a multi-host run."""
+    take; None when it runs. Every path of the JAX package is ported, and
+    the kernels take every geometry the JAX package scans, so only compact
+    detection below ``detection_top_k`` (which the JAX package cannot run
+    either) and an int8 fft above 2^22 remain. The time and band shards of
+    a mesh run the kernels at the device's own fft (a shard holds fewer
+    frames or bands, never narrower rows), so the kernel check covers them
+    too, on every process of a multi-host run."""
     if spec is not None and device is not None and device.type == "cuda":
         return _kernel_refusal(config, spec)
     return None

@@ -55,16 +55,44 @@ def test_psd_kernel_matches_plain(fft, decim, frames, dev):
     assert diff.median().item() <= 1e-3
 
 
+@pytest.mark.parametrize("fft,decim,frames", [
+    (2, 1, 3), (16, 1, 7), (32, 2, 33),  # the small-frame form: 4096 / fft frames a block
+    (64, 3, 129), (128, 4, 1801), (128, 1, 1),
+    (1 << 21, 1, 3), (1 << 21, 4, 3),  # the scratch form's 8-sequence pass 1 (N1 = 2048)
+    (1 << 22, 2, 3), (1 << 22, 3, 1),  # and pass 2 (N2 = 2048)
+])
+def test_psd_kernel_small_and_large_forms_match_plain(fft, decim, frames, dev):
+    """The forms for fft <= 128 and 2^21-2^22 against the plain version under
+    the PSD bar (chip_smoke.psd_agreement: 0.02 dB within 60 dB of the
+    frame's peak, a median of 1e-3 dB over every bin, |dP| <= 1e-5 of the
+    peak power)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(fft + frames + decim)
+    iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
+    before = psd_kernel.psd_frames_int8.launches
+    got = psd_kernel.psd_frames_int8(iq, 256000.0, fft, decim)
+    torch.cuda.synchronize()
+    assert psd_kernel.psd_frames_int8.launches == before + 1
+    assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
+    want = psd_kernel.psd_frames_int8_plain(iq, 256000.0, fft, decim)
+    agreement = chip_smoke.psd_agreement(got, want)
+    assert chip_smoke.psd_within_bar(agreement), agreement
+
+
 def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
     """fft <= 2^17 stays on chip (one block or one cluster a frame, no
     device-memory intermediate); only the scratch form above needs one."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 
     lib = build.library()
-    for log in range(8, 21):
+    for log in range(1, 23):
         logs = [n.bit_length() - 1 for n in psd_kernel._split_n(1 << log)]
         assert (lib.psd_scratch_bytes(*logs) > 0) == (log > 17)
         assert (lib.psd_max_active_clusters(*logs) > 0) == (15 <= log <= 17)
+        want = 0 if log <= 7 else 1 if log <= 14 else 2 if log <= 17 else 3 if log <= 20 else 4
+        assert psd_kernel.form(1 << log) == psd_kernel.FORMS[want]
+    assert lib.psd_form(0) == lib.psd_form(23) == -1
     fft, frames = 131072, 8
     iq = torch.zeros((frames, fft * DECIM, 2), dtype=torch.int8, device=dev)
     psd_kernel.psd_frames_int8(iq, 256000.0, fft, DECIM)  # the window, cached
@@ -184,6 +212,45 @@ def _rows(fft, rng, n_rows):
 ])
 def test_selection_kernel_bit_exact(fft, top_k, k_sep, submargin, n_rows, dtype, dev):
     t = torch.from_numpy(_rows(fft, np.random.default_rng(fft), n_rows)).to(dtype).to(dev)
+    level = torch.tensor(LEVEL, device=dev)
+    before = select_kernel.fused_selection.launches
+    got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)
+    torch.cuda.synchronize()
+    assert select_kernel.fused_selection.launches == before + 1
+    want = select_kernel.fused_selection_plain(t, level, top_k, k_sep, submargin)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+def _small_rows(fft, rng, n_rows):
+    """Rows of at most 128 bins: ties, masked tails the top-K reaches into
+    (and tails of the sentinel itself), fully masked and all-equal rows,
+    values at the level, the strongest bins at the row's ends."""
+    rows = rng.normal(0.0, 6.0, size=(n_rows, fft)).astype(np.float32)
+    rows[1::7] = np.round(rows[1::7] / 3.0)
+    rows[2::7, fft // 3 :] = -3.0e38
+    rows[3::7, fft // 2 :] = -3.3e38  # SUPPRESSED itself
+    rows[4::7] = -3.0e38
+    rows[5::7] = LEVEL
+    rows[6::7, :2] = 50.0
+    rows[6::7, -2:] = 50.0
+    return rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fft,top_k,k_sep,submargin,n_rows", [
+    (16, 16, 16, 40, 30),  # top_k = fft, zones wider than the row
+    (16, 8, 4, 0, 7),
+    (32, 8, 16, 3, 30),
+    (64, 64, 16, 16, 30),  # a 16 kHz band
+    (64, 32, 32, 100, 30),
+    (128, 64, 16, 32, 1024),  # 64 channels of 32 kHz: group 64
+    (128, 64, 16, 200, 30),
+    (100, 50, 16, 7, 9),  # not a power of two: the register form takes any fft up to 128
+])
+def test_selection_kernel_register_form_bit_exact(fft, top_k, k_sep, submargin, n_rows, dtype, dev):
+    t = torch.from_numpy(_small_rows(fft, np.random.default_rng(fft + top_k), n_rows)).to(dtype).to(dev)
     level = torch.tensor(LEVEL, device=dev)
     before = select_kernel.fused_selection.launches
     got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)
@@ -400,6 +467,33 @@ def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
     for serial, single in (("replay0", mqtt.published), ("replay1", single_wide)):
         mine = [(t, p) for t, p in payloads if t.startswith(f"sdr/replay_{serial}/")]
         assert mine and chip_smoke.compare_payloads(single, mine)["transmissions"] > 0
+
+
+@pytest.mark.parametrize("form", ["split", "fused"])
+def test_64_channel_session_through_main_run_matches_cpu(form, dev, tmp_path):
+    """main.run on a 2.048 Msps device split into 64 channels of 32 kHz (fft
+    128: the selection kernel's register form) on the card, against the
+    same form's CPU run (chip_smoke.compare_payloads); both transmissions
+    recorded at their tones."""
+    import json
+
+    import chip_smoke
+
+    capture = tmp_path / "wide64.cs8"
+    chip_smoke.write_capture(capture, chip_smoke.NW_RATE, 5.0, chip_smoke.NW_SIGNALS, (2.5, 4.5), seed=11)
+    config = chip_smoke.runtime_config(capture, chip_smoke.NW_RATE, chip_smoke.WB_CENTER,
+                                       channels=chip_smoke.NW_CHANNELS, recording_rate=chip_smoke.NARROW_REC_RATE,
+                                       **dict(chip_smoke.NW_FORMS)[form])
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(config))
+    before = select_kernel.fused_selection.launches
+    rc, card = chip_smoke.run_main(path, dev)
+    assert rc == 0 and select_kernel.fused_selection.launches > before
+    cpu, _, _, _ = chip_smoke.run_wideband_scanner(config, torch.device("cpu"))
+    assert chip_smoke.compare_payloads(cpu, card)["transmissions"] > 0
+    for shift, tone in chip_smoke.NW_SIGNALS:
+        _, n, got = chip_smoke.recorded_tone(card, chip_smoke.WB_CENTER + shift, chip_smoke.NARROW_REC_RATE)
+        assert n > chip_smoke.NARROW_REC_RATE and abs(got - tone) < 40
 
 
 def test_time_shards_on_card_match_one_card(dev):

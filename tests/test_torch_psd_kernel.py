@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import psd_agreement, psd_within_bar
 from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
 from rtl_sdr_scanner_tpu.ops.pallas.psd_kernel import psd_frames_int8_pallas
 from rtl_sdr_scanner_tpu.ops.psd import dequantize_cs8, frame_blocks, psd_frames
@@ -18,6 +19,17 @@ from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel as tpsd
 torch.set_num_threads(2)
 DECIM = 3
 RATE = 256000.0
+
+
+def _hold(got, want):
+    """The PSD bar (chip_smoke.psd_agreement): 0.02 dB on the bins within 60
+    dB of their row's peak, a median of 1e-3 dB over every bin, |dP| <= 1e-5
+    of the row's peak power on every bin. f32 FFTs in other summation orders
+    (radix FFTs, the four-step matmul DFT) round a deep null of a noise
+    spectrum apart by more than any dB bar."""
+    rows = [torch.from_numpy(np.array(x, np.float32).reshape(-1, np.shape(x)[-1])) for x in (got, want)]
+    agreement = psd_agreement(*rows)
+    assert psd_within_bar(agreement), agreement
 
 
 def _iq(frames, fft, seed):
@@ -41,10 +53,8 @@ def test_plain_matches_pallas_and_xla(fft):
     xla = np.asarray(
         psd_frames(frame_blocks(dequantize_cs8(jnp.asarray(iq)).reshape(-1), fft, DECIM), RATE)
     )
-    # f32 FFTs in other summation orders (radix FFTs, the four-step matmul
-    # DFT): the JAX package's own tolerance for these, 0.02 dB
-    np.testing.assert_allclose(got, pallas, atol=0.02)
-    np.testing.assert_allclose(got, xla, atol=0.02)
+    _hold(got, pallas)
+    _hold(got, xla)
 
 
 def test_frame_select_and_pairs_match():
@@ -53,9 +63,7 @@ def test_frame_select_and_pairs_match():
     jframes = frame_blocks(jnp.asarray(x[:, 0] + 1j * x[:, 1]).astype(jnp.complex64), 64, DECIM)
     tframes = tps.frame_blocks(tps.pairs_to_complex(torch.from_numpy(x)), 64, DECIM)
     np.testing.assert_array_equal(tframes.numpy(), np.asarray(jframes))
-    np.testing.assert_allclose(
-        tps.psd_frames(tframes, RATE).numpy(), np.asarray(psd_frames(jframes, RATE)), atol=0.02
-    )
+    _hold(tps.psd_frames(tframes, RATE).numpy(), np.asarray(psd_frames(jframes, RATE)))
 
 
 @pytest.mark.parametrize("int8", [True, False])
@@ -70,10 +78,35 @@ def test_frames_power_with_the_kernel_switch_on_the_cpu(int8):
     iq = _iq(3, cfg.fft_size, 11) if int8 else (0.3 * rng.standard_normal(shape)).astype(np.float32)
     want = np.asarray(jsp._frames_power(cfg, jnp.asarray(iq)))
     got = tsp._frames_power(tcfg, torch.from_numpy(iq)[None])[0].numpy()
-    np.testing.assert_allclose(got, want, atol=0.02)
+    _hold(got, want)
 
 
 def test_zero_frames_sit_at_the_floor():
     """|X|^2 = 0 is floored at 1e-30 before the log, on every bin."""
     out = tpsd.psd_frames_int8(torch.zeros((2, 1024 * DECIM, 2), dtype=torch.int8), RATE, 1024, DECIM)
     np.testing.assert_array_equal(out.numpy(), np.float32(10.0 * np.log10(np.float32(1e-30) / np.float32(RATE))))
+
+
+@pytest.mark.parametrize("fft,frames,decim", [
+    (16, 5, 3), (64, 5, 3), (128, 7, 1),  # the kernel's small-frame form: a band of 32 kHz or less
+    (1 << 21, 2, 1), (1 << 21, 2, 3),  # its 8-sequence scratch passes: 491.52 Msps at 234 Hz bins
+])
+def test_plain_matches_xla_at_the_small_and_large_forms(fft, frames, decim):
+    """The sizes the kernel's small-frame form and 8-sequence scratch
+    passes take, where the JAX package's int8 ingest runs XLA's FFT: the
+    plain version (what a CPU tensor gets) within the PSD bar of it."""
+    iq = np.random.default_rng(fft + decim).integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)
+    got = tpsd.psd_frames_int8(torch.from_numpy(iq), RATE, fft, decim).numpy()
+    assert got.shape == (frames, fft) and got.dtype == np.float32
+    xla = psd_frames(frame_blocks(dequantize_cs8(jnp.asarray(iq)).reshape(-1), fft, decim), RATE)
+    _hold(got, np.asarray(xla))
+
+
+def test_kernel_takes_every_power_of_two_up_to_2_22():
+    """Every power of two from 2 to 2^22 (1.048 Gsps at 250 Hz bins) has a
+    form of the kernel; 1 (no fftshift by (-1)^n), 2^23 and sizes that are
+    not powers of two do not."""
+    assert all(tpsd.takes_fft(1 << log) for log in range(1, 23))
+    assert not any(tpsd.takes_fft(fft) for fft in (0, 1, 96, 3 << 10, 1 << 23))
+    assert all(n1 * n2 == fft and n1 in (n2, 2 * n2) for fft in (1 << log for log in range(1, 23))
+               for n1, n2 in [tpsd._split_n(fft)])

@@ -1,13 +1,17 @@
 """Fused candidate selection: the port's plain version bit-exact against the
 JAX package's Pallas kernel (interpret mode on the CPU) in f32 and bf16 over
-the row families of tests/test_pallas_select.py. The CUDA kernel is held
-against the plain version in tests/test_torch_on_card.py."""
+the row families of tests/test_pallas_select.py, and against the JAX
+package's XLA selection (the route its compact detection takes at every
+fft) on rows of 64 and 128 bins. The CUDA kernel is held against the plain
+version in tests/test_torch_on_card.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rtl_sdr_scanner_tpu.ops.detect import _margin_separated_top as jax_margin_top
+from rtl_sdr_scanner_tpu.ops.detect import _pooled_top_k as jax_top_k
 from rtl_sdr_scanner_tpu.ops.pallas.select_kernel import fused_selection as jax_selection
 from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel as tsel
 
@@ -82,14 +86,53 @@ def test_small_k_and_margin():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _small_rows(rng, fft):
+    """Rows of a narrow band after the valid-bin mask: planted ties, masked
+    (-3.0e38) tails the top-64 reaches into, fully masked and all-equal
+    rows, a plateau, and values exactly at the level. No -0.0: XLA's top_k
+    ranks it below 0.0, where the JAX package's Pallas kernel and the port
+    take them as equal (the Pallas cases above hold that rule)."""
+    rows = (np.round(rng.normal(0.0, 3.0, size=(8, fft))) + 0.0).astype(np.float32)  # many exact ties
+    rows[1, fft // 3 :] = -3.0e38
+    rows[2, :] = -3.0e38
+    rows[3, ::2] = -3.0e38
+    rows[4, :] = 5.0
+    rows[5, fft // 2 - 3 : fft // 2 + 3] = 40.0
+    rows[6, : fft // 4] = LEVEL
+    rows[7, -2:] = 30.0  # the strongest bins at the row's end: zones clip there
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("fft,submargin", [(64, 16), (64, 200), (128, 32), (128, 0)])
+def test_plain_matches_jax_xla_selection_on_small_rows(fft, submargin, dtype):
+    """At fft 64 and 128 (16 and 32 kHz bands at 250 Hz bins) the JAX
+    package selects through XLA (compact_detection's pooled top-k, margin
+    greedy and count): the plain version is bit-exact against it, with
+    zones narrower than the row and wider than it."""
+    rows = _small_rows(np.random.default_rng(fft + submargin), fft)
+    jrows, trows = jnp.asarray(rows), torch.from_numpy(rows)
+    if dtype == "bf16":
+        jrows, trows = jrows.astype(jnp.bfloat16), trows.to(torch.bfloat16)
+    top_val, top_idx = jax_top_k(jrows, 64)
+    sep_val, sep_idx = jax_margin_top(jrows, 16, submargin)
+    count = jnp.sum(jrows >= jnp.asarray(LEVEL, jrows.dtype), axis=-1).astype(jnp.int32)
+    got = tsel.fused_selection(trows, torch.tensor(LEVEL), 64, 16, submargin)
+    for name, g, w in zip(("top_val", "top_idx", "sep_val", "sep_idx", "count"), got,
+                          (top_val, top_idx, sep_val, sep_idx, count)):
+        w = np.asarray(w.astype(jnp.float32) if w.dtype == jnp.bfloat16 else w)
+        np.testing.assert_array_equal(_as_np(g), w, err_msg=name)
+
+
 def test_kernel_table_limits():
     """The kernel's two-level table: leaves of 32 bins (one a lane) widened
     while a row has more than 1024 of them, whole groups of 32 leaves above
     32 leaves and a group a leaf below (fft 256 and 512: 8 and 16 leaves);
-    the wrapper takes every power-of-two fft from 256 up (a multiple of 256,
-    and of 1024 above 32 leaves), any submargin (a zone may cover many
-    leaves) and up to 32 margin winners (the reference's K_SEP is 16), and
-    refuses the rest."""
+    rows of at most 128 bins take the register form. The wrapper takes
+    every power-of-two fft (any fft up to 128, a multiple of 256 above, and
+    of 1024 above 32 leaves), any submargin (a zone may cover many leaves
+    or the whole row) and up to 32 margin winners (the reference's K_SEP is
+    16), and refuses the rest."""
     assert tsel.FFT_MULTIPLE == 256
     for fft in (1024, 2048, 3072, 8192, 16384, 32768, 65536, 131072, 262144, 1 << 20, 33 * 1024):
         w = tsel.leaf_width(fft)
@@ -97,13 +140,15 @@ def test_kernel_table_limits():
         assert fft // w <= 1024 or (fft // w) % (2 * tsel.GROUPS) != 0
     assert tsel.leaf_width(16384) == 32 and tsel.leaf_width(131072) == 128
     assert tsel.leaf_width(256) == tsel.leaf_width(512) == 32
-    assert all(tsel.takes_fft(1 << log) for log in range(8, 21))
-    assert not any(tsel.takes_fft(fft) for fft in (64, 128, 1536, 1280, 100))
-    for fft in (256, 512):
+    assert all(tsel.takes_fft(1 << log) for log in range(0, 24))
+    assert all(tsel.takes_fft(fft) for fft in (100, 127))
+    assert not any(tsel.takes_fft(fft) for fft in (0, 129, 200, 1536, 1280))
+    for fft in (128, 256, 512):
         tsel.check_args(torch.zeros((2, fft)), 64, 16, 64)
+    tsel.check_args(torch.zeros((2, 16)), 16, 16, 300)  # top_k = fft, a zone wider than the row
     rows = torch.zeros((2, 2048))
     tsel.check_args(rows, 64, 16, 2048)  # a zone wider than the row is fine
-    for bad in (torch.zeros((2, 1536)), torch.zeros((2, 128)), torch.zeros((2, 2048), dtype=torch.float16),
+    for bad in (torch.zeros((2, 1536)), torch.zeros((2, 200)), torch.zeros((2, 2048), dtype=torch.float16),
                 torch.zeros(2048),
                 torch.zeros((2048, 2)).t(), torch.zeros(2 * 2048 + 1)[1:].view(2, 2048)):
         with pytest.raises(ValueError):
