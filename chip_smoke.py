@@ -12,9 +12,13 @@
    frame's peak power on every bin (``psd_agreement``), and the selection
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
-   frame: fft 256 and 16384; a cluster: 32768 and 131072; the scratch form:
-   262144), decimations 1-3, odd frame counts; the selection also at the
-   wideband channels' fft 512 and at fft 256; the decimating FIR within
+   frame: fft 256 and 16384; a cluster: 32768 and 131072) and at every size
+   of its scratch form (2^18-2^22), decimations 1-4, odd frame counts (1, 3,
+   17); the selection also at the wideband channels' fft 512, at fft 256 and
+   at SPLIT_SELECT_CASES (its row-split form: [1, 2^18], [16, 2^21], [45,
+   131072], [180, 131072], zones wider than a slice, and the boundary to a
+   warp a row at 384 / 385 rows, on rows with ties across every slice
+   edge, masked tails and fully masked rows); the decimating FIR within
    2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
    and the session's decimating stages and at M = 125, 32, 151, 157 and
    400 (the last three in its wide form).
@@ -83,7 +87,10 @@
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
    launch of the process is slower. The time mesh's and the band shards'
-   per-shard shapes (step 10) are checked and timed here too.
+   per-shard shapes (step 10) are checked and timed here too, and the PSD's
+   scratch form at 16 frames of each size 2^18-2^22 (``scratch_2^N``);
+   beside every PSD timing torch.fft.fft's pace (``library_ms``) and device
+   time (``library_device_ms``) on the same complex frames.
 10. The multi-device layer on one card (it runs before step 9): (a) path
    1's band (20.48 Msps, fft 131072, decim 3, 2 slots at 16 kHz, modulated
    taps) time-sharded over a mesh of 4 copies of the card, frames grown 45
@@ -126,7 +133,7 @@
 12. Every fft the JAX package scans. (a) The kernels' forms beyond steps 2's
    shapes against their plain versions: the PSD's small-frame form at fft
    16-128 (decimations 1-4, odd frame counts up to 1801) and its
-   8-sequence scratch passes at 2^21 and 2^22; the selection's register
+   scratch form at 2^21 and 2^22; the selection's register
    form at fft 16-128 (top_k 8-64, zones narrower and wider than the row,
    masked tails) and its table at 2^21, bit-exact in bf16 and f32. (b)
    ``runtime.main.run`` on a 6 s capture at 2.048 Msps with ``"channels":
@@ -231,8 +238,20 @@ RT_TONE = 800.0
 # the session's kernel shapes (one band, 4 slots), timed beside the paths'
 RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 32 kHz)", RT_RATE, 75, 32_000,
                    -600_000, bands=1, slots=4)
-# (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes
-PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3))
+# (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes, and every
+# size of its scratch form (fft 2^18-2^22) at decimations 1-4 and odd frame counts
+PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3),
+                  (1 << 18, 1, 17), (1 << 18, 4, 3), (1 << 19, 2, 1), (1 << 19, 3, 17), (1 << 20, 1, 3),
+                  (1 << 20, 4, 1), (1 << 21, 2, 17), (1 << 21, 3, 1), (1 << 22, 4, 3), (1 << 22, 1, 17))
+# (frames, fft, decim): the scratch form timed at each size, 16 frames (the
+# 491.52 Msps block's count) at decim 4
+SCRATCH_PSD_TIMED = tuple((16, 1 << log, 4) for log in range(18, 23))
+# (rows, fft, top_k, k_sep, submargin): the selection's row-split form and the
+# boundary to the warp-a-row form (at most 384 rows of 2^17-2^22 split),
+# on rows with ties across every slice edge (split_selection_rows)
+SPLIT_SELECT_CASES = ((1, 1 << 18, 64, 16, 64), (16, 1 << 21, 64, 16, 64), (45, 131072, 64, 16, 52),
+                      (45, 131072, 64, 16, 5000), (180, 131072, 64, 16, 52), (384, 131072, 64, 16, 52),
+                      (385, 131072, 64, 16, 52), (6, 1 << 22, 8, 4, 3))
 # (fft, submargin): the selection kernel's smallest table (8 leaves) beyond the paths' shapes
 SELECT_EXTRA_CASES = ((256, 52),)
 # decimations the FIR kernel is held at beyond the paths' stages: 151, 157
@@ -293,10 +312,10 @@ MH_SHARD = Geometry("multihost_session", "multi-host session (a process's 4 chan
 # block 0, so the signal keyed from block 1 clears the floor
 VOTE_BLOCKS = 3
 # step 12, every fft the JAX package scans: the kernels' small forms (fft <=
-# 128) and the PSD's 8-sequence scratch passes (fft 2^21-2^22).
+# 128) and the PSD's scratch form at fft 2^21-2^22.
 # (fft, decim, frames): odd frame counts, decimations 1-4
 NARROW_PSD_CASES = ((16, 1, 7), (32, 2, 33), (64, 3, 129), (128, 4, 1801), (128, 1, 1),
-                    (1 << 21, 1, 3), (1 << 22, 2, 3))  # step 2 holds the 491.52 Msps block's
+                    (1 << 21, 1, 3), (1 << 22, 2, 3))  # step 2 holds the 491.52 Msps block's and the rest
 # (fft, top_k, k_sep, submargin, rows): top_k 8-64, zones narrower and wider
 # than the row, masked tails the top-K reaches into; the 491.52 Msps rows
 NARROW_SELECT_CASES = ((16, 16, 16, 40, CHECK_ROWS), (32, 8, 4, 3, CHECK_ROWS), (64, 64, 16, 16, CHECK_ROWS),
@@ -375,15 +394,18 @@ def device_ms(fn, reps: int, kernel: str) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if us:
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
             break
     else:
         raise RuntimeError(f"the profiler saw no launch of *{kernel}* in {PROFILE_TRIES} x {reps} calls")
-    # mean a record times records a call: a record the profiler dropped
-    # (it happens, rarely) leaves the mean as it is
-    return sum(us) / len(us) * max(1, round(len(us) / reps)) / 1e3
+    # each kernel's mean record times its records a call (a call may launch
+    # several kernels: the PSD's scratch passes, cuFFT's), summed: a record
+    # the profiler dropped (it happens, rarely) leaves the means as they are
+    return sum(sum(us) / len(us) * max(1, round(len(us) / reps)) for us in by_name.values()) / 1e3
 
 
 def host_us(fn, reps: int) -> float:
@@ -491,6 +513,25 @@ def selection_rows(fft: int, dtype, dev, n_rows: int = CHECK_ROWS) -> torch.Tens
     return torch.from_numpy(rows).to(dev).to(dtype)
 
 
+def split_selection_rows(fft: int, n_rows: int, slice_bins: int, rng) -> np.ndarray:
+    """Rows for the selection's row-split form: ties across every slice edge
+    (equal maxima on both sides of it), exact ties everywhere, a masked
+    (-3.0e38) tail the top-K reaches into, fully masked rows (the
+    all-suppressed corner), values at the level, clusters straddling slice
+    edges."""
+    rows = rng.normal(0.0, 6.0, size=(max(n_rows, 6), fft)).astype(np.float32)
+    edges = np.arange(slice_bins, fft, slice_bins)
+    rows[0::6, edges - 1] = 60.0
+    rows[0::6, edges] = 60.0
+    rows[1::6] = np.round(rows[1::6] / 4.0)
+    rows[2::6, 40:] = -3.0e38
+    rows[3::6] = -3.0e38
+    rows[4::6, fft // 2 :] = LEVEL
+    for e in edges[::3]:
+        rows[5::6, e - 30 : e + 30] += 25.0
+    return rows[:n_rows]
+
+
 def psd_agreement(got_db: torch.Tensor, want_db: torch.Tensor) -> dict:
     """Two PSD dB arrays [rows, fft] under the PSD bar: the max |diff| (dB)
     on the bins within PSD_NEAR_DB of their row's peak, the median |diff|
@@ -545,15 +586,17 @@ def check_psd(fft: int, decim: int, rows: int, gen, dev, rate: float = 2.048e7) 
 
 
 def check_selection(fft: int, submargin: int, dev, top_k: int = TOP_K, k_sep: int = 16,
-                    n_rows: int = CHECK_ROWS) -> float:
+                    n_rows: int = CHECK_ROWS, rows: np.ndarray = None) -> float:
     """Selection kernel bit-exact against its plain version in bf16 and f32
-    on n_rows rows at one path's fft and submargin; returns 0.0."""
+    on n_rows rows (``rows``, or selection_rows') at one path's fft and
+    submargin; returns 0.0."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
 
     level = torch.tensor(LEVEL, device=dev)
     err = 0.0
+    rows32 = selection_rows(fft, torch.float32, dev, n_rows) if rows is None else torch.from_numpy(rows).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
-        t = selection_rows(fft, dtype, dev, n_rows)
+        t = rows32.to(dtype)
         got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)
         want = select_kernel.fused_selection_plain(t, level, top_k, k_sep, submargin)
         torch.cuda.synchronize()
@@ -562,8 +605,10 @@ def check_selection(fft: int, submargin: int, dev, top_k: int = TOP_K, k_sep: in
                 bad = (g != w).nonzero()[:5].tolist()
                 raise RuntimeError(f"selection kernel {dtype} {name} disagrees at fft {fft}: {bad}")
             err = max(err, (g.float() - w.float()).abs().max().item())
+        slices = select_kernel.row_slices(n_rows, fft) if fft > select_kernel.SMALL_MAX_FFT else 0
+        form = f"row-split form, {slices} warps a row" if slices else "a warp a row"
         log(f"selection kernel vs plain [{n_rows}, {fft}] top_k {top_k} k_sep {k_sep} submargin {submargin} "
-            f"{dtype}: bit-exact")
+            f"{dtype} ({form}): bit-exact")
     return err
 
 
@@ -571,8 +616,10 @@ def check_psd_and_selection(psd_geos, sel_geos, dev):
     """PSD and selection against their plain versions at every shape the
     paths give them (the PSD at the int8 paths', the selection at every
     path's, the wideband channels' included), the PSD at each of its forms'
-    ends and the selection at its smallest table; returns the PSD's and the
-    selection's max |diff|."""
+    ends and at every size of its scratch form, the selection at its
+    smallest table and at SPLIT_SELECT_CASES (its row-split form and the
+    boundary to a warp a row); returns the PSD's and the selection's max
+    |diff|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     psd_err = sel_err = 0.0
@@ -584,12 +631,20 @@ def check_psd_and_selection(psd_geos, sel_geos, dev):
                                          float(cfg.sample_rate)))
     for fft, decim, rows in PSD_FORM_CASES:
         psd_err = max(psd_err, check_psd(fft, decim, rows, gen, dev))
+    # each path's selection at its own rows (bands x frames a block): the
+    # form (select_kernel.row_slices) depends on the row count
     cases = {}
     for geo in sel_geos:
         cfg, _, group_size = configs(geo)
-        cases.setdefault((cfg.fft_size, group_size // 2 + group_size % 2), None)
-    for fft, submargin in list(cases) + list(SELECT_EXTRA_CASES):
-        sel_err = max(sel_err, check_selection(fft, submargin, dev))
+        cases.setdefault((cfg.fft_size, group_size // 2 + group_size % 2, geo.bands * geo.frames), None)
+    for fft, submargin, n_rows in list(cases) + [(fft, sub, CHECK_ROWS) for fft, sub in SELECT_EXTRA_CASES]:
+        sel_err = max(sel_err, check_selection(fft, submargin, dev, n_rows=n_rows))
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
+
+    for n_rows, fft, top_k, k_sep, submargin in SPLIT_SELECT_CASES:
+        slices = select_kernel.row_slices(n_rows, fft)
+        rows = split_selection_rows(fft, n_rows, fft // max(slices, 2), np.random.default_rng(n_rows + submargin))
+        sel_err = max(sel_err, check_selection(fft, submargin, dev, top_k, k_sep, n_rows, rows))
     return psd_err, sel_err
 
 
@@ -598,9 +653,6 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float,
     ``sel_only``'s: the wideband channels reach the scan as f32 pairs, no
     PSD kernel): rows = bands x frames a block. The records' top level holds
     the first path's numbers, ``*_by_path`` every path's."""
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel, select_kernel
-    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     psd = dict(
@@ -615,23 +667,36 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float,
         cfg, _, group_size = configs(geo)
         fft, decim, rate = cfg.fft_size, cfg.decimator_factor, float(cfg.sample_rate)
         rows = geo.bands * geo.frames
-        if geo in sel_only:
-            time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
-            continue
-        big = random_cs8((rows, fft * decim, 2), gen, dev)
-        win = torch.from_numpy(shifted_window(fft)).to(dev)
-        frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
-        t = timings(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim),
-                    lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 20, "psd_", 5)
-        library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
-        # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
-        bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
-        log(f"psd [{rows}, {fft * decim}, 2] ({geo.name}; {psd_form(fft)}): {fmt(t)}, torch.fft.fft alone "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4g} ms ({bound_by}) on {card}")
-        record_time(psd, geo, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del big, frames_c
+        if geo not in sel_only:
+            time_psd(psd, geo.key, geo.name, rows, fft, decim, rate, gen, dev, card)
         time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
+    for frames, fft, decim in SCRATCH_PSD_TIMED:
+        time_psd(psd, f"scratch_2^{fft.bit_length() - 1}", f"{frames} frames, decim {decim}", frames, fft, decim,
+                 BAND_491.rate, gen, dev, card)
     return [psd, sel]
+
+
+def time_psd(psd: dict, key: str, name: str, rows: int, fft: int, decim: int, rate: float, gen, dev,
+             card: str) -> None:
+    """The PSD kernel at [rows, fft * decim, 2] int8, with its plain version,
+    torch.fft.fft on the same complex frames (pace and device time) and the
+    bound, into ``psd`` under ``key``."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel
+    from rtl_sdr_scanner_tpu_torch.ops.psd import shifted_window
+
+    big = random_cs8((rows, fft * decim, 2), gen, dev)
+    win = torch.from_numpy(shifted_window(fft)).to(dev)
+    frames_c = torch.complex(big[:, :fft, 0].float() / 127.5, big[:, :fft, 1].float() / 127.5) * win
+    t = timings(lambda: psd_kernel.psd_frames_int8(big, rate, fft, decim),
+                lambda: psd_kernel.psd_frames_int8_plain(big, rate, fft, decim), 20, "psd_", 5)
+    library_ms = cuda_ms(lambda: torch.fft.fft(frames_c), 20)
+    library_device_ms = device_ms(lambda: torch.fft.fft(frames_c), 20, "")  # every record: cuFFT's kernels
+    # int8 pairs of the selected frame in, f32 dB out; a radix FFT's operations
+    bound_ms, bound_by = bound(rows * fft * (2 + 4), rows * 5 * fft * math.log2(fft))
+    log(f"psd [{rows}, {fft * decim}, 2] ({name}; {psd_form(fft)}): {fmt(t)}, torch.fft.fft alone "
+        f"{library_ms:.4f} ms (device {library_device_ms:.4f} ms), bound {bound_ms:.4g} ms ({bound_by}) on {card}")
+    record_time(psd, key, **t, library_ms=library_ms, library_device_ms=library_device_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def time_selection(sel: dict, geo: Geometry, rows: int, fft: int, group_size: int, gen, dev, card: str) -> None:
@@ -646,7 +711,7 @@ def time_selection(sel: dict, geo: Geometry, rows: int, fft: int, group_size: in
     bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
     log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4g} ms ({bound_by}) "
         f"on {card}")
-    record_time(sel, geo, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    record_time(sel, geo.key, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def fmt(t: dict) -> str:
@@ -654,12 +719,13 @@ def fmt(t: dict) -> str:
             f"plain {t['plain_ms']:.3f} ms")
 
 
-def record_time(record: dict, geo: Geometry, **numbers) -> None:
-    """Put one path's timings in a kernel's record: under ``<key>_by_path``
-    for every path, and at the top level for the first path recorded."""
+def record_time(record: dict, path: str, **numbers) -> None:
+    """Put one path's (or shape's) timings in a kernel's record: under
+    ``<key>_by_path`` for every path, and at the top level for the first
+    path recorded."""
     for key, value in numbers.items():
         record.setdefault(key, value)
-        record.setdefault(f"{key}_by_path", {})[geo.key] = value
+        record.setdefault(f"{key}_by_path", {})[path] = value
 
 
 def fir_cases(geos):
@@ -746,7 +812,7 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
     )
     for key in sorted(times, key=lambda k: k != timed.key):  # the timed path first: the top level
         geo, numbers = times[key]
-        record_time(record, geo, **numbers)
+        record_time(record, geo.key, **numbers)
     return record
 
 
@@ -2188,9 +2254,10 @@ def run_multi_host(dev, card: str, root: Path) -> dict:
 
 
 def check_narrow_kernels(dev) -> tuple:
-    """Step 12a: the PSD kernel's small-frame form and 8-sequence scratch
-    passes, and the selection kernel's register form (and its table at
-    2^21), against their plain versions; returns the max |diff| of each."""
+    """Step 12a: the PSD kernel's small-frame form and its scratch form at
+    2^21-2^22, and the selection kernel's register form (and its row-split
+    form at 2^21), against their plain versions; returns the max |diff| of
+    each."""
     log("---- step 12a: the kernels' forms for fft <= 128 and 2^21-2^22")
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -2535,8 +2602,8 @@ def main() -> int:
     # the wideband phases' shapes: selection, and the FIR's stage 2 (a
     # multi-host process's session shard takes no FIR stage)
     wide = (WIDE, WIDE_RT, WIDE_SHARD, MH_SHARD)
-    # step 12's paths are held at their own shapes here too (the 491.52
-    # Msps selection at its 16 rows in step 12a)
+    # step 12's paths are held at their own shapes here too (each path's
+    # selection at its own rows)
     psd_err, sel_err = check_psd_and_selection(timed + (NARROW_RT, BAND_491), timed + wide + (NARROW_WIDE, NARROW_RT),
                                                dev)
     fir_err = check_fir(timed + (WIDE, WIDE_SHARD, BAND_491), dev)

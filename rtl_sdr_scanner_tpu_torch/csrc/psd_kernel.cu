@@ -55,24 +55,35 @@
 // * Scratch form, fft > 2^17 (2^18..2^22: wideband front ends at the 250 Hz
 //   step, up to a 1.048 Gsps band). The cluster form stops at 2^17 = 16
 //   blocks of 8192 points (a cluster holds at most 16 blocks; 2^19 would not
-//   fit 16 blocks' shared memory at all), so two passes of radix-2 FFTs in
-//   shared memory pass a complex f32 scratch in global memory between them:
-//     pass 1: one block per (frame, S columns n2) loads its int8 pairs,
-//             dequantizes and windows them, runs S N1-point FFTs,
-//             multiplies by the twiddle and writes C[k1][n2] to the scratch;
-//     pass 2: one block per (frame, S rows k1) loads C[k1][:], runs S
-//             N2-point FFTs and writes the dB of X[k2*N1 + k1].
-//   S = 16 sequences a block up to N1 = N2 = 1024 (2^20, as before); a pass
-//   over 2048-point sequences (fft 2^21: N1 = 2048; 2^22: both) takes S = 8,
-//   so that its S x 2048 complex points and twiddles fit a block's shared
-//   memory (136 KB). S >= 8 keeps pass 1's int8 reads in runs of 16 B and
-//   pass 2's dB writes in 32 B sectors, so 2^22 is the largest fft.
+//   fit 16 blocks' shared memory at all), so two passes pass a complex f32
+//   scratch in device memory between them:
+//     pass 1 (psd_scratch1): one block per (frame, S1 columns n2) runs
+//             their N1-point FFTs, its first Stockham pass reading the int8
+//             pairs and computing the window (HammingFrameIn), its last
+//             writing C[k1][n2];
+//     pass 2 (psd_scratch2): one block per (frame, S2 rows k1) reads
+//             C[k1][:] along n2 times the four-step twiddle (ExchangeIn over
+//             the scratch), runs their N2-point FFTs and writes the dB of
+//             X[k1 + N1 k2] (DbOut).
+//   The same register Stockham passes as the on-chip forms (1024 points: two
+//   passes of radix 32; 2048: radix 8, 16, 16): two or three barriers a
+//   sequence, twiddles once per butterfly with running products, no
+//   bit-reversed scatter. A block holds 8 or more sequences, so that pass
+//   1's int8 reads run 16 B and its scratch writes and pass 2's dB writes
+//   32 B or more: 8192 points (64 KB, two blocks an SM, one's loads overlap
+//   the other's passes) up to 1024-point sequences, 16384 (128 KB, one an
+//   SM) for 2048. The shared-memory layouts pad after every first-pass
+//   radix's worth of elements (SmemPad), so that the first pass's strided
+//   writes spread over the banks.
 //   Its scratch round trip costs 2 x 8 B per point on top of the 6 B the
 //   function must move: 22 B a point. Bound (bytes, the larger): 16 frames
 //   of 2^21 (the 491.52 Msps block) must move 0.201 GB, 0.060 ms at 3.35
-//   TB/s (their 5 N log2 N operations: 0.053 ms at the f32 peak); 16 of
-//   2^22, 0.120 ms. The wrapper asks psd_scratch_bytes() whether a size
-//   needs the scratch; the on-chip forms take none.
+//   TB/s (their 5 N log2 N operations: 0.053 ms at the f32 peak); with the
+//   scratch, 0.738 GB and 0.220 ms: this design's own floor. The scratch
+//   stays in device memory: running the passes over groups of frames whose
+//   scratch fits L2 was slower (a launch pair a frame at 2^21, each under
+//   one wave; PERF.md has the split). The wrapper asks psd_scratch_bytes()
+//   whether a size needs the scratch; the on-chip forms take none.
 //
 // * Small-frame form, fft <= 128 (a band of 32 kHz or less at 250 Hz bins).
 //   The one-block form's passes hold 32 points a thread and need N2 >= 16,
@@ -100,23 +111,25 @@ constexpr int kClusterBlockLog = 13;  // above: 8192 points a block, two blocks 
 constexpr int kOnChipMaxLog = 17;  // a cluster of 16 blocks, the most the card places
 
 // ---- scratch form
-constexpr int kThreads = 256;
-constexpr int kScratchMaxLog = 22;  // S >= 8 sequences a pass's block up to 2048 points
-constexpr int kSeqLog = 10;  // sequences up to 1024 points go 16 a block, 2048 go 8
+constexpr int kScratchBlockLog = 13;  // 8192 points a block, two blocks an SM,
+constexpr int kScratchNarrowLog = 10;  // for sequences up to 1024 points; 2048 take 16384 a block
+constexpr int kScratchMaxLog = 22;  // 8 sequences of 2048 points a block
 
 // ---- small-frame form
+constexpr int kThreads = 256;
+
 constexpr int kSmallMaxLog = 7;  // fft <= 128
 constexpr int kSmallPointsLog = 12;  // 4096 points a block: 4096 / N frames
 
 // The forms as psd_form() numbers them (ops/cuda/psd_kernel.FORMS names
 // them); the dispatcher and the queries below all decide by form_of().
-enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3, kScratch8 = 4 };
+enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3 };
 
 Form form_of(int log_n) {
   if (log_n <= kSmallMaxLog) return kSmall;
   if (log_n <= kSingleMaxLog) return kBlock;
   if (log_n <= kOnChipMaxLog) return kCluster;
-  return (log_n + 1) / 2 <= kSeqLog ? kScratch : kScratch8;  // N1 = 2^ceil(log_n / 2)
+  return kScratch;
 }
 
 __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
@@ -207,9 +220,9 @@ __device__ __forceinline__ void dft_regs(float2* v) {
 
 // log2 of the radix of the next Stockham pass when 2^rem of the length is
 // left: 16 -> 16; 32 -> 32; 64 -> 8, 8; 128 -> 16, 8; 256 -> 16, 16;
-// 512 -> 32, 16.
+// 512 -> 32, 16; 1024 -> 32, 32; 2048 -> 8, 16, 16.
 __host__ __device__ constexpr int next_radix_log(int rem) {
-  return (rem == 4 || rem == 7 || rem == 8) ? 4 : (rem == 5 || rem == 9) ? 5 : (rem == 2 ? 2 : 3);
+  return (rem == 4 || rem == 7 || rem == 8) ? 4 : (rem == 5 || rem == 9 || rem == 10) ? 5 : (rem == 2 ? 2 : 3);
 }
 
 // Item k of thread t in a phase of NT threads over 2^LOG_B interleaved
@@ -408,7 +421,7 @@ __device__ __forceinline__ void stockham_pass(const In& in, const Out& out) {
   if constexpr (Out::kShared) __syncthreads();
 }
 
-// FFTs of the block's 2^LOG_B sequences of length 2^LOG_L (16 <= L <= 512
+// FFTs of the block's 2^LOG_B sequences of length 2^LOG_L (16 <= L <= 2048
 // here), natural order in and out: the first pass reads from `first`, the
 // last writes to `last`, the others go through `mid` (next_radix_log).
 template <int LOG_L, int LOG_B, int NT, int LOG_NS = 0, class First, class Mid, class Last>
@@ -541,7 +554,155 @@ cudaError_t onchip_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, On
   return cudaSuccess;
 }
 
-// ---- scratch form (fft > 2^17)
+// ---- scratch form (2^17 < fft <= 2^22)
+
+// The scratch form's geometry at fft 2^LOG_N: the four-step split N1 x N2.
+// A pass's block holds 2^LOG_P points: 8192 (64 KB, 256 threads, two blocks
+// an SM) for sequences of up to 1024 points, 16384 (128 KB, 512 threads,
+// one block an SM) for 2048, so that it still takes 8 of them: pass 1 takes
+// S1 = 2^LOG_P1 / N1 columns, pass 2 S2 = 2^LOG_P2 / N2 rows; each pass's
+// first Stockham radix is 2^LOG_RA (columns) / 2^LOG_RB (rows).
+template <int LOG_N>
+struct Scratch {
+  static constexpr int LOG_N1 = (LOG_N + 1) / 2, LOG_N2 = LOG_N / 2;
+  static constexpr int N1 = 1 << LOG_N1, N2 = 1 << LOG_N2;
+  static constexpr int LOG_P1 = LOG_N1 > kScratchNarrowLog ? kScratchBlockLog + 1 : kScratchBlockLog;
+  static constexpr int LOG_P2 = LOG_N2 > kScratchNarrowLog ? kScratchBlockLog + 1 : kScratchBlockLog;
+  static constexpr int LOG_S1 = LOG_P1 - LOG_N1, LOG_S2 = LOG_P2 - LOG_N2;
+  static constexpr int S1 = 1 << LOG_S1, S2 = 1 << LOG_S2;
+  static constexpr int NT1 = 1 << (LOG_P1 - kLogPerThread), NT2 = 1 << (LOG_P2 - kLogPerThread);
+  static constexpr int MIN1 = LOG_P1 == kScratchBlockLog ? 2 : 1, MIN2 = LOG_P2 == kScratchBlockLog ? 2 : 1;
+  static constexpr int LOG_RA = next_radix_log(LOG_N1), LOG_RB = next_radix_log(LOG_N2);
+  static constexpr size_t SMEM1 = sizeof(float2) * ((size_t)N1 + (N1 >> LOG_RA)) * S1;
+  static constexpr size_t SMEM2 = sizeof(float2) * ((size_t)N2 * S2 + (N2 >> LOG_RB));
+  static_assert(S2 >= 8 && S1 >= 8, "at least 8 sequences a block: 16-byte runs in, 32-byte runs out");
+};
+
+// Shared memory for the scratch passes: element i of sequence b at
+// s[i * S + (i >> LOG_P) * PAD + b], a pad of PAD slots after every 2^LOG_P
+// elements, so that a first pass's writes (i = j R + r, LOG_P = log2 R) spread
+// over the banks: PAD = S where lanes run along b (pass 1), PAD = 1 where
+// they run along j (pass 2's first pass).
+template <int S, int LOG_P, int PAD>
+struct SmemPad {
+  enum : bool { kShared = true, kAlongJ = false, kFetch = false };
+  float2* s;
+  __device__ __forceinline__ int at(int i, int b) const { return i * S + (i >> LOG_P) * PAD + b; }
+  template <int R, int Q>
+  __device__ __forceinline__ void load(int j, int b, float2* v) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = s[at(j + r * Q, b)];
+  }
+  __device__ __forceinline__ void store(int i, int b, float2 x) const { s[at(i, b)] = x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// Pass 1's input: FrameIn's int8 pairs (element n1 of column b is the
+// frame's pair n1 N2 + b; x points at the block's first column, n2 = c0),
+// with the window computed, not read: reading it (4 B a point, in half
+// sectors) cost pass 1 more than its pairs. Hamming 0.54 - 0.46 cos(2 pi n /
+// (N - 1)) times (-1)^n at n = n1 N2 + n2, which is the table the wrapper
+// passes the other forms (its sign is (-1)^n2: N2 is even); a butterfly's
+// cosines from one double sincospi at its first point, then a rotation by
+// 2 pi Q N2 / (N - 1) a point (<= 31 roundings, ~2e-6 of the window).
+template <int LOG_N>
+struct HammingFrameIn {
+  enum : bool { kShared = false, kAlongJ = false, kFetch = true };
+  static constexpr int N2 = 1 << (LOG_N / 2);
+  const char2* x;
+  int c0;
+  template <int R, int Q>
+  __device__ __forceinline__ void fetch(int j, int b, char2* iq, float* win) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) iq[r] = x[(j + r * Q) * N2 + b];
+    constexpr double kPerN = 2.0 / (double)((1 << LOG_N) - 1);  // sincospi's argument a step of n
+    double sn, cs;
+    sincospi((double)(j * N2 + c0 + b) * kPerN, &sn, &cs);
+    float2 z = make_float2((float)cs, (float)sn);
+    sincospi((double)(Q * N2) * kPerN, &sn, &cs);
+    const float2 step = make_float2((float)cs, (float)sn);
+    const float sign = ((c0 + b) & 1) ? -1.0f : 1.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      win[r] = (0.54f - 0.46f * z.x) * sign;
+      z = cmul(z, step);
+    }
+  }
+  __device__ __forceinline__ static float2 convert(char2 iq, float win) { return FrameIn<N2>::convert(iq, win); }
+};
+
+// Pass 1's output: element k1 of column b is C[k1][n2] (n2 = the block's
+// first column + b) in the frame's complex f32 scratch, row-major [N1][N2];
+// c points at the block's first column of row 0. The four-step twiddle is
+// pass 2's (ExchangeIn, read along n2).
+template <int N2>
+struct ScratchOut {
+  enum : bool { kShared = false, kAlongJ = false, kFetch = false };
+  float2* c;
+  __device__ __forceinline__ void store(int i, int b, float2 x) const { c[(long long)i * N2 + b] = x; }
+};
+
+// Pass 1: one block per (S1 columns n2, frame): the columns' N1-point FFTs,
+// the first Stockham pass reading the int8 pairs from device memory, the
+// last writing C[k1][n2] to the scratch.
+template <int LOG_N>
+__global__ void __launch_bounds__(Scratch<LOG_N>::NT1, Scratch<LOG_N>::MIN1)
+psd_scratch1(const char2* __restrict__ iq, float2* __restrict__ scratch, int decim) {
+  using G = Scratch<LOG_N>;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  const int c0 = blockIdx.x << G::LOG_S1;
+  // the Decimator keeps the first N pairs of each N*decim group
+  const HammingFrameIn<LOG_N> in{iq + ((frame * decim) << LOG_N) + c0, c0};
+  const ScratchOut<G::N2> out{scratch + (frame << LOG_N) + c0};
+  stockham_fft<G::LOG_N1, G::LOG_S1, G::NT1>(in, SmemPad<G::S1, G::LOG_RA, G::S1>{smem}, out);
+}
+
+// Pass 2: one block per (S2 rows k1, frame): the rows' N2-point FFTs, the
+// first pass reading C[k1][:] along n2 with the twiddle exp(-2 pi i k1 n2 / N)
+// (ExchangeIn over the scratch: a running product a butterfly), the last
+// writing the dB of X[k1 + N1 k2].
+template <int LOG_N>
+__global__ void __launch_bounds__(Scratch<LOG_N>::NT2, Scratch<LOG_N>::MIN2)
+psd_scratch2(float2* __restrict__ scratch, float* __restrict__ out, float rate) {
+  using G = Scratch<LOG_N>;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  const int r0 = blockIdx.x << G::LOG_S2;
+  const ExchangeIn<LOG_N, G::LOG_N2, G::N2, false> ex{scratch + (frame << LOG_N), r0};
+  const DbOut<G::N1> db{out + (frame << LOG_N) + r0, 1.0f / rate};
+  stockham_fft<G::LOG_N2, G::LOG_S2, G::NT2>(ex, SmemPad<G::S2, G::LOG_RB, 1>{smem}, db);
+}
+
+template <int LOG_N>
+int launch_scratch(const void* iq, void* scratch, void* out, int frames, int decim, float rate,
+                   cudaStream_t s) {
+  using G = Scratch<LOG_N>;
+  cudaError_t err =
+      cudaFuncSetAttribute(psd_scratch1<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(psd_scratch2<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM2);
+  if (err != cudaSuccess) return (int)err;
+  psd_scratch1<LOG_N><<<dim3(G::N2 >> G::LOG_S1, (unsigned)frames), G::NT1, G::SMEM1, s>>>(
+      (const char2*)iq, (float2*)scratch, decim);
+  psd_scratch2<LOG_N><<<dim3(G::N1 >> G::LOG_S2, (unsigned)frames), G::NT2, G::SMEM2, s>>>(
+      (float2*)scratch, (float*)out, rate);
+  return (int)cudaGetLastError();
+}
+
+int launch_scratch(const void* iq, void* scratch, void* out, int frames, int log_n, int decim, float rate,
+                   cudaStream_t s) {
+  switch (log_n) {
+    case 18: return launch_scratch<18>(iq, scratch, out, frames, decim, rate, s);
+    case 19: return launch_scratch<19>(iq, scratch, out, frames, decim, rate, s);
+    case 20: return launch_scratch<20>(iq, scratch, out, frames, decim, rate, s);
+    case 21: return launch_scratch<21>(iq, scratch, out, frames, decim, rate, s);
+    case 22: return launch_scratch<22>(iq, scratch, out, frames, decim, rate, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---- small-frame form (fft <= 128)
 
 // tw[p] = exp(-2 pi i p / n) for p < n/2
 __device__ void fill_twiddles(float2* tw, int n) {
@@ -554,25 +715,17 @@ __device__ void fill_twiddles(float2* tw, int n) {
 
 // In-place radix-2 decimation-in-time FFTs of `batch` sequences of length
 // 2^log_n whose input sits in bit-reversed order. Element i of sequence col
-// lives at s[i * i_stride + col * c_stride]. col_fast: neighbouring threads
-// take neighbouring sequences (pass 1's layout), else neighbouring
-// butterflies of one sequence (pass 2's).
+// lives at s[i * i_stride + col * c_stride]; neighbouring threads take
+// neighbouring butterflies of one sequence.
 __device__ void fft_batch(float2* s, const float2* tw, int log_n, int log_batch,
-                          int i_stride, int c_stride, bool col_fast) {
+                          int i_stride, int c_stride) {
   const int log_half = log_n - 1;
   const int total = 1 << (log_batch + log_half);
   for (int st = 1; st <= log_n; ++st) {
     const int h = 1 << (st - 1);
     const int tw_shift = log_n - st;  // tw index = pos * (n / 2^st)
     for (int j = threadIdx.x; j < total; j += blockDim.x) {
-      int col, b;
-      if (col_fast) {
-        col = j & ((1 << log_batch) - 1);
-        b = j >> log_batch;
-      } else {
-        col = j >> log_half;
-        b = j & ((1 << log_half) - 1);
-      }
+      const int col = j >> log_half, b = j & ((1 << log_half) - 1);
       const int pos = b & (h - 1);
       const int i0 = ((b >> (st - 1)) << st) + pos;
       const int i1 = i0 + h;
@@ -586,112 +739,6 @@ __device__ void fft_batch(float2* s, const float2* tw, int log_n, int log_batch,
     __syncthreads();
   }
 }
-
-// LOG_COLS: log2 of the n2 columns a block (4: 16, 3: 8)
-template <int LOG_COLS>
-__global__ void __launch_bounds__(kThreads)
-psd_pass1(const char2* __restrict__ iq, const float* __restrict__ win,
-          float2* __restrict__ scratch, int log_n1, int log_n2, int decim) {
-  constexpr int kCols = 1 << LOG_COLS;
-  extern __shared__ float2 smem[];
-  const int n1 = 1 << log_n1, n2 = 1 << log_n2;
-  const long long n = (long long)n1 * n2;
-  float2* tw = smem;            // [n1/2]
-  float2* a = smem + n1 / 2;    // [n1][kCols]
-  const long long frame = blockIdx.y;
-  const int c0 = blockIdx.x * kCols;
-  // Decimator frame select: only the first fft pairs of each fft*decim group
-  const char2* x = iq + frame * n * decim;
-  fill_twiddles(tw, n1);
-  for (int e = threadIdx.x; e < n1 * kCols; e += blockDim.x) {
-    const int g = e % kCols, r = e / kCols;  // row n1 = r, column n2 = c0 + g
-    const int idx = r * n2 + c0 + g;
-    const char2 v = x[idx];
-    const float w = win[idx];
-    a[bitrev(r, log_n1) * kCols + g] =
-        make_float2((float)v.x / 127.5f * w, (float)v.y / 127.5f * w);
-  }
-  __syncthreads();
-  fft_batch(a, tw, log_n1, LOG_COLS, kCols, 1, true);
-  float2* c = scratch + frame * n;
-  for (int e = threadIdx.x; e < n1 * kCols; e += blockDim.x) {
-    const int g = e % kCols, k1 = e / kCols;
-    const int col = c0 + g;
-    float s, co;
-    sincospif(-2.0f * (float)(k1 * col) / (float)n, &s, &co);
-    c[(long long)k1 * n2 + col] = cmul(a[k1 * kCols + g], make_float2(co, s));
-  }
-}
-
-// LOG_ROWS: log2 of the k1 rows a block (4: 16, 3: 8)
-template <int LOG_ROWS>
-__global__ void __launch_bounds__(kThreads)
-psd_pass2(const float2* __restrict__ scratch, float* __restrict__ out,
-          int log_n1, int log_n2, float rate) {
-  constexpr int kRows = 1 << LOG_ROWS;
-  extern __shared__ float2 smem[];
-  const int n1 = 1 << log_n1, n2 = 1 << log_n2;
-  const long long n = (long long)n1 * n2;
-  float2* tw = smem;            // [n2/2]
-  float2* d = smem + n2 / 2;    // [kRows][n2]
-  const long long frame = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const float2* c = scratch + frame * n + (long long)r0 * n2;
-  fill_twiddles(tw, n2);
-  for (int e = threadIdx.x; e < kRows * n2; e += blockDim.x) {
-    const int r = e >> log_n2, i = e & (n2 - 1);
-    d[r * n2 + bitrev(i, log_n2)] = c[e];
-  }
-  __syncthreads();
-  fft_batch(d, tw, log_n2, LOG_ROWS, 1, n2, false);
-  float* o = out + frame * n;
-  for (int e = threadIdx.x; e < kRows * n2; e += blockDim.x) {
-    const int r = e % kRows, k2 = e / kRows;
-    const float2 v = d[r * n2 + k2];
-    const float p = v.x * v.x + v.y * v.y;
-    o[(long long)k2 * n1 + r0 + r] = 10.0f * log10f(fmaxf(p, 1e-30f) / rate);
-  }
-}
-
-template <int LOG_COLS>
-cudaError_t launch_pass1(const void* iq, const void* win, void* scratch, int frames, int log_n1,
-                         int log_n2, int decim, cudaStream_t s) {
-  const int n1 = 1 << log_n1;
-  const int sm = (int)((n1 / 2 + ((size_t)n1 << LOG_COLS)) * sizeof(float2));
-  const cudaError_t err =
-      cudaFuncSetAttribute(psd_pass1<LOG_COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
-  if (err != cudaSuccess) return err;
-  psd_pass1<LOG_COLS><<<dim3((1 << log_n2) >> LOG_COLS, frames), kThreads, sm, s>>>(
-      (const char2*)iq, (const float*)win, (float2*)scratch, log_n1, log_n2, decim);
-  return cudaSuccess;
-}
-
-template <int LOG_ROWS>
-cudaError_t launch_pass2(const void* scratch, void* out, int frames, int log_n1, int log_n2,
-                         float rate, cudaStream_t s) {
-  const int n2 = 1 << log_n2;
-  const int sm = (int)((n2 / 2 + ((size_t)n2 << LOG_ROWS)) * sizeof(float2));
-  const cudaError_t err =
-      cudaFuncSetAttribute(psd_pass2<LOG_ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
-  if (err != cudaSuccess) return err;
-  psd_pass2<LOG_ROWS><<<dim3((1 << log_n1) >> LOG_ROWS, frames), kThreads, sm, s>>>(
-      (const float2*)scratch, (float*)out, log_n1, log_n2, rate);
-  return cudaSuccess;
-}
-
-int launch_scratch(const void* iq, const void* win, void* scratch, void* out, int frames,
-                   int log_n1, int log_n2, int decim, float rate, cudaStream_t s) {
-  cudaError_t err = log_n1 <= kSeqLog
-                        ? launch_pass1<4>(iq, win, scratch, frames, log_n1, log_n2, decim, s)
-                        : launch_pass1<3>(iq, win, scratch, frames, log_n1, log_n2, decim, s);
-  if (err != cudaSuccess) return (int)err;
-  err = log_n2 <= kSeqLog ? launch_pass2<4>(scratch, out, frames, log_n1, log_n2, rate, s)
-                          : launch_pass2<3>(scratch, out, frames, log_n1, log_n2, rate, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// ---- small-frame form (fft <= 128)
 
 // A block's 4096 / N frames of N = 2^log_n points: frame f of the block at
 // a[f*N ...], loaded bit-reversed, transformed in place by fft_batch (lanes
@@ -719,7 +766,7 @@ psd_small(const char2* __restrict__ iq, const float* __restrict__ win, float* __
     a[(f << log_n) + (int)bitrev(i, log_n)] = x;
   }
   __syncthreads();
-  fft_batch(a, tw, log_n, log_f, 1, n, false);
+  fft_batch(a, tw, log_n, log_f, 1, n);
   const long long valid = ((long long)frames - f0) << log_n;  // points of real frames here
   float* o = out + (f0 << log_n);
   for (int e = threadIdx.x; e < (1 << kSmallPointsLog) && e < valid; e += blockDim.x) {
@@ -750,7 +797,7 @@ extern "C" int psd_form(int log_n) {
 // Bytes of global scratch one frame needs: 0 for the on-chip and
 // small-frame forms (fft <= 2^17), a complex f32 frame for the scratch form.
 extern "C" int psd_scratch_bytes(int log_n1, int log_n2) {
-  return form_of(log_n1 + log_n2) >= kScratch ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
+  return form_of(log_n1 + log_n2) == kScratch ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
 }
 
 // Clusters of the cluster form that the card holds at once
@@ -768,8 +815,10 @@ extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
-// iq: [frames, fft*decim, 2] int8; win: [fft] f32 (Hamming * (-1)^n);
-// scratch: psd_scratch_bytes() per frame, or null where that is 0;
+// iq: [frames, fft*decim, 2] int8; win: [fft] f32 (Hamming * (-1)^n), or
+// null where psd_scratch_bytes() is not 0 (the scratch form computes it:
+// HammingFrameIn); scratch: psd_scratch_bytes() per frame, or null where
+// that is 0;
 // out: [frames, fft] f32. fft = 2^(log_n1 + log_n2), 2 <= fft <= 2^22, with
 // log_n1 = ceil(log2(fft) / 2) (_split_n); fft <= 128 takes the small-frame
 // form, which splits nothing.
@@ -786,9 +835,9 @@ extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, v
   }
   const Form form = form_of(log_n);
   if (form == kSmall) return launch_small(iq, win, out, frames, log_n, decim, rate, s);
-  if (form >= kScratch) {
+  if (form == kScratch) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_scratch(iq, win, scratch, out, frames, log_n1, log_n2, decim, rate, s);
+    return launch_scratch(iq, scratch, out, frames, log_n, decim, rate, s);
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;

@@ -37,7 +37,7 @@ SIGNATURES = {
     "psd_form": [_I],
     "psd_scratch_bytes": [_I, _I],
     "psd_max_active_clusters": [_I, _I],
-    "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -19,8 +19,7 @@ from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, device_window, psd
 
 MAX_FFT = 1 << 22  # the scratch form's passes keep >= 8 sequences of <= 2048 points a block
 # the kernel's forms, in the order of the library's psd_form() numbers
-FORMS = ("small-frame form", "one block a frame", "cluster form", "scratch form",
-         "scratch form, 8 sequences a pass's block")
+FORMS = ("small-frame form", "one block a frame", "cluster form", "scratch form")
 
 
 def _split_n(n: int) -> Tuple[int, int]:
@@ -91,10 +90,12 @@ def psd_frames_int8(
     # scratch form only); the on-chip forms get none
     scratch_bytes = lib.psd_scratch_bytes(log_n1, log_n2)
     scratch = torch.empty((frames, scratch_bytes), dtype=torch.uint8, device=dev) if scratch_bytes else None
-    win = device_window(fft_size, dev)
+    # the scratch form computes its window (csrc's HammingFrameIn, the
+    # formula of ops/window.hamming); the others read shifted_window's
+    win = None if scratch_bytes else device_window(fft_size, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.psd_frames_int8(
-        iq_int8.data_ptr(), win.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        iq_int8.data_ptr(), None if win is None else win.data_ptr(), None if scratch is None else scratch.data_ptr(),
         out.data_ptr(), frames, log_n1, log_n2, decim, float(sample_rate), stream,
     )
     check(rc, "psd_frames_int8")

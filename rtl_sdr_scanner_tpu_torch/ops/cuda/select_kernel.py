@@ -28,6 +28,16 @@ FFT_MULTIPLE = LEAVES_A_LOAD * LEAF_MIN  # fft must be a multiple (256): whole l
 MAX_LEAVES = 1024  # leaves widen (doubling) while a row has more
 MAX_K_SEP = 32  # margin winners: the kernel tests a bin against the zones, a lane a zone
 SMALL_MAX_FFT = 128  # rows of at most this many bins take the register form (4 bins a lane)
+# the row-split form: rows of 2^17-2^22 bins too few to fill the card with a warp each
+SPLIT_MIN_FFT = 1 << 17
+SPLIT_MAX_FFT = 1 << 22
+SPLIT_LEAF_WIDTH = 256  # its leaves: a 16-byte piece a lane in bf16, two in f32
+SPLIT_WARPS = 2048  # rows x slices it aims at: ~16 warps on each of 132 SMs
+# the most rows it takes: its chain kernel's blocks (8 warps, one running the
+# chains) fit ~3 an SM, 396 rows a wave on 132 SMs; on the H100 the split
+# wins up to 360 rows, ties at 384 and takes 1.6-2x a warp a row's time
+# from 512 (PERF.md §6)
+SPLIT_MAX_ROWS = 384
 
 
 def leaf_width(fft: int) -> int:
@@ -38,6 +48,19 @@ def leaf_width(fft: int) -> int:
     while fft // width > MAX_LEAVES and (fft // width) % (2 * GROUPS) == 0:
         width *= 2
     return width
+
+
+def row_slices(n_rows: int, fft: int) -> int:
+    """Warps that build one row's table in the kernel's row-split form, or 0
+    where a warp a row runs (the warp-a-row form). The split takes
+    power-of-two rows of SPLIT_MIN_FFT-SPLIT_MAX_FFT bins, at most
+    SPLIT_MAX_ROWS of them: the largest power of two up to SPLIT_WARPS /
+    n_rows, at most one warp a run of LEAVES_A_LOAD leaves (16 rows of 2^21:
+    128; 45 of 131072: 32; 180: 8; 360: 4)."""
+    if not SPLIT_MIN_FFT <= fft <= SPLIT_MAX_FFT or fft & (fft - 1) or not 0 < n_rows <= SPLIT_MAX_ROWS:
+        return 0
+    runs = fft // SPLIT_LEAF_WIDTH // LEAVES_A_LOAD
+    return min(1 << ((SPLIT_WARPS // n_rows).bit_length() - 1), runs)
 
 
 def takes_fft(fft: int) -> bool:
@@ -101,6 +124,14 @@ def fused_selection(
 
     lib = library()
     dev = rows.device
+    slices = row_slices(n_rows, fft)
+    leaf_w = SPLIT_LEAF_WIDTH if slices else leaf_width(fft)
+    # the row-split form's scratch, one allocation: the leaf table ((key,
+    # bin) pairs, 8 bytes each) and then each warp's int32 count
+    table_len = n_rows * (fft // leaf_w)
+    scratch = torch.empty((table_len + (n_rows * slices + 1) // 2,), dtype=torch.int64, device=dev) if slices else None
+    table = scratch.data_ptr() if slices else None
+    part_count = table + 8 * table_len if slices else None
     top_val = torch.empty((n_rows, top_k), dtype=rows.dtype, device=dev)
     top_idx = torch.empty((n_rows, top_k), dtype=torch.int32, device=dev)
     sep_val = torch.empty((n_rows, k_sep), dtype=rows.dtype, device=dev)
@@ -110,7 +141,8 @@ def fused_selection(
     rc = lib.fused_selection(
         rows.data_ptr(), int(rows.dtype == torch.bfloat16), level.data_ptr(),
         top_val.data_ptr(), top_idx.data_ptr(), sep_val.data_ptr(), sep_idx.data_ptr(),
-        count.data_ptr(), n_rows, fft, leaf_width(fft), top_k, k_sep, submargin, _NEG[rows.dtype], stream,
+        count.data_ptr(), n_rows, fft, leaf_w, top_k, k_sep, submargin, _NEG[rows.dtype], slices,
+        table, part_count, stream,
     )
     check(rc, "fused_selection")
     fused_selection.launches += 1

@@ -10,7 +10,10 @@ import numpy as np
 @functools.lru_cache(maxsize=32)
 def hamming(n: int) -> np.ndarray:
     """Symmetric Hamming window 0.54 - 0.46 cos(2 pi k / (n-1)) as f32
-    (GNU Radio window::hamming == numpy.hamming)."""
+    (GNU Radio window::hamming == numpy.hamming). The PSD kernel's scratch
+    form computes the same window on the card (csrc/psd_kernel.cu,
+    HammingFrameIn): change both together
+    (tests/test_torch_psd_kernel.py holds the two to 1e-6)."""
     if n == 1:
         return np.ones(1, dtype=np.float32)
     k = np.arange(n, dtype=np.float64)

@@ -1,13 +1,16 @@
 """Where one block of the port's main path spends its time on the card.
 
     python3 scripts/profile_torch_main_path.py
-        [--path 1|2|session|wideband|wideband-session|time-mesh|time-mesh-one-card]
+        [--path 1|2|491|session|wideband|wideband-session|time-mesh|time-mesh-one-card]
         [--form serial|split|fused] [--blocks 3]
 
 Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
 fft 131072 at 20.48 Msps with 2 modulated-taps DDC slots; path 2, the
 RTL-SDR deployment, 24 bands x 75 frames x fft 16384 at 2.4 Msps with 2 v1
-DDC slots at 32 kHz. Default Tunables (every kernel, bf16 selection).
+DDC slots at 32 kHz; ``--path 491`` chip_smoke.py's step 12d block, one band
+at 491.52 Msps (16 frames of fft 2^21, decim 4, 2 slots at 30 kHz), its noise
+learning cut to 200 ms as there. Default Tunables (every kernel, bf16
+selection).
 Runs blocks 3.. of the path under torch.profiler (after 3 warm-up blocks)
 and prints, per block:
 - each stage of the step: the device-side span of each profiler range
@@ -55,7 +58,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("1", "2", "session", "wideband", "wideband-session", "time-mesh",
+    ap.add_argument("--path", choices=("1", "2", "491", "session", "wideband", "wideband-session", "time-mesh",
                                        "time-mesh-one-card"), default="1",
                     help="chip_smoke.py's path to drive")
     ap.add_argument("--form", choices=[f for f, _ in cs.WB_FORMS], default="fused",
@@ -85,6 +88,9 @@ def main() -> int:
     elif args.path.startswith("time-mesh"):
         geo = cs.TMESH
         path = cs.TimeMesh(dev, args.path == "time-mesh")
+    elif args.path == "491":
+        geo = cs.BAND_491
+        path = cs.MainPath(dev, geo, learn_ms=cs.BAND_491_LEARN_MS)
     else:
         geo = cs.PATH1 if args.path == "1" else cs.PATH2
         path = cs.MainPath(dev, geo)

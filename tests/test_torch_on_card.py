@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SPLIT_SELECT_CASES, split_selection_rows
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.ops import ddc, detect
@@ -58,8 +59,8 @@ def test_psd_kernel_matches_plain(fft, decim, frames, dev):
 @pytest.mark.parametrize("fft,decim,frames", [
     (2, 1, 3), (16, 1, 7), (32, 2, 33),  # the small-frame form: 4096 / fft frames a block
     (64, 3, 129), (128, 4, 1801), (128, 1, 1),
-    (1 << 21, 1, 3), (1 << 21, 4, 3),  # the scratch form's 8-sequence pass 1 (N1 = 2048)
-    (1 << 22, 2, 3), (1 << 22, 3, 1),  # and pass 2 (N2 = 2048)
+    (1 << 21, 1, 3), (1 << 21, 4, 3),  # the scratch form's 2048-point pass 1 (8 columns a block)
+    (1 << 22, 2, 3), (1 << 22, 3, 1),  # and its 2048-point pass 2 (8 rows a block)
 ])
 def test_psd_kernel_small_and_large_forms_match_plain(fft, decim, frames, dev):
     """The forms for fft <= 128 and 2^21-2^22 against the plain version under
@@ -80,6 +81,32 @@ def test_psd_kernel_small_and_large_forms_match_plain(fft, decim, frames, dev):
     assert chip_smoke.psd_within_bar(agreement), agreement
 
 
+@pytest.mark.parametrize("fft,decim,frames", [
+    (1 << 18, 1, 17), (1 << 18, 4, 3),  # 16 columns / rows a block in both passes
+    (1 << 19, 2, 1), (1 << 19, 3, 17),  # 8 columns, 16 rows
+    (1 << 20, 1, 3), (1 << 20, 4, 1),  # 8 and 8
+    (1 << 21, 2, 17), (1 << 21, 3, 1),  # 8 and 8: three Stockham passes in pass 1
+    (1 << 22, 4, 3), (1 << 22, 1, 17),  # 8 and 8: three in both
+])
+def test_psd_kernel_scratch_form_matches_plain(fft, decim, frames, dev):
+    """The scratch form (fft 2^18-2^22: Stockham passes of 8192 points a
+    block up to 1024-point sequences, 16384 for 2048) against the plain
+    version under the PSD bar, at decimations 1-4 and odd frame counts."""
+    import chip_smoke
+
+    rng = np.random.default_rng(fft // 1024 + frames + decim)
+    iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
+    before = psd_kernel.psd_frames_int8.launches
+    got = psd_kernel.psd_frames_int8(iq, 491.52e6, fft, decim)
+    torch.cuda.synchronize()
+    assert psd_kernel.psd_frames_int8.launches == before + 1
+    assert psd_kernel.form(fft) == "scratch form"
+    assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
+    want = psd_kernel.psd_frames_int8_plain(iq, 491.52e6, fft, decim)
+    agreement = chip_smoke.psd_agreement(got, want)
+    assert chip_smoke.psd_within_bar(agreement), agreement
+
+
 def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
     """fft <= 2^17 stays on chip (one block or one cluster a frame, no
     device-memory intermediate); only the scratch form above needs one."""
@@ -90,7 +117,7 @@ def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
         logs = [n.bit_length() - 1 for n in psd_kernel._split_n(1 << log)]
         assert (lib.psd_scratch_bytes(*logs) > 0) == (log > 17)
         assert (lib.psd_max_active_clusters(*logs) > 0) == (15 <= log <= 17)
-        want = 0 if log <= 7 else 1 if log <= 14 else 2 if log <= 17 else 3 if log <= 20 else 4
+        want = 0 if log <= 7 else 1 if log <= 14 else 2 if log <= 17 else 3
         assert psd_kernel.form(1 << log) == psd_kernel.FORMS[want]
     assert lib.psd_form(0) == lib.psd_form(23) == -1
     fft, frames = 131072, 8
@@ -260,6 +287,30 @@ def test_selection_kernel_register_form_bit_exact(fft, top_k, k_sep, submargin, 
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rows,fft,top_k,k_sep,submargin", SPLIT_SELECT_CASES)
+def test_selection_kernel_row_split_form_bit_exact(n_rows, fft, top_k, k_sep, submargin, dtype, dev):
+    """The row-split form (select_kernel.row_slices > 0: one row of 2^18 bins,
+    the 491.52 Msps block's 16 of 2^21, a time shard's 45 and a band shard's
+    180 of 131072, zones wider than a slice's 4096 bins, 384 rows) and the
+    warp-a-row form at the boundary (385 rows), bit-exact against the plain
+    version on rows with ties across every slice edge, masked tails and the
+    all-suppressed corner (chip_smoke.split_selection_rows)."""
+    slices = select_kernel.row_slices(n_rows, fft)
+    assert (slices > 0) == (n_rows <= select_kernel.SPLIT_MAX_ROWS)
+    rows = split_selection_rows(fft, n_rows, fft // max(slices, 2), np.random.default_rng(n_rows + submargin))
+    t = torch.from_numpy(rows).to(dtype).to(dev)
+    level = torch.tensor(LEVEL, device=dev)
+    before = select_kernel.fused_selection.launches
+    got = select_kernel.fused_selection(t, level, top_k, k_sep, submargin)
+    torch.cuda.synchronize()
+    assert select_kernel.fused_selection.launches == before + 1
+    want = select_kernel.fused_selection_plain(t, level, top_k, k_sep, submargin)
+    for name, g, w in zip(("top_val", "top_idx", "sep_val", "sep_idx", "count"), got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:5].tolist())
 
 
 def _tone_blocks(cfg, blocks, nb, seed):

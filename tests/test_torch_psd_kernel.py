@@ -89,12 +89,13 @@ def test_zero_frames_sit_at_the_floor():
 
 @pytest.mark.parametrize("fft,frames,decim", [
     (16, 5, 3), (64, 5, 3), (128, 7, 1),  # the kernel's small-frame form: a band of 32 kHz or less
-    (1 << 21, 2, 1), (1 << 21, 2, 3),  # its 8-sequence scratch passes: 491.52 Msps at 234 Hz bins
+    (1 << 18, 3, 2),  # its scratch form's smallest: 16 sequences a block in both passes
+    (1 << 21, 2, 1), (1 << 21, 2, 3),  # its 2048-point column passes: 491.52 Msps at 234 Hz bins
 ])
 def test_plain_matches_xla_at_the_small_and_large_forms(fft, frames, decim):
-    """The sizes the kernel's small-frame form and 8-sequence scratch
-    passes take, where the JAX package's int8 ingest runs XLA's FFT: the
-    plain version (what a CPU tensor gets) within the PSD bar of it."""
+    """The sizes the kernel's small-frame form and its scratch form take,
+    where the JAX package's int8 ingest runs XLA's FFT: the plain version
+    (what a CPU tensor gets) within the PSD bar of it."""
     iq = np.random.default_rng(fft + decim).integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)
     got = tpsd.psd_frames_int8(torch.from_numpy(iq), RATE, fft, decim).numpy()
     assert got.shape == (frames, fft) and got.dtype == np.float32
@@ -110,3 +111,31 @@ def test_kernel_takes_every_power_of_two_up_to_2_22():
     assert not any(tpsd.takes_fft(fft) for fft in (0, 1, 96, 3 << 10, 1 << 23))
     assert all(n1 * n2 == fft and n1 in (n2, 2 * n2) for fft in (1 << log for log in range(1, 23))
                for n1, n2 in [tpsd._split_n(fft)])
+
+
+@pytest.mark.parametrize("log_n", range(18, 23))
+def test_scratch_form_window_formula_matches_shifted_window(log_n):
+    """The scratch form computes its window on the card (psd_kernel.cu's
+    HammingFrameIn) where the other forms read ops.psd.shifted_window. Its
+    coefficients, read from the source, evaluated as the kernel does (a
+    butterfly's first point from a double cos, then R - 1 f32 rotations by
+    2 pi Q N2 / (N - 1)), within 1e-6 of shifted_window at every point."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tpsd.__file__).resolve().parents[2] / "csrc" / "psd_kernel.cu").read_text()
+    body = src[src.index("struct HammingFrameIn {"):]
+    a, b = (np.float32(c) for c in re.search(r"win\[r\] = \(([\d.]+)f - ([\d.]+)f \* z\.x\) \* sign;", body).groups())
+    assert "kPerN = 2.0 / (double)((1 << LOG_N) - 1);" in body  # cos(2 pi n / (N - 1)), a symmetric window
+    n, n1, n2 = 1 << log_n, 1 << ((log_n + 1) // 2), 1 << (log_n // 2)
+    r_first = 8 if n1 == 2048 else 32  # pass 1's first radix: 2048 = 8 x 16 x 16, else 32 first
+    q = n1 // r_first
+    first = (np.arange(q)[:, None] * n2 + np.arange(n2)[None, :]) * (2.0 / (n - 1))
+    z = (np.cos(np.pi * first) + 1j * np.sin(np.pi * first)).astype(np.complex64)
+    step = np.complex64(np.exp(1j * np.pi * q * n2 * (2.0 / (n - 1))))
+    sign = np.where(np.arange(n2) % 2 == 1, np.float32(-1.0), np.float32(1.0))
+    win = np.empty((r_first, q, n2), np.float32)
+    for r in range(r_first):
+        win[r] = (a - b * z.real) * sign
+        z = z * step
+    np.testing.assert_allclose(win.reshape(n), tps.shifted_window(n), rtol=0, atol=1e-6)

@@ -124,6 +124,59 @@ def test_plain_matches_jax_xla_selection_on_small_rows(fft, submargin, dtype):
         np.testing.assert_array_equal(_as_np(g), w, err_msg=name)
 
 
+def _wide_rows(rng):
+    """3 rows of 2^18 bins: planted ties 2048 bins apart (the warp-a-row
+    form's leaf at 2^21, 8 of the row-split form's 256-bin leaves; equal
+    maxima on both sides of every run boundary), exact ties, and a masked
+    (-3.0e38) tail the top-64 reaches into."""
+    fft = 1 << 18
+    rows = rng.normal(0.0, 6.0, size=(3, fft)).astype(np.float32)
+    edges = np.arange(2048, fft, 2048)
+    rows[0, edges - 1] = 40.0
+    rows[0, edges] = 40.0
+    rows[1] = np.round(rows[1] / 4.0) + 0.0
+    rows[1, edges[::7]] = 30.0
+    rows[2, 40:] = -3.0e38
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_matches_pallas_on_rows_the_row_split_form_takes(dtype):
+    """At 2^18 bins a row (a one-row block takes the kernel's row-split form:
+    128 warps build its table) the plain version, which the card's kernel is
+    held to, is bit-exact against the JAX package's Pallas kernel."""
+    rows = _wide_rows(np.random.default_rng(18))
+    jrows, trows = jnp.asarray(rows), torch.from_numpy(rows)
+    if dtype == "bf16":
+        jrows, trows = jrows.astype(jnp.bfloat16), trows.to(torch.bfloat16)
+    assert tsel.row_slices(1, rows.shape[1]) > 0
+    want = jax_selection(jrows, jnp.float32(LEVEL), 64, 16, 64, interpret=True)
+    got = tsel.fused_selection(trows, torch.tensor(LEVEL), 64, 16, 64)
+    for name, g, w in zip(("top_val", "top_idx", "sep_val", "sep_idx", "count"), got, want):
+        w = np.asarray(w.astype(jnp.float32) if w.dtype == jnp.bfloat16 else w)
+        np.testing.assert_array_equal(_as_np(g), w, err_msg=name)
+
+
+@pytest.mark.parametrize("n_rows,fft,want", [
+    (16, 1 << 21, 128),  # the 491.52 Msps block: 16 x 128 warps
+    (1, 1 << 18, 128),  # one row: every run of 8 leaves a warp
+    (45, 131072, 32), (180, 131072, 8), (360, 131072, 4),  # shards and the wideband step's rows
+    (384, 131072, 4), (385, 131072, 0), (1024, 131072, 0), (1080, 131072, 0),  # path 1: a warp a row
+    (1800, 16384, 0), (75, 16384, 0), (16, 65536, 0),  # below 2^17: a warp a row
+    (16, 1 << 22, 128), (16, 1 << 23, 0), (16, 3 << 17, 0),  # above 2^22 and not a power of two
+])
+def test_row_slices(n_rows, fft, want):
+    """The row-split form's warps a row: the largest power of two up to 2048
+    rows x warps, at most one a run of 8 leaves of 256 bins; 0 (a warp a row)
+    outside 2^17-2^22 bins or above SPLIT_MAX_ROWS (384) rows."""
+    slices = tsel.row_slices(n_rows, fft)
+    assert slices == want
+    if slices:
+        n_leaf = fft // tsel.SPLIT_LEAF_WIDTH
+        assert n_leaf % tsel.GROUPS == 0 and (n_leaf // tsel.LEAVES_A_LOAD) % slices == 0
+        assert n_rows * slices <= tsel.SPLIT_WARPS < 2 * n_rows * slices or slices == n_leaf // tsel.LEAVES_A_LOAD
+
+
 def test_kernel_table_limits():
     """The kernel's two-level table: leaves of 32 bins (one a lane) widened
     while a row has more than 1024 of them, whole groups of 32 leaves above
