@@ -1,0 +1,367 @@
+"""Headline benchmark of the PyTorch/CUDA port on one NVIDIA GPU: sustained
+IQ samples/s per card through scan + DDC (and, with ``--wideband``, through
+the wideband app path).
+
+    python3 bench_torch.py                 # scan + DDC, the best of 24 and 32 bands
+    python3 bench_torch.py --wideband      # channelizer + 8 channels' scan + DDC, fused
+
+The port's counterpart of ``bench.py``: the same geometry (20.48 Msps, fft
+131072 at decim 3, 45 frames a block, 2 recorder slots a band at 16 kHz),
+the same seeded int8 ring of 2 blocks resident on the card, the same timed
+windows (one block in flight, its predecessor's outputs fetched to the host
+meanwhile; the median of at least 3 windows and their spread, more windows
+while the spread exceeds 5%) and the same JSON line, with the same keys, as
+its last line of output. Progress goes to stderr, with the card's name and
+power limit.
+
+Each step is ``rtl_sdr_scanner_tpu_torch.drivers``' (the one
+``chip_smoke.py`` checks), through the hand-written kernels: the launch
+counters are set to 0 before the timed windows and checked after them
+(the PSD and the selection once a block, the FIR once a chunk for each of
+its stages; on the wideband path no PSD, the channels being f32 pairs), so
+no number comes from a plain route. A band count that fails fails the run.
+Without a card it exits 2; it never times the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+RATE = 20_480_000
+FULL_RATE = 20_480_000  # bench.py's geometry: fft 131072, decim 3
+BASELINE_SAMPLES_PER_S = 20_480_000.0  # reference realtime envelope
+FRAMES = 45  # frames per block (a multiple of 5 for the DDC's chunks)
+SLOTS_PER_BAND = 2
+BANDWIDTH = 16_000  # each slot's recording rate
+TOP_K = 64
+RING = 2  # ingest ring depth (blocks) on the card
+WARMUP = 3
+REPEATS = 3  # timed windows per geometry; the JSON reports median + spread
+SPREAD_TARGET = 0.05  # re-run legs noisier than this
+MAX_REPEATS = 7  # adaptive ceiling; a leg still noisy after 7 is flagged
+
+
+def _timed_windows(dispatch_and_fetch, seconds: float, repeats: int):
+    """Run timed windows; each window pipelines one block in flight (fetch
+    block b-1's outputs while block b computes) and yields a rate in
+    blocks/s. A leg whose spread exceeds SPREAD_TARGET keeps collecting
+    windows up to MAX_REPEATS; legs still above target stay flagged by their
+    spread and repeats in the JSON. bench.py's logic, line for line."""
+    rates = []
+    block_no = 0
+    while True:
+        t0 = time.perf_counter()
+        blocks_done = 0
+        pending = None
+        while True:
+            pending_next = dispatch_and_fetch(block_no, pending)
+            pending = pending_next
+            block_no += 1
+            blocks_done += 1
+            elapsed = time.perf_counter() - t0
+            if elapsed >= seconds and blocks_done >= 4:
+                break
+        dispatch_and_fetch(None, pending)  # drain
+        elapsed = time.perf_counter() - t0
+        rates.append(blocks_done / elapsed)
+        if len(rates) < repeats:
+            continue
+        _, spread = _median_spread(rates)
+        if spread <= SPREAD_TARGET or len(rates) >= MAX_REPEATS:
+            break
+    return rates
+
+
+def _median_spread(rates):
+    """(median rate, spread as a fraction of the median). Spread is min-max
+    for <= 3 windows, the min-max of the central 3 sorted windows when a
+    leg collected more (one outlier would otherwise pin it high); the
+    repeats field in the JSON records how many windows the number rests on."""
+    s = sorted(rates)
+    n = len(s)
+    med = s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
+    core = s if n <= 3 else s[(n - 3) // 2 : (n - 3) // 2 + 3]
+    spread = (core[-1] - core[0]) / med if med else 0.0
+    return med, spread
+
+
+class HostFetch:
+    """Double-buffered host copies of each block's outputs.
+
+    In PyTorch, ``.cpu()`` on block b-1's outputs, called after block b is
+    enqueued, joins the stream behind block b's kernels and waits for them
+    too: the bench would time a serialized loop. So each block's outputs are
+    copied into pinned host buffers (two sets, used in turn) with
+    ``non_blocking`` copies enqueued right behind its own kernels, and an
+    event is recorded after the copies; the host waits on block b-1's event
+    only once block b is enqueued. On the CPU the outputs are host tensors
+    already."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.bufs = [None, None]
+        self.events = [None, None]
+
+    def start(self, b: int, tensors: list) -> int:
+        """Enqueue the copies of block b's outputs; returns its slot."""
+        slot = b % 2
+        if not self.cuda:
+            self.bufs[slot] = tensors
+            return slot
+        bufs = self.bufs[slot]
+        if bufs is None or [x.shape for x in bufs] != [t.shape for t in tensors]:
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for buf, t in zip(bufs, tensors):
+            buf.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self.bufs[slot], self.events[slot] = bufs, event
+        return slot
+
+    def wait(self, slot: int) -> list:
+        """The host copies of the block in ``slot``, once they have landed."""
+        if self.cuda:
+            self.events[slot].synchronize()
+        return self.bufs[slot]
+
+
+def _time_blocks(dispatch, device: torch.device, seconds: float, want_per_block: dict) -> list:
+    """WARMUP blocks (the kernels build at their first launch), then the
+    timed windows with every kernel's launch count set to 0 just before
+    them; checks the counts against ``want_per_block`` times the blocks the
+    windows ran (the plain versions on the CPU count none) and returns the
+    windows' rates in blocks/s."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
+    fetch = HostFetch(device)
+    for b in range(WARMUP):
+        fetch.wait(fetch.start(b, dispatch(b)))
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    ran = [0]
+
+    def step_one(block_no, pending):
+        slot = None
+        if block_no is not None:
+            slot = fetch.start(WARMUP + block_no, dispatch(WARMUP + block_no))
+            ran[0] += 1
+        if pending is not None:
+            fetch.wait(pending)
+        return slot
+
+    rates = _timed_windows(step_one, seconds, REPEATS)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    per_run = ran[0] if device.type == "cuda" else 0
+    want = {name: n * per_run for name, n in want_per_block.items()}
+    if counts != want:
+        raise RuntimeError(f"kernel launches {counts} over {ran[0]} timed blocks, want {want}")
+    return rates
+
+
+def bands_data(n_bands: int, frames: int, group: int):
+    """bench.py's seeded data for the bands' bench: RING int8 blocks [n_bands,
+    frames, group, 2] from ``default_rng(0)``, then each band's slot shifts
+    (one draw, the same in every band) from the same generator."""
+    rng = np.random.default_rng(0)
+    blocks = [rng.integers(-32, 32, size=(n_bands, frames, group, 2), dtype=np.int8) for _ in range(RING)]
+    shifts = np.tile(rng.integers(-RATE // 2, RATE // 2, size=SLOTS_PER_BAND), (n_bands, 1))
+    return blocks, shifts
+
+
+def wideband_data(n_bands: int, n_wide: int):
+    """bench.py's seeded data for the wideband bench: RING int8 wideband
+    blocks [n_wide, 2] from ``default_rng(0)``, then each band's slot shifts
+    (a draw a band) from the same generator."""
+    rng = np.random.default_rng(0)
+    blocks = [rng.integers(-32, 32, size=(n_wide, 2), dtype=np.int8) for _ in range(RING)]
+    shifts = np.stack([rng.integers(-RATE // 2, RATE // 2, size=SLOTS_PER_BAND) for _ in range(n_bands)])
+    return blocks, shifts
+
+
+def bench_bands(
+    n_bands: int,
+    seconds: float,
+    host_fed: bool,
+    frames: int = FRAMES,
+    bf16: bool = True,
+    power_bf16: bool = False,
+    device="cuda",
+):
+    """Samples/s of each timed window through ``make_banded_fused_step`` at
+    ``n_bands`` bands (one dispatch a block: every band's compact scan and
+    2-slot DDC), fed from bench.py's seeded int8 ring on the card, or from
+    pinned host memory with ``host_fed``."""
+    from rtl_sdr_scanner_tpu_torch.constants import Tunables
+    from rtl_sdr_scanner_tpu_torch.drivers import BandedBlocks, fir_stages
+    from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig
+    from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
+
+    dev = torch.device(device)
+    cfg = ScanConfig.create(RATE, frames, Tunables(detection_bf16=bf16, power_bf16=power_bf16))
+    if RATE == FULL_RATE:
+        assert cfg.fft_size == 131072 and cfg.decimator_factor == 3
+    group = cfg.fft_size * cfg.decimator_factor
+    block = cfg.block_samples
+    ddc_cfg = DdcConfig.create(RATE, BANDWIDTH, SLOTS_PER_BAND, block)
+    group_size = int(np.ceil(BANDWIDTH / cfg.step_hz))
+
+    host_blocks, shifts = bands_data(n_bands, frames, group)
+    if host_fed:
+        ring = [torch.from_numpy(b).pin_memory() if dev.type == "cuda" else torch.from_numpy(b) for b in host_blocks]
+    else:
+        ring = [torch.from_numpy(b).to(dev) for b in host_blocks]
+    del host_blocks
+    steps = BandedBlocks(cfg, ddc_cfg, group_size, TOP_K, n_bands, shifts, dev)
+
+    def dispatch(b: int) -> list:
+        iq = ring[b % RING].to(dev, non_blocking=True) if host_fed else ring[b % RING]
+        outs = steps.run_block(b, iq)
+        return [outs.packed, outs.recording]
+
+    per_block = {"psd_frames_int8": 1, "fused_selection": 1,
+                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    rates = _time_blocks(dispatch, dev, seconds, per_block)
+    return [r * block * n_bands for r in rates]
+
+
+def bench_wideband(
+    n_bands: int,
+    seconds: float,
+    frames: int = FRAMES,
+    fused: bool = True,
+    chan_bf16: bool = False,
+    device="cuda",
+):
+    """Samples/s of each timed window through the wideband app path on a
+    one-card mesh: the channelizer splitting one int8 stream of n_bands x
+    RATE into n_bands channels of the bands' geometry, their compact scan
+    and banded 2-slot DDC, in one dispatch (``fused``) or two
+    (``make_sharded_wideband_step`` + ``make_sharded_banded_ddc``)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import WidebandBlocks, fir_stages
+    from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig
+    from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
+    from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    cfg = ScanConfig.create(RATE, frames)
+    block = cfg.block_samples
+    ddc_cfg = DdcConfig.create(RATE, BANDWIDTH, SLOTS_PER_BAND, block)
+    group_size = int(np.ceil(BANDWIDTH / cfg.step_hz))
+    mesh = make_mesh(1, 1, devices=[dev])  # one card
+
+    n_wide = n_bands * block
+    # the int8 cs8 ring, like the bands' bench and the app's int8 wideband
+    # ingest (the channelizer dequantizes at 1/127.5)
+    host_blocks, shifts = wideband_data(n_bands, n_wide)
+    ring = [torch.from_numpy(b).to(dev) for b in host_blocks]
+    del host_blocks
+    steps = WidebandBlocks(cfg, ddc_cfg, group_size, TOP_K, n_bands, shifts, fused, mesh, dev, chan_bf16=chan_bf16)
+
+    def dispatch(b: int) -> list:
+        packed, rec = steps.run_block(b, ring[b % RING])
+        return [*packed, *rec]
+
+    per_block = {"psd_frames_int8": 0, "fused_selection": 1,
+                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    rates = _time_blocks(dispatch, dev, seconds, per_block)
+    return [r * n_wide for r in rates]
+
+
+def wideband_result(rates) -> dict:
+    """bench.py's wideband JSON object for the windows' rates."""
+    rate, spread = _median_spread(rates)
+    return {
+        "metric": "iq_samples_per_second_per_chip_wideband_app_path",
+        "value": round(rate, 1),
+        "unit": "samples/s",
+        "vs_baseline": round(rate / BASELINE_SAMPLES_PER_S, 2),
+        "spread": round(spread, 4),
+        "repeats": len(rates),
+    }
+
+
+def bands_result(best: float, best_spread: float, best_n: int, f32: bool) -> dict:
+    """bench.py's scan + DDC JSON object for the best band count."""
+    return {
+        "metric": "iq_samples_per_second_per_chip_scan_plus_ddc",
+        "value": round(best, 1),
+        "unit": "samples/s",
+        "vs_baseline": round(best / BASELINE_SAMPLES_PER_S, 2),
+        "detection_dtype": "f32" if f32 else "bf16",
+        "spread": round(best_spread, 4),
+        "repeats": best_n,
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--host-fed", action="store_true",
+                        help="upload each block from pinned host memory (non_blocking) instead of the card's ring")
+    parser.add_argument("--wideband", action="store_true",
+                        help="measure the wideband app path (channelizer + banded scan + banded DDC)")
+    parser.add_argument("--wideband-split", action="store_true",
+                        help="with --wideband: the two-dispatch form (scan step, then the banded DDC)")
+    parser.add_argument("--chan-bf16", action="store_true",
+                        help="with --wideband: the channelizer bank with bf16 operands (tunables.channelizer_bf16)")
+    parser.add_argument("--seconds", type=float, default=2.5,
+                        help=f"seconds per timed window (at least {REPEATS} windows a geometry)")
+    parser.add_argument("--bands", type=str, default="",
+                        help="band count, or comma list to sweep (default: 24,32; with --wideband: 8)")
+    parser.add_argument("--frames", type=int, default=FRAMES, help="frames per block (a multiple of 5)")
+    parser.add_argument("--pallas-select", action="store_true",
+                        help="accepted for bench.py's command lines; the port has no kernel switches")
+    parser.add_argument("--power-bf16", action="store_true", help="tunables.power_bf16 (bf16 row storage)")
+    parser.add_argument("--f32", action="store_true",
+                        help="f32 selection (tunables.detection_bf16 off; bf16 is the default)")
+    args = parser.parse_args(argv)
+
+    band_list = [int(x) for x in args.bands.split(",")] if args.bands else []
+    if any(b <= 0 for b in band_list):
+        parser.error("--bands entries must be positive; omit for the default sweep")
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if args.pallas_select:
+        print("bench_torch: --pallas-select has no effect: the port has no kernel switches "
+              "(the selection kernel runs on every CUDA tensor)", file=sys.stderr)
+    from rtl_sdr_scanner_tpu_torch.drivers import card_line
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import build
+
+    print(f"card: {card_line()} ({torch.cuda.get_device_name(0)})", file=sys.stderr)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    if args.wideband:
+        nb = band_list[0] if band_list else 8
+        rates = bench_wideband(nb, args.seconds, args.frames, fused=not args.wideband_split,
+                               chan_bf16=args.chan_bf16)
+        result = wideband_result(rates)
+        print(f"wideband app path, {nb} bands: {result['value'] / 1e6:.1f} Msamples/s ({result['vs_baseline']}x "
+              f"realtime, spread {result['spread']:.1%})", file=sys.stderr)
+        print(json.dumps(result), flush=True)
+        return 0
+
+    best, best_bands, best_spread, best_n = 0.0, 0, 0.0, 0
+    for nb in band_list or [24, 32]:
+        rates = bench_bands(nb, args.seconds, args.host_fed, args.frames, not args.f32, args.power_bf16)
+        rate, spread = _median_spread(rates)
+        print(f"bands={nb}: {rate / 1e6:.1f} Msamples/s aggregate ({rate / RATE:.1f}x realtime, spread "
+              f"{spread:.1%}, {len(rates)} windows)", file=sys.stderr)
+        if rate > best:
+            best, best_bands, best_spread, best_n = rate, nb, spread, len(rates)
+        torch.cuda.empty_cache()
+    print(f"best: {best_bands} concurrent bands", file=sys.stderr)
+    print(json.dumps(bands_result(best, best_spread, best_n, args.f32)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,10 +13,12 @@
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
    frame: fft 256 and 16384; a cluster: 32768 and 131072) and at every size
-   of its scratch form (2^18-2^22), decimations 1-4, odd frame counts (1, 3,
+   of its scratch forms (two-factor 2^18-2^22, three-factor 2^23-2^24, 16
+   frames at decim 4 there), decimations 1-4, odd frame counts (1, 3,
    17); the selection also at the wideband channels' fft 512, at fft 256 and
    at SPLIT_SELECT_CASES (its row-split form: [1, 2^18], [16, 2^21], [45,
-   131072], [180, 131072], zones wider than a slice, and the boundary to a
+   131072], [180, 131072], [16, 2^23] and [16, 2^24] (widened leaves),
+   zones wider than a slice, and the boundary to a
    warp a row at 384 / 385 rows, on rows with ties across every slice
    edge, masked tails and fully masked rows); the decimating FIR within
    2e-5 * max|y| (f32 sum order) with the new tail exact, at each path's
@@ -87,8 +89,9 @@
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
    launch of the process is slower. The time mesh's and the band shards'
-   per-shard shapes (step 10) are checked and timed here too, and the PSD's
-   scratch form at 16 frames of each size 2^18-2^22 (``scratch_2^N``);
+   per-shard shapes (step 10) are checked and timed here too, the PSD's
+   scratch forms at 16 frames of each size 2^18-2^24 (``scratch_2^N``) and
+   the selection at [16, 2^24] (``split_2^24``; [16, 2^23] is step 12e's);
    beside every PSD timing torch.fft.fft's pace (``library_ms``) and device
    time (``library_device_ms``) on the same complex frames.
 10. The multi-device layer on one card (it runs before step 9): (a) path
@@ -154,9 +157,18 @@
    bins equal but for < 0.5% near-ties, values within the PSD bar's 0.02
    dB, recordings within 1 LSB; each block's PSD rows held against the
    plain version under step 2's bar; prints ms a block and the PSD
-   kernel's ms. Step 2 holds the
-   PSD and the selection at (b)'s, (c)'s and (d)'s shapes too, and step 9
+   kernel's ms. (e) The same at 1966.08 Msps (an RFSoC-class
+   direct-sampling band: fft 2^23, the PSD's three-factor form and the
+   selection's row-split form on widened leaves; 1.07 GB of int8 a 0.273 s
+   block, FIR stages (1, 16) x 3 on 256 chunks a block), 3 blocks, without
+   the CPU run ((d) holds these stages card against CPU). Step 2 holds the
+   PSD and the selection at (b)'s to (e)'s shapes too, and step 9
    times them there.
+13. ``bench_torch.py``'s functions (before step 9, whose profiler would
+   slow them): ``bench_bands`` at 24 bands and ``bench_wideband``'s fused
+   form at 8, windows cut to 0.5 s; each checks its kernels' launches over
+   its timed windows, and each JSON line must carry bench.py's keys; prints
+   both lines.
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
@@ -187,8 +199,6 @@ import numpy as np
 import torch
 
 TOP_K = 64
-KEY_SLOTS = 16
-LEVEL = 8.0
 CHECK_ROWS = 45 * 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -239,19 +249,27 @@ RT_TONE = 800.0
 RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 32 kHz)", RT_RATE, 75, 32_000,
                    -600_000, bands=1, slots=4)
 # (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes, and every
-# size of its scratch form (fft 2^18-2^22) at decimations 1-4 and odd frame counts
+# size of its scratch forms (fft 2^18-2^22 two-factor, 2^23-2^24 three-factor) at
+# decimations 1-4 and odd frame counts; 16 frames at decim 4 (a direct-sampling
+# band's block) at 2^23 and 2^24
 PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3),
                   (1 << 18, 1, 17), (1 << 18, 4, 3), (1 << 19, 2, 1), (1 << 19, 3, 17), (1 << 20, 1, 3),
-                  (1 << 20, 4, 1), (1 << 21, 2, 17), (1 << 21, 3, 1), (1 << 22, 4, 3), (1 << 22, 1, 17))
-# (frames, fft, decim): the scratch form timed at each size, 16 frames (the
+                  (1 << 20, 4, 1), (1 << 21, 2, 17), (1 << 21, 3, 1), (1 << 22, 4, 3), (1 << 22, 1, 17),
+                  (1 << 23, 4, 16), (1 << 23, 1, 3), (1 << 24, 4, 16), (1 << 24, 2, 1))
+# (frames, fft, decim): the scratch forms timed at each size, 16 frames (the
 # 491.52 Msps block's count) at decim 4
-SCRATCH_PSD_TIMED = tuple((16, 1 << log, 4) for log in range(18, 23))
+SCRATCH_PSD_TIMED = tuple((16, 1 << log, 4) for log in range(18, 25))
 # (rows, fft, top_k, k_sep, submargin): the selection's row-split form and the
-# boundary to the warp-a-row form (at most 384 rows of 2^17-2^22 split),
-# on rows with ties across every slice edge (split_selection_rows)
+# boundary to the warp-a-row form (at most 384 rows of 2^17-2^24 split),
+# on rows with ties across every slice edge (split_selection_rows); its
+# widened leaves at [16, 2^23] (512 bins) and [16, 2^24] (1024)
 SPLIT_SELECT_CASES = ((1, 1 << 18, 64, 16, 64), (16, 1 << 21, 64, 16, 64), (45, 131072, 64, 16, 52),
                       (45, 131072, 64, 16, 5000), (180, 131072, 64, 16, 52), (384, 131072, 64, 16, 52),
-                      (385, 131072, 64, 16, 52), (6, 1 << 22, 8, 4, 3))
+                      (385, 131072, 64, 16, 52), (6, 1 << 22, 8, 4, 3), (16, 1 << 23, 64, 16, 64),
+                      (16, 1 << 24, 64, 16, 64))
+# (rows, fft, submargin): the selection timed beyond the paths' shapes (the
+# 1966.08 Msps block's [16, 2^23] is step 12e's)
+SPLIT_SELECT_TIMED = ((16, 1 << 24, 64),)
 # (fft, submargin): the selection kernel's smallest table (8 leaves) beyond the paths' shapes
 SELECT_EXTRA_CASES = ((256, 52),)
 # decimations the FIR kernel is held at beyond the paths' stages: 151, 157
@@ -352,18 +370,28 @@ BAND_491 = Geometry("band_491", "one band at 491.52 Msps (fft 2^21, decim 4, 16 
 # and block 1, the signal's first (depth cut: the CPU's time)
 BAND_491_LEARN_MS = 200
 BAND_491_CPU_BLOCKS = 2
+# 12e: one band at 1966.08 Msps (an RFSoC-class direct-sampling front end):
+# fft 2^23 (the PSD's three-factor form), decim 4, 16 frames (1.07 GB of
+# int8 a 0.273 s block); 30 kHz recordings, chain (16, 16, 16, 16), 256
+# chunks a block; depth and noise learning cut as 12d's, no CPU run (12d
+# holds these stages card against CPU)
+BAND_1966 = Geometry("band_1966", "one band at 1966.08 Msps (fft 2^23, decim 4, 16 frames, 2 slots at 30 kHz)",
+                     1_966_080_000, 16, 30_000, -100_000_000, bands=1, blocks=3, signal_band=0,
+                     signal_offset_hz=50_000_000, signal_from_block=1)
+# step 13: bench_torch.py's functions, their windows cut to BENCH_SECONDS
+BENCH_BANDS = 24
+BENCH_SECONDS = 0.5
+# the keys of bench.py's JSON lines (tests/test_torch_bench.py holds them to bench.py's)
+BENCH_KEYS = {
+    "iq_samples_per_second_per_chip_scan_plus_ddc": ("metric", "value", "unit", "vs_baseline", "detection_dtype",
+                                                     "spread", "repeats"),
+    "iq_samples_per_second_per_chip_wideband_app_path": ("metric", "value", "unit", "vs_baseline", "spread",
+                                                         "repeats"),
+}
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -485,21 +513,11 @@ def configs(geo: Geometry):
     return cfg, ddc_cfg, int(np.ceil(geo.bandwidth / cfg.step_hz))
 
 
-def fir_stages(ddc_cfg, shards: int = 1) -> list:
-    """(plan, input samples a row) of each stage one chunk sends through the
-    FIR kernel: every decimation-only stage but a modulated-taps stage 1
-    (a time shard's part of the chunk when ``shards`` > 1)."""
-    stages, n = [], ddc_cfg.chunk // shards
-    for i, plan in enumerate(ddc_cfg.plans):
-        if plan.interp == 1 and not (i == 0 and ddc_cfg.modtap):
-            stages.append((plan, n))
-        n = n * plan.interp // plan.decim
-    return stages
-
-
 def selection_rows(fft: int, dtype, dev, n_rows: int = CHECK_ROWS) -> torch.Tensor:
     """n_rows rows: random, tied, clustered, zones across a segment border,
     all-masked and masked tails, and values exactly at the level."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
+
     rng = np.random.default_rng(1)
     rows = rng.normal(0.0, 6.0, size=(n_rows, fft)).astype(np.float32)
     r = n_rows // 6
@@ -519,6 +537,8 @@ def split_selection_rows(fft: int, n_rows: int, slice_bins: int, rng) -> np.ndar
     (-3.0e38) tail the top-K reaches into, fully masked rows (the
     all-suppressed corner), values at the level, clusters straddling slice
     edges."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
+
     rows = rng.normal(0.0, 6.0, size=(max(n_rows, 6), fft)).astype(np.float32)
     edges = np.arange(slice_bins, fft, slice_bins)
     rows[0::6, edges - 1] = 60.0
@@ -590,6 +610,7 @@ def check_selection(fft: int, submargin: int, dev, top_k: int = TOP_K, k_sep: in
     """Selection kernel bit-exact against its plain version in bf16 and f32
     on n_rows rows (``rows``, or selection_rows') at one path's fft and
     submargin; returns 0.0."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
     from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
 
     level = torch.tensor(LEVEL, device=dev)
@@ -669,10 +690,12 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float,
         rows = geo.bands * geo.frames
         if geo not in sel_only:
             time_psd(psd, geo.key, geo.name, rows, fft, decim, rate, gen, dev, card)
-        time_selection(sel, geo, rows, fft, group_size, gen, dev, card)
+        time_selection(sel, geo.key, geo.name, rows, fft, group_size // 2 + group_size % 2, gen, dev, card)
     for frames, fft, decim in SCRATCH_PSD_TIMED:
         time_psd(psd, f"scratch_2^{fft.bit_length() - 1}", f"{frames} frames, decim {decim}", frames, fft, decim,
                  BAND_491.rate, gen, dev, card)
+    for rows, fft, submargin in SPLIT_SELECT_TIMED:
+        time_selection(sel, f"split_2^{fft.bit_length() - 1}", f"{rows} rows", rows, fft, submargin, gen, dev, card)
     return [psd, sel]
 
 
@@ -699,19 +722,24 @@ def time_psd(psd: dict, key: str, name: str, rows: int, fft: int, decim: int, ra
                 bound_by=bound_by)
 
 
-def time_selection(sel: dict, geo: Geometry, rows: int, fft: int, group_size: int, gen, dev, card: str) -> None:
+def time_selection(sel: dict, key: str, name: str, rows: int, fft: int, submargin: int, gen, dev,
+                   card: str) -> None:
+    """The selection kernel on [rows, fft] bf16 rows, with its plain version
+    and the bound, into ``sel`` under ``key``."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
     from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
 
-    submargin = group_size // 2 + group_size % 2
     level = torch.tensor(LEVEL, device=dev)
     spec = torch.randn((rows, fft), generator=gen, device=dev).mul_(6.0).to(torch.bfloat16)
     t = timings(lambda: select_kernel.fused_selection(spec, level, TOP_K, 16, submargin),
                 lambda: select_kernel.fused_selection_plain(spec, level, TOP_K, 16, submargin), 20,
                 "selection_", 3)  # the table form (selection_kernel) or the register form (selection_small)
     bound_ms, bound_by = bound(rows * fft * 2 + rows * ((TOP_K + 16) * (2 + 4) + 4), 0.0)
-    log(f"selection [{rows}, {fft}] bf16 ({geo.name}): {fmt(t)}, bound {bound_ms:.4g} ms ({bound_by}) "
+    slices = select_kernel.row_slices(rows, fft) if fft > select_kernel.SMALL_MAX_FFT else 0
+    form = f"row-split form, {slices} warps a row" if slices else "a warp a row"
+    log(f"selection [{rows}, {fft}] bf16 ({name}; {form}): {fmt(t)}, bound {bound_ms:.4g} ms ({bound_by}) "
         f"on {card}")
-    record_time(sel, geo.key, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    record_time(sel, key, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def fmt(t: dict) -> str:
@@ -731,6 +759,7 @@ def record_time(record: dict, path: str, **numbers) -> None:
 def fir_cases(geos):
     """(geometry, plan, samples a row) of every stage a path sends through
     the FIR kernel, then FIR_EXTRA_M at 16384 outputs a row (no path)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
     from rtl_sdr_scanner_tpu_torch.ops import ddc
 
     cases = [(geo, plan, n) for geo in geos for plan, n in fir_stages(configs(geo)[1], geo.time_shards)]
@@ -816,63 +845,39 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
     return record
 
 
+def geo_shifts(geo: Geometry) -> np.ndarray:
+    """[bands, slots] slot shifts: slot 0 on the signal's offset, slot 1 at
+    ``other_shift``, in every band."""
+    return np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (geo.bands, 1))
+
+
 class MainPath:
-    """One geometry at full width: configs, the step with default Tunables,
-    a ring of synthetic cs8 on the card, and the carried state."""
+    """One geometry at full width: configs, the step with default Tunables
+    and its carried state (``drivers.BandedBlocks``, as bench_torch.py
+    drives it), and a ring of synthetic cs8 on the card."""
 
     def __init__(self, dev, geo: Geometry, ring=None, learn_ms: int = 0):
         """``ring``: blocks to copy to ``dev`` in place of a new ring;
         ``learn_ms``: the noise learning, where not the default."""
-        from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
+        from rtl_sdr_scanner_tpu_torch.drivers import BandedBlocks
 
         self.dev, self.geo = dev, geo
         self.cfg, self.ddc_cfg, self.group_size = configs(geo)
         if learn_ms:
             self.cfg = dataclasses.replace(self.cfg, noise_learning_ms=learn_ms)
-        cfg = self.cfg
-        self.step = fused_step.make_banded_fused_step(cfg, self.ddc_cfg, self.group_size, TOP_K, device=dev)
         t0 = time.perf_counter()
         if ring is not None:
             self.ring = [block.to(dev) for block in ring]
         else:
-            self.ring = make_ring(geo, cfg, dev)
-            log(f"ring: {geo.blocks} blocks of [{geo.bands}, {geo.frames}, {cfg.fft_size * cfg.decimator_factor}, "
-                f"2] int8 on the card in {time.perf_counter() - t0:.1f} s")
-        self.state = [
-            scan_pipeline.init_scan_state(cfg, geo.bands, 0, device=dev),
-            scan_pipeline.init_spectro_acc(cfg, geo.bands, device=dev),
-            ddc_pipeline.init_state(self.ddc_cfg, geo.bands, device=dev),
-        ]
-        shifts = np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (geo.bands, 1))
-        self.tables = ddc_pipeline.make_tables(self.ddc_cfg, shifts, device=dev)
-        self.shared = [
-            torch.full((KEY_SLOTS,), -1, dtype=torch.int32, device=dev),  # keys
-            torch.ones(cfg.fft_size, dtype=torch.bool, device=dev),  # valid mask
-            torch.tensor(LEVEL, device=dev),  # start level
-            torch.tensor(1.0, device=dev),  # spectro keep
-        ]
-
-    def now(self, b: int) -> torch.Tensor:
-        f = self.geo.frames
-        ms = (b * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms
-        return torch.from_numpy(ms.astype(np.int32)).to(self.dev).expand(self.geo.bands, f).contiguous()
+            self.ring = make_ring(geo, self.cfg, dev)
+            log(f"ring: {geo.blocks} blocks of [{geo.bands}, {geo.frames}, "
+                f"{self.cfg.fft_size * self.cfg.decimator_factor}, 2] int8 on the card in "
+                f"{time.perf_counter() - t0:.1f} s")
+        self.blocks = BandedBlocks(self.cfg, self.ddc_cfg, self.group_size, TOP_K, geo.bands, geo_shifts(geo), dev)
 
     def run_block(self, b: int):
         """One block through the step (ring slot b % blocks); returns FusedOutputs."""
-        *self.state, outs = self.step(
-            *self.state, self.ring[b % self.geo.blocks], self.now(b), *self.shared, self.tables
-        )
-        return outs
-
-
-def kernel_wrappers() -> dict:
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel, psd_kernel, select_kernel
-
-    return {
-        "psd_frames_int8": psd_kernel.psd_frames_int8,
-        "fused_selection": select_kernel.fused_selection,
-        "stage_apply_fir": fir_kernel.stage_apply_fir,
-    }
+        return self.blocks.run_block(b, self.ring[b % self.geo.blocks])
 
 
 def run_path(dev, card: str, geo: Geometry) -> dict:
@@ -880,6 +885,8 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
     0 just before; check the counts (PSD and selection once a block, the FIR
     once a chunk for each stage it takes), then what came out; return the
     counts."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages, kernel_wrappers
+
     log(f"---- {geo.name}")
     path = MainPath(dev, geo)
     cfg, ddc_cfg, group_size = path.cfg, path.ddc_cfg, path.group_size
@@ -939,6 +946,7 @@ def check_detected(packed: list, geo: Geometry, cfg, group_size: int) -> None:
     """The step's packed rows of each block (a list): from the signal's
     first block on, finite, the noise learned, and candidates above LEVEL
     in the signal's band only, within a group of the planted bin."""
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
 
     planted = cfg.fft_size // 2 + round(geo.signal_offset_hz / cfg.step_hz)
@@ -1195,6 +1203,8 @@ def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners:
 def run_runtime(dev, card: str) -> dict:
     """The runtime phase (docstring step 6); returns the kernels' launch
     counts of its card run."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages, kernel_wrappers
+
     log("---- runtime session (Scanner / main.run)")
     wrappers = kernel_wrappers()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rt_") as tmp:
@@ -1285,53 +1295,27 @@ class WidebandStep:
 
     def __init__(self, dev, geo: Geometry, fused: bool, ring: list, shards: int = 1, devices=None, mesh=None):
         from rtl_sdr_scanner_tpu_torch.constants import Tunables
+        from rtl_sdr_scanner_tpu_torch.drivers import WidebandBlocks
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
-        from rtl_sdr_scanner_tpu_torch.ops.channelizer import init_channelizer_state, plan_channelizer
-        from rtl_sdr_scanner_tpu_torch.parallel import mesh as mesh_mod, sharded_scan as ss
+        from rtl_sdr_scanner_tpu_torch.parallel import mesh as mesh_mod
 
         self.dev, self.geo, self.fused, self.ring = dev, geo, fused, ring
         cfg = scan_pipeline.ScanConfig.create(geo.rate, geo.frames, Tunables(noise_learning_time_ms=WIDE_LEARN_MS))
         ddc_cfg = ddc_pipeline.DdcConfig.create(geo.rate, geo.bandwidth, geo.slots, cfg.block_samples)
         self.cfg, self.ddc_cfg = cfg, ddc_cfg
         self.group_size = int(np.ceil(geo.bandwidth / cfg.step_hz))
-        b = geo.bands
-        plan = plan_channelizer(b)
         devices = list(devices) if devices else [dev] * shards  # distinct cards, or copies of one
         # ``mesh``: this process's part of a multi-host bands mesh (its shards only)
-        m = self.mesh = mesh or mesh_mod.make_mesh(len(devices), 1, devices=devices)
-        if fused:
-            self.step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, self.group_size, TOP_K, m, plan, 1, b)
-        else:
-            self.wide_step = ss.make_sharded_wideband_step(cfg, self.group_size, TOP_K, m, plan, 1, b)
-            self.ddc_step = ss.make_sharded_banded_ddc(ddc_cfg, m, b)
-        self.chan = ss.replicate(init_channelizer_state(plan, dev), m)
-        self.scan = ss.init_banded_state(cfg, b, m)
-        self.acc = ss.shard_bands(torch.zeros((b, cfg.spectro_size), dtype=torch.float32, device=dev), m)
-        self.ddc = ss.init_banded_ddc_state(ddc_cfg, b, m)
-        shifts = np.tile(np.array([geo.signal_offset_hz, geo.other_shift], dtype=np.int64), (b, 1))
-        self.tables = ss.shard_bands(ddc_pipeline.make_tables(ddc_cfg, shifts, device=dev), m)
-        self.keys = ss.shard_bands(torch.full((b, KEY_SLOTS), -1, dtype=torch.int32, device=dev), m)
-        self.valid = ss.shard_bands(torch.ones((b, cfg.fft_size), dtype=torch.bool, device=dev), m)
-        self.level = ss.replicate(torch.tensor(LEVEL, device=dev), m)
-        self.keep_mask = ss.shard_bands(torch.ones((b, geo.slots), dtype=torch.float32, device=dev), m)
+        self.mesh = mesh or mesh_mod.make_mesh(len(devices), 1, devices=devices)
+        self.blocks = WidebandBlocks(cfg, ddc_cfg, self.group_size, TOP_K, geo.bands, geo_shifts(geo), fused,
+                                     self.mesh, dev)
 
     def run_block(self, blk: int):
         """One block (ring slot blk % WIDE_RING); returns (packed, rec), the
         mesh's channels' rows gathered on the card."""
         from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
 
-        f = self.geo.frames
-        now = torch.from_numpy(((blk * f + 1 + np.arange(f)) * self.cfg.frame_interval_ms).astype(np.int32))
-        now = ss.replicate(now.to(self.dev), self.mesh)
-        x = ss.replicate(self.ring[blk % WIDE_RING], self.mesh)
-        if self.fused:
-            self.chan, self.scan, self.acc, self.ddc, packed, rec, _ = self.step(
-                self.chan, self.scan, self.acc, self.ddc, x, now, self.keys, self.valid, self.level, 1.0,
-                self.tables, self.keep_mask)
-        else:
-            self.chan, self.scan, self.acc, packed, channels = self.wide_step(
-                self.chan, self.scan, self.acc, x, now, self.keys, self.valid, self.level, 1.0)
-            self.ddc, rec = self.ddc_step(self.ddc, channels, self.tables, self.keep_mask)
+        packed, rec = self.blocks.run_block(blk, self.ring[blk % WIDE_RING])
         return ss.gather_bands(packed, self.dev), ss.gather_bands(rec, self.dev)
 
 
@@ -1395,6 +1379,7 @@ def run_wideband_step(dev, card: str) -> dict:
     vs CPU, then the fused and the split forms for WIDE.blocks blocks each,
     each with the launch counts set to 0 just before and read just after;
     returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL, fir_stages, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
 
     geo = WIDE
@@ -1543,6 +1528,8 @@ def run_wideband_runtime(dev, card: str) -> dict:
     """The wideband session phase (docstring step 8): each form on the card
     (launch counts set to 0 just before, read just after) and on the CPU,
     payloads compared; main.run on the serial config. Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
     log("---- wideband session (WidebandScanner / main.run)")
     wrappers = kernel_wrappers()
     launches = {}
@@ -1616,6 +1603,7 @@ class TimeMesh:
     TMESH.blocks blocks on ``dev``, FM keyed from block 1."""
 
     def __init__(self, dev, sharded: bool, ring=None, devices=None):
+        from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
         from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
 
@@ -1669,6 +1657,8 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
     just before; held against each other and checked for the planted
     signal. ``devices``: TMESH_SHARDS distinct cards in place of copies of
     ``dev``. Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL, fir_stages, kernel_wrappers
+
     log(f"---- {TMESH.name}" + (f" on cards {[d.index for d in devices]}" if devices else ""))
     geo, n = TMESH, TMESH_SHARDS
     where = f"cards {[d.index for d in devices]}" if devices else f"{n} shards of one card"
@@ -1769,6 +1759,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
     blocks, each against the one-card form on the same ring, the launch
     counts set to 0 just before each run. ``devices``: distinct cards in
     place of copies of ``dev``. Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL, fir_stages, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
 
     n_shards = len(devices) if devices else BAND_SHARDS
@@ -1855,6 +1846,7 @@ def run_main_time_mesh(dev, card: str, cards: int = 1) -> dict:
     capture; the time mesh resolves to the visible cards (1 here: one
     card). Its payloads against the same config's CPU run on as many
     copies of the CPU (step 6's bars). Returns {form: counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.runtime.config import Config
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
     from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
@@ -2013,6 +2005,8 @@ def run_multihost_session(dev, card: str, root: Path) -> dict:
     against the one-process run's of its bands. Returns {form: counts}."""
     import pickle
 
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
     log(f"---- step 11a: the multi-host session, {MH_WORLD} processes through main.run")
     wrappers = kernel_wrappers()
     launches = {}
@@ -2077,6 +2071,7 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
     {form: counts}."""
     import pickle
 
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
 
     log(f"---- step 11b: the wideband step at full width, {MH_WORLD} processes of one band shard each")
@@ -2150,6 +2145,7 @@ def run_step_blocks(step) -> tuple:
 
 def run_dryrun(dev, card: str) -> dict:
     """Step 11c: dryrun_multichip(4) on 4 copies of the card."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.dryrun import dryrun_multichip
 
     log("---- step 11c: dryrun_multichip(4) on 4 copies of the card")
@@ -2169,7 +2165,8 @@ def run_vote_forms(dev, card: str) -> dict:
     through the fused step with the gather vote form and the code form, in
     f32 and bf16 detection; the packed outputs must be bit-equal. Times
     compact_detection with CUDA events. Returns {form: counts}."""
-    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL, BandedBlocks, kernel_wrappers
+    from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
     from rtl_sdr_scanner_tpu_torch.ops import detect
 
     log("---- step 11d: the gather vote form against the code form")
@@ -2197,12 +2194,8 @@ def run_vote_forms(dev, card: str) -> dict:
                         return out
 
                     scan_pipeline.compact_detection = timed
-                    path.step = fused_step.make_banded_fused_step(cfg, path.ddc_cfg, path.group_size, TOP_K, device=dev)
-                    path.state = [
-                        scan_pipeline.init_scan_state(cfg, g.bands, 0, device=dev),
-                        scan_pipeline.init_spectro_acc(cfg, g.bands, device=dev),
-                        ddc_pipeline.init_state(path.ddc_cfg, g.bands, device=dev),
-                    ]
+                    path.blocks = BandedBlocks(cfg, path.ddc_cfg, path.group_size, TOP_K, g.bands, geo_shifts(g),
+                                               dev)
                     torch.cuda.synchronize()
                     for fn in wrappers.values():
                         fn.launches = 0
@@ -2271,6 +2264,8 @@ def run_narrow_wideband(dev, card: str, tmp: Path) -> dict:
     """Step 12b: the 64-channel session through main.run on the card in
     each batched form, against the same form's CPU run; returns {form:
     counts}."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
     log(f"---- step 12b: {NARROW_WIDE.name}, main.run")
     wrappers = kernel_wrappers()
     capture = tmp / "narrow_wide.cs8"
@@ -2319,6 +2314,8 @@ def run_narrow_session(dev, card: str, tmp: Path) -> dict:
     """Step 12c: one int8 32 kHz band (fft 128: the PSD's small-frame form
     and the selection's register form) through Scanner on the card against
     the CPU; returns the card run's counts."""
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
     log(f"---- step 12c: {NARROW_RT.name}")
     wrappers = kernel_wrappers()
     capture = tmp / "narrow.cs8"
@@ -2355,6 +2352,7 @@ def hold_step_against_cpu(got: list, want: list, frames: int) -> dict:
     PSD bar (PSD_TOL_DB: the values are functions of PSD rows held to it);
     values where the indices agree and key values within PSD_TOL_DB;
     recordings within 1 LSB. Raises where they differ; returns the worst."""
+    from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
 
     def close(a, b):
@@ -2390,19 +2388,19 @@ def hold_step_against_cpu(got: list, want: list, frames: int) -> dict:
     return worst
 
 
-def run_band_491(dev, card: str) -> dict:
-    """Step 12d: the single-band block step at 491.52 Msps on the card for
-    BAND_491.blocks blocks (launch counts set to 0 just before, read just
+def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> dict:
+    """Steps 12d and 12e: the single-band block step at ``geo`` on the card
+    for geo.blocks blocks (launch counts set to 0 just before, read just
     after), the planted signal detected and recorded, its first
-    BAND_491_CPU_BLOCKS blocks through the same step on the CPU and held
+    ``cpu_blocks`` blocks (if any) through the same step on the CPU and held
     against the card's (``hold_step_against_cpu``), and each card block's
     PSD rows (the step's first stage) against the plain version under the
     PSD bar; returns the counts."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
     from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel
 
-    geo = BAND_491
-    log(f"---- step 12d: {geo.name}")
+    log(f"---- step {step}: {geo.name}")
     path = MainPath(dev, geo, learn_ms=BAND_491_LEARN_MS)
     cfg, ddc_cfg = path.cfg, path.ddc_cfg
     log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {geo.frames} ({cfg.block_samples * 2 / 1e6:.1f} MB "
@@ -2425,7 +2423,7 @@ def run_band_491(dev, card: str) -> dict:
             "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     log(f"launches over {geo.blocks} blocks: {counts}")
     if counts != want:
-        raise RuntimeError(f"491.52 Msps step launches {counts}, want {want}")
+        raise RuntimeError(f"{geo.name}: step launches {counts}, want {want}")
     check_detected([packed for packed, _ in card_out], geo, cfg, path.group_size)
     rec = card_out[-1][1]
     if rec.shape != (geo.bands, geo.slots, ddc_cfg.out_per_block, 2):
@@ -2436,22 +2434,23 @@ def run_band_491(dev, card: str) -> dict:
     log(f"recording, last block: slot 0 (on the signal) {gain_db:.1f} dB above slot 1, FM-demodulates to "
         f"{tone:.1f} Hz")
     if gain_db < 10 or abs(tone - RT_TONE) >= 40:
-        raise RuntimeError(f"the 491.52 Msps signal was not recorded: {gain_db:.1f} dB, {tone:.1f} Hz")
+        raise RuntimeError(f"{geo.name}: the signal was not recorded: {gain_db:.1f} dB, {tone:.1f} Hz")
 
-    t0 = time.perf_counter()
-    ref = MainPath(torch.device("cpu"), geo, ring=path.ring[:BAND_491_CPU_BLOCKS], learn_ms=BAND_491_LEARN_MS)
-    ref_out = []
-    for b in range(BAND_491_CPU_BLOCKS):
-        outs = ref.run_block(b)
-        ref_out.append((outs.packed.numpy(), outs.recording.numpy()))
-    cpu_s = time.perf_counter() - t0
-    del ref
-    held = hold_step_against_cpu(card_out[:BAND_491_CPU_BLOCKS], ref_out, geo.frames)
-    log(f"card vs CPU step, blocks 0..{BAND_491_CPU_BLOCKS - 1} ({cpu_s:.1f} s on the CPU): counts and readiness "
-        f"equal; {held['idx_mismatch']:.4%} of candidate indices and voted bins differ at most in a block (bar "
-        f"0.5%: near-ties; top-K values there within {held['tie_val']:.3g} dB), values where they agree and key "
-        f"values within {held['val']:.3g} dB (bar {PSD_TOL_DB:g}), recordings within {held['rec_lsb']} LSB "
-        f"({held['rec_differ']} samples differ)")
+    if cpu_blocks:
+        t0 = time.perf_counter()
+        ref = MainPath(torch.device("cpu"), geo, ring=path.ring[:cpu_blocks], learn_ms=BAND_491_LEARN_MS)
+        ref_out = []
+        for b in range(cpu_blocks):
+            outs = ref.run_block(b)
+            ref_out.append((outs.packed.numpy(), outs.recording.numpy()))
+        cpu_s = time.perf_counter() - t0
+        del ref
+        held = hold_step_against_cpu(card_out[:cpu_blocks], ref_out, geo.frames)
+        log(f"card vs CPU step, blocks 0..{cpu_blocks - 1} ({cpu_s:.1f} s on the CPU): counts and readiness "
+            f"equal; {held['idx_mismatch']:.4%} of candidate indices and voted bins differ at most in a block (bar "
+            f"0.5%: near-ties; top-K values there within {held['tie_val']:.3g} dB), values where they agree and key "
+            f"values within {held['val']:.3g} dB (bar {PSD_TOL_DB:g}), recordings within {held['rec_lsb']} LSB "
+            f"({held['rec_differ']} samples differ)")
     worst = {}
     for b in range(geo.blocks):
         block = path.ring[b]
@@ -2477,12 +2476,42 @@ def run_band_491(dev, card: str) -> dict:
 
 
 def run_every_fft(dev, card: str) -> dict:
-    """Step 12b-d; returns {phase: counts}."""
+    """Step 12b-e; returns {phase: counts}."""
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_narrow_") as tmp:
         launches.update(run_narrow_wideband(dev, card, Path(tmp)))
         launches["narrow_session"] = run_narrow_session(dev, card, Path(tmp))
-    launches["band_491"] = run_band_491(dev, card)
+    launches["band_491"] = run_one_band(dev, card, "12d", BAND_491, BAND_491_CPU_BLOCKS)
+    launches["band_1966"] = run_one_band(dev, card, "12e", BAND_1966, 0)
+    return launches
+
+
+def run_bench(dev, card: str) -> dict:
+    """Step 13: bench_torch.py's functions on the card, their windows cut to
+    BENCH_SECONDS: the scan + DDC bench at BENCH_BANDS bands and the fused
+    wideband bench (8 channels). Each checks its kernels' launches over its
+    timed windows itself (the counts are read here too); each JSON line must
+    carry bench.py's keys. Returns {phase: counts}."""
+    import bench_torch
+
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
+    log("---- step 13: bench_torch.py's functions")
+    wrappers = kernel_wrappers()
+    launches = {}
+    for phase in ("bench_bands", "bench_wideband"):
+        t0 = time.perf_counter()
+        if phase == "bench_bands":
+            rates = bench_torch.bench_bands(BENCH_BANDS, BENCH_SECONDS, False)
+            result = bench_torch.bands_result(*bench_torch._median_spread(rates), len(rates), f32=False)
+        else:
+            result = bench_torch.wideband_result(bench_torch.bench_wideband(8, BENCH_SECONDS))
+        launches[phase] = {name: fn.launches for name, fn in wrappers.items()}
+        if tuple(result) != BENCH_KEYS.get(result["metric"]) or not result["value"] > 0:
+            raise RuntimeError(f"{phase}: JSON line {result} lacks bench.py's keys or a positive value")
+        log(f"{phase} ({time.perf_counter() - t0:.1f} s, windows of {BENCH_SECONDS} s): {json.dumps(result)}; "
+            f"launches over the timed windows {launches[phase]} on {card}")
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2494,6 +2523,7 @@ def child_main(argv) -> int:
     mode, rank, world, port, root, *rest = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, root)
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
     from rtl_sdr_scanner_tpu_torch.parallel import multihost
 
@@ -2557,6 +2587,7 @@ def child_main(argv) -> int:
 
 
 def main() -> int:
+
     if sys.argv[1:2] == ["--child"]:
         return child_main(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2578,6 +2609,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    from rtl_sdr_scanner_tpu_torch.drivers import card_line
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda", 0)
@@ -2604,9 +2636,9 @@ def main() -> int:
     wide = (WIDE, WIDE_RT, WIDE_SHARD, MH_SHARD)
     # step 12's paths are held at their own shapes here too (each path's
     # selection at its own rows)
-    psd_err, sel_err = check_psd_and_selection(timed + (NARROW_RT, BAND_491), timed + wide + (NARROW_WIDE, NARROW_RT),
-                                               dev)
-    fir_err = check_fir(timed + (WIDE, WIDE_SHARD, BAND_491), dev)
+    psd_err, sel_err = check_psd_and_selection(timed + (NARROW_RT, BAND_491, BAND_1966),
+                                               timed + wide + (NARROW_WIDE, NARROW_RT, BAND_1966), dev)
+    fir_err = check_fir(timed + (WIDE, WIDE_SHARD, BAND_491, BAND_1966), dev)
     narrow_psd_err, narrow_sel_err = check_narrow_kernels(dev)
     psd_err, sel_err = max(psd_err, narrow_psd_err), max(sel_err, narrow_sel_err)
     if not args.kernels_only:
@@ -2625,9 +2657,12 @@ def main() -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_every_fft(dev, card))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
-    records = time_psd_and_selection(timed + (NARROW_RT, BAND_491), dev, card, psd_err, sel_err,
+        # the bench before any timing with the profiler (it slows every later launch)
+        launches.update(run_bench(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
+    records = time_psd_and_selection(timed + (NARROW_RT, BAND_491, BAND_1966), dev, card, psd_err, sel_err,
                                      sel_only=wide + (NARROW_WIDE,))
-    records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491), PATH2, dev, card, fir_err))
+    records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491, BAND_1966), PATH2, dev, card, fir_err))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

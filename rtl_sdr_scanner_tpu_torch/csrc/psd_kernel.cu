@@ -85,6 +85,39 @@
 //   one wave; PERF.md has the split). The wrapper asks psd_scratch_bytes()
 //   whether a size needs the scratch; the on-chip forms take none.
 //
+// * Three-factor scratch form, fft 2^23..2^24 (direct-sampling front ends
+//   of 1.966-4.096 Gsps at the 250 Hz step). The two-factor split gives
+//   N1 = 4096 there, and 8 sequences of 4096 points (256 KB of complex f32)
+//   exceed the 227 KB a block may use; fewer sequences would cut pass 1's
+//   int8 runs below 16 B. So N = A*B*C with C = 2048 and A*B = N/C split
+//   again (A >= B: 64 x 64 at 2^23, 128 x 64 at 2^24), n = a*B*C + b*C + c,
+//   k = ka + A*kb + A*B*kc, in three passes over one complex f32 scratch:
+//     pass 1 (psd_scratch3a): one block per (frame, S columns m = b*C + c)
+//             runs their A-point FFTs over a, reading the int8 pairs and
+//             computing the window as the two-factor pass 1 does, and writes
+//             T[ka][m];
+//     pass 2 (psd_scratch3b): one block per (frame, ka, S columns c) reads
+//             T[ka][b*C + c] along b times exp(-2 pi i ka b / (A*B)), runs
+//             their B-point FFTs and writes the result over what it read
+//             (in place: a block's region is its own, and every read comes
+//             before the block's barrier and every write after it), k12 =
+//             ka + A*kb at scratch row ka*B + kb;
+//     pass 3 (psd_scratch3c): the two-factor pass 2 with N1 = A*B, N2 = C,
+//             its rows k12 read from scratch row (k12 mod A)*B + k12/A.
+//   Passes 1 and 2 hold 8192 points a block (two blocks an SM; 64-128
+//   columns, so their reads and writes run 256 B and more), pass 3 16384
+//   (8 rows of 2048). Chosen over 4096-point sequences across a 2-block
+//   cluster (22 B a point) because it is built from the passes the
+//   two-factor form already runs, and it reaches any size memory holds
+//   (each factor <= 2048 up to 2^33; the instantiations stop at 2^24, the
+//   fastest front end of the class). Its price is a second scratch round
+//   trip: 38 B a point (2 in, 3 x 8 out and 2 x 8 back, 4 of dB out) where
+//   the two-factor form moves 22. Bound (bytes): 16 frames of 2^23 must
+//   move 0.805 GB, 0.240 ms at 3.35 TB/s; with both round trips 5.10 GB,
+//   1.52 ms, this design's own floor (2^24: twice each). Every offset into
+//   the input, the scratch and the output is 64-bit (16 frames of 2^24 at
+//   decim 4 are 2^31 B of int8).
+//
 // * Small-frame form, fft <= 128 (a band of 32 kHz or less at 250 Hz bins).
 //   The one-block form's passes hold 32 points a thread and need N2 >= 16,
 //   and a 128-point frame is 4 threads' work, so a block takes 4096 / N
@@ -114,6 +147,9 @@ constexpr int kOnChipMaxLog = 17;  // a cluster of 16 blocks, the most the card 
 constexpr int kScratchBlockLog = 13;  // 8192 points a block, two blocks an SM,
 constexpr int kScratchNarrowLog = 10;  // for sequences up to 1024 points; 2048 take 16384 a block
 constexpr int kScratchMaxLog = 22;  // 8 sequences of 2048 points a block
+// ---- three-factor scratch form
+constexpr int kScratch3LastLog = 11;  // C = 2048: pass 3 is the two-factor pass 2 at N2 = 2048
+constexpr int kMaxLog = 24;  // the largest fft instantiated (4.096 Gsps at 250 Hz bins)
 
 // ---- small-frame form
 constexpr int kThreads = 256;
@@ -123,13 +159,14 @@ constexpr int kSmallPointsLog = 12;  // 4096 points a block: 4096 / N frames
 
 // The forms as psd_form() numbers them (ops/cuda/psd_kernel.FORMS names
 // them); the dispatcher and the queries below all decide by form_of().
-enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3 };
+enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3, kScratch3 = 4 };
 
 Form form_of(int log_n) {
   if (log_n <= kSmallMaxLog) return kSmall;
   if (log_n <= kSingleMaxLog) return kBlock;
   if (log_n <= kOnChipMaxLog) return kCluster;
-  return kScratch;
+  if (log_n <= kScratchMaxLog) return kScratch;
+  return kScratch3;
 }
 
 __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
@@ -307,8 +344,9 @@ struct FrameIn {
 // running product. Lanes run along n2, so that a warp reads runs of
 // consecutive columns from one block (distributed shared memory moves whole
 // sectors; lanes along k1 would each fetch their own). sync() waits until
-// every block of the cluster has read.
-template <int LOG_N, int LOG_BA, int SA, bool kClustered>
+// every block of the cluster has read. LOG_A > 0 (the three-factor form's
+// pass 3): row k1 = ka + A kb is stored at row ka B + kb (B = N / (A BA)).
+template <int LOG_N, int LOG_BA, int SA, bool kClustered, int LOG_A = 0>
 struct ExchangeIn {
   enum : bool { kShared = true, kAlongJ = true, kFetch = false };
   float2* s;
@@ -316,12 +354,14 @@ struct ExchangeIn {
   template <int R, int Q>
   __device__ __forceinline__ void load(int j, int b, float2* v) const {
     const int k1 = k1_0 + b;
+    int row = k1;
+    if constexpr (LOG_A > 0) row = ((k1 & ((1 << LOG_A) - 1)) << (LOG_N - LOG_BA - LOG_A)) + (k1 >> LOG_A);
     const float2 step = twiddle<LOG_N>(k1 * Q);
     float2 tw = twiddle<LOG_N>(k1 * j);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int n2 = j + r * Q;
-      const float2* src = s + k1 * SA + (n2 & ((1 << LOG_BA) - 1));
+      const float2* src = s + row * SA + (n2 & ((1 << LOG_BA) - 1));
       if constexpr (kClustered) src = cg::this_cluster().map_shared_rank(src, (unsigned)(n2 >> LOG_BA));
       v[r] = cmul(*src, tw);
       tw = cmul(tw, step);
@@ -605,10 +645,12 @@ struct SmemPad {
 // passes the other forms (its sign is (-1)^n2: N2 is even); a butterfly's
 // cosines from one double sincospi at its first point, then a rotation by
 // 2 pi Q N2 / (N - 1) a point (<= 31 roundings, ~2e-6 of the window).
-template <int LOG_N>
+// The three-factor form's pass 1 reads columns of stride 2^LOG_STRIDE = N / A
+// (its N2 here), element a of column m at n = a N / A + m.
+template <int LOG_N, int LOG_STRIDE = LOG_N / 2>
 struct HammingFrameIn {
   enum : bool { kShared = false, kAlongJ = false, kFetch = true };
-  static constexpr int N2 = 1 << (LOG_N / 2);
+  static constexpr int N2 = 1 << LOG_STRIDE;
   const char2* x;
   int c0;
   template <int R, int Q>
@@ -690,6 +732,118 @@ int launch_scratch(const void* iq, void* scratch, void* out, int frames, int dec
   return (int)cudaGetLastError();
 }
 
+// ---- three-factor scratch form (2^22 < fft <= 2^24)
+
+// Its geometry at fft 2^LOG_N: N = A B C, C = 2048; passes 1 and 2 hold
+// 8192 points a block (S1 columns of A points, S2 of B), pass 3 16384 (S3 =
+// 8 rows of C points); each pass's first Stockham radix 2^LOG_R1..3.
+template <int LOG_N>
+struct Scratch3 {
+  static constexpr int LOG_C = kScratch3LastLog, LOG_AB = LOG_N - LOG_C;
+  static constexpr int LOG_A = (LOG_AB + 1) / 2, LOG_B = LOG_AB / 2;
+  static constexpr int A = 1 << LOG_A, B = 1 << LOG_B, C = 1 << LOG_C, AB = 1 << LOG_AB;
+  static constexpr int LOG_S1 = kScratchBlockLog - LOG_A, LOG_S2 = kScratchBlockLog - LOG_B;
+  static constexpr int LOG_S3 = kScratchBlockLog + 1 - LOG_C;
+  static constexpr int S1 = 1 << LOG_S1, S2 = 1 << LOG_S2, S3 = 1 << LOG_S3;
+  static constexpr int NT12 = 1 << (kScratchBlockLog - kLogPerThread);
+  static constexpr int NT3 = 1 << (kScratchBlockLog + 1 - kLogPerThread);
+  static constexpr int LOG_R1 = next_radix_log(LOG_A), LOG_R2 = next_radix_log(LOG_B);
+  static constexpr int LOG_R3 = next_radix_log(LOG_C);
+  static constexpr size_t SMEM1 = sizeof(float2) * ((size_t)A + (A >> LOG_R1)) * S1;
+  static constexpr size_t SMEM2 = sizeof(float2) * ((size_t)B + (B >> LOG_R2)) * S2;
+  static constexpr size_t SMEM3 = sizeof(float2) * ((size_t)C * S3 + (C >> LOG_R3));
+  static_assert(LOG_A <= 11 && LOG_B >= 4 && S2 <= C && S3 >= 8, "factors of 16..2048 points");
+};
+
+// Pass 2's input: element b of column s is T[ka][b C + s] (t points at
+// T[ka][c0]) times exp(-2 pi i ka b / AB), a running product a butterfly.
+// kShared: the pass writes over what it reads, so a one-pass FFT (B <= 32)
+// syncs between reading and writing too.
+template <int LOG_AB, int C>
+struct TwiddleColumnIn {
+  enum : bool { kShared = true, kAlongJ = false, kFetch = false };
+  const float2* t;
+  int ka;
+  template <int R, int Q>
+  __device__ __forceinline__ void load(int j, int b, float2* v) const {
+    const float2 step = twiddle<LOG_AB>(ka * Q);
+    float2 tw = twiddle<LOG_AB>(ka * j);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = cmul(t[(j + r * Q) * C + b], tw);
+      tw = cmul(tw, step);
+    }
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// Pass 1: one block per (S1 columns m, frame): the columns' A-point FFTs
+// over a (element a at pair a N / A + m), the first Stockham pass reading the
+// int8 pairs and computing the window, the last writing T[ka][m].
+template <int LOG_N>
+__global__ void __launch_bounds__(Scratch3<LOG_N>::NT12, 2)
+psd_scratch3a(const char2* __restrict__ iq, float2* __restrict__ scratch, int decim) {
+  using G = Scratch3<LOG_N>;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  const int m0 = blockIdx.x << G::LOG_S1;
+  const HammingFrameIn<LOG_N, LOG_N - G::LOG_A> in{iq + ((frame * decim) << LOG_N) + m0, m0};
+  const ScratchOut<(1 << (LOG_N - G::LOG_A))> out{scratch + (frame << LOG_N) + m0};
+  stockham_fft<G::LOG_A, G::LOG_S1, G::NT12>(in, SmemPad<G::S1, G::LOG_R1, G::S1>{smem}, out);
+}
+
+// Pass 2: one block per (S2 columns c, ka, frame), blockIdx.x = ka * (C /
+// S2) + c0 / S2: the B-point FFTs over b of T[ka][b C + c] with the twiddle,
+// written in place (scratch row ka B + kb holds k12 = ka + A kb).
+template <int LOG_N>
+__global__ void __launch_bounds__(Scratch3<LOG_N>::NT12, 2)
+psd_scratch3b(float2* scratch) {
+  using G = Scratch3<LOG_N>;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  constexpr int kLogPerRow = G::LOG_C - G::LOG_S2;  // blocks a ka
+  const int ka = blockIdx.x >> kLogPerRow;
+  const int c0 = (blockIdx.x & ((1 << kLogPerRow) - 1)) << G::LOG_S2;
+  float2* t = scratch + (frame << LOG_N) + ((long long)ka << (LOG_N - G::LOG_A)) + c0;
+  const TwiddleColumnIn<G::LOG_AB, G::C> in{t, ka};
+  const ScratchOut<G::C> out{t};
+  stockham_fft<G::LOG_B, G::LOG_S2, G::NT12>(in, SmemPad<G::S2, G::LOG_R2, G::S2>{smem}, out);
+}
+
+// Pass 3: one block per (S3 rows k12, frame): the C-point FFTs over c of row
+// k12 (at scratch row (k12 mod A) B + k12 / A) with exp(-2 pi i k12 c / N),
+// writing the dB of X[k12 + AB kc].
+template <int LOG_N>
+__global__ void __launch_bounds__(Scratch3<LOG_N>::NT3, 1)
+psd_scratch3c(const float2* __restrict__ scratch, float* __restrict__ out, float rate) {
+  using G = Scratch3<LOG_N>;
+  extern __shared__ float2 smem[];
+  const long long frame = blockIdx.y;
+  const int r0 = blockIdx.x << G::LOG_S3;
+  const ExchangeIn<LOG_N, G::LOG_C, G::C, false, G::LOG_A> ex{const_cast<float2*>(scratch) + (frame << LOG_N), r0};
+  const DbOut<G::AB> db{out + (frame << LOG_N) + r0, 1.0f / rate};
+  stockham_fft<G::LOG_C, G::LOG_S3, G::NT3>(ex, SmemPad<G::S3, G::LOG_R3, 1>{smem}, db);
+}
+
+template <int LOG_N>
+int launch_scratch3(const void* iq, void* scratch, void* out, int frames, int decim, float rate, cudaStream_t s) {
+  using G = Scratch3<LOG_N>;
+  const void* fns[3] = {(const void*)psd_scratch3a<LOG_N>, (const void*)psd_scratch3b<LOG_N>,
+                        (const void*)psd_scratch3c<LOG_N>};
+  const size_t smem[3] = {G::SMEM1, G::SMEM2, G::SMEM3};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  psd_scratch3a<LOG_N><<<dim3(1u << (LOG_N - G::LOG_A - G::LOG_S1), (unsigned)frames), G::NT12, G::SMEM1, s>>>(
+      (const char2*)iq, (float2*)scratch, decim);
+  psd_scratch3b<LOG_N><<<dim3(1u << (G::LOG_A + G::LOG_C - G::LOG_S2), (unsigned)frames), G::NT12, G::SMEM2, s>>>(
+      (float2*)scratch);
+  psd_scratch3c<LOG_N><<<dim3(1u << (G::LOG_AB - G::LOG_S3), (unsigned)frames), G::NT3, G::SMEM3, s>>>(
+      (const float2*)scratch, (float*)out, rate);
+  return (int)cudaGetLastError();
+}
+
 int launch_scratch(const void* iq, void* scratch, void* out, int frames, int log_n, int decim, float rate,
                    cudaStream_t s) {
   switch (log_n) {
@@ -698,6 +852,8 @@ int launch_scratch(const void* iq, void* scratch, void* out, int frames, int log
     case 20: return launch_scratch<20>(iq, scratch, out, frames, decim, rate, s);
     case 21: return launch_scratch<21>(iq, scratch, out, frames, decim, rate, s);
     case 22: return launch_scratch<22>(iq, scratch, out, frames, decim, rate, s);
+    case 23: return launch_scratch3<23>(iq, scratch, out, frames, decim, rate, s);
+    case 24: return launch_scratch3<24>(iq, scratch, out, frames, decim, rate, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -789,15 +945,17 @@ int launch_small(const void* iq, const void* win, void* out, int frames, int log
 
 }  // namespace
 
-// The form that takes fft = 2^log_n (enum Form), or -1 outside [2, 2^22].
+// The form that takes fft = 2^log_n (enum Form), or -1 outside [2, 2^24].
 extern "C" int psd_form(int log_n) {
-  return log_n < 1 || log_n > kScratchMaxLog ? -1 : (int)form_of(log_n);
+  return log_n < 1 || log_n > kMaxLog ? -1 : (int)form_of(log_n);
 }
 
 // Bytes of global scratch one frame needs: 0 for the on-chip and
-// small-frame forms (fft <= 2^17), a complex f32 frame for the scratch form.
-extern "C" int psd_scratch_bytes(int log_n1, int log_n2) {
-  return form_of(log_n1 + log_n2) == kScratch ? (int)(sizeof(float2) << (log_n1 + log_n2)) : 0;
+// small-frame forms (fft <= 2^17), a complex f32 frame for both scratch
+// forms (the three-factor form's pass 2 works in place).
+extern "C" long long psd_scratch_bytes(int log_n1, int log_n2) {
+  const Form f = form_of(log_n1 + log_n2);
+  return f == kScratch || f == kScratch3 ? (long long)sizeof(float2) << (log_n1 + log_n2) : 0;
 }
 
 // Clusters of the cluster form that the card holds at once
@@ -819,9 +977,10 @@ extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
 // null where psd_scratch_bytes() is not 0 (the scratch form computes it:
 // HammingFrameIn); scratch: psd_scratch_bytes() per frame, or null where
 // that is 0;
-// out: [frames, fft] f32. fft = 2^(log_n1 + log_n2), 2 <= fft <= 2^22, with
+// out: [frames, fft] f32. fft = 2^(log_n1 + log_n2), 2 <= fft <= 2^24, with
 // log_n1 = ceil(log2(fft) / 2) (_split_n); fft <= 128 takes the small-frame
-// form, which splits nothing.
+// form, which splits nothing, and fft >= 2^23 the three-factor form, which
+// splits N as A B C itself.
 // Returns cudaGetLastError(); a launch the card refuses (a cluster it cannot
 // place) is returned, never rerouted.
 extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, void* out,
@@ -829,13 +988,12 @@ extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, v
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int log_n = log_n1 + log_n2;
-  if (frames <= 0 || decim <= 0 || log_n < 1 || log_n1 != (log_n + 1) / 2 ||
-      log_n > kScratchMaxLog) {
+  if (frames <= 0 || decim <= 0 || log_n < 1 || log_n1 != (log_n + 1) / 2 || log_n > kMaxLog) {
     return (int)cudaErrorInvalidValue;
   }
   const Form form = form_of(log_n);
   if (form == kSmall) return launch_small(iq, win, out, frames, log_n, decim, rate, s);
-  if (form == kScratch) {
+  if (form == kScratch || form == kScratch3) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     return launch_scratch(iq, scratch, out, frames, log_n, decim, rate, s);
   }

@@ -68,6 +68,12 @@
 // piece in flight where the warp-a-row form's 2048-bin leaves at 2^21 cost
 // 64 dependent loads a lane; the table is 64 KB of shared memory at 2^21
 // (8192 leaves, 256 a group: 8 shared loads a lane re-reduce a group).
+// Above 2^22 (16384 leaves, 128 KB) the leaves widen instead
+// (select_kernel.split_leaf_width: 512 bins at 2^23, 1024 at 2^24), since
+// 32768 leaves (256 KB) would not fit a block. A leaf is then up to 8
+// pieces a lane (f32 rows at 2^24 only): the chains are instantiated for
+// kMaxPieces and for twice that, so that the narrow leaves of every other
+// shape keep their registers.
 // Bound: 16 rows of 2^21 bf16 move 67 MB, 0.020 ms; the chains' 80 winners
 // a row are 80 round trips to L2 or device memory (~1 us each), so the
 // form's own floor is the chain's latency, ~0.1 ms.
@@ -95,7 +101,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmallMaxFft = 128;  // the register form's rows: 4 slots of 32 lanes
 constexpr int kSmallSlots = kSmallMaxFft / 32;
 constexpr int kSplitThreads = 256;  // the row-split form's blocks: 8 warps
-constexpr int kMaxPieces = 4;  // 16-byte pieces a lane of a row-split leaf (<= 2 KB a leaf)
+constexpr int kMaxPieces = 4;  // 16-byte pieces a lane of a row-split leaf (<= 2 KB; twice that in the wide chains)
 constexpr int kMaxDevices = 64;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, what one block may use
 
@@ -187,33 +193,33 @@ __device__ __forceinline__ void leaf_after(const T* row, int leaf_w, int l, uint
   warp_best(bk, bi);
 }
 
-// The P = leaf_w / (32 kVec) 16-byte pieces of leaf l that lane holds
-// (contiguous: bins l leaf_w + lane P kVec ...), all loads in flight; slots
-// past P are left as they are.
-template <typename T>
+// The P = leaf_w / (32 kVec) <= kPieces 16-byte pieces of leaf l that lane
+// holds (contiguous: bins l leaf_w + lane P kVec ...), all loads in flight;
+// slots past P are left as they are.
+template <typename T, int kPieces>
 __device__ __forceinline__ void leaf_pieces(const T* row, int leaf_w, int l, uint4* v) {
   constexpr int kVec = 16 / sizeof(T);
   const int P = leaf_w / (32 * kVec);
   const uint4* src = reinterpret_cast<const uint4*>(row + (size_t)l * leaf_w) + (threadIdx.x & 31) * P;
 #pragma unroll
-  for (int p = 0; p < kMaxPieces; ++p) {
+  for (int p = 0; p < kPieces; ++p) {
     if (p < P) v[p] = __ldg(src + p);
   }
 }
 
 // leaf_after for leaves of whole pieces a lane: one round trip.
-template <typename T>
+template <typename T, int kPieces>
 __device__ __forceinline__ void leaf_after_vec(const T* row, int leaf_w, int l, uint32_t ak, uint32_t aw,
                                                uint32_t& bk, uint32_t& bi) {
   constexpr int kVec = 16 / sizeof(T);
   const int P = leaf_w / (32 * kVec);
   const uint32_t b0 = (uint32_t)(l * leaf_w + (threadIdx.x & 31) * P * kVec);
-  uint4 v[kMaxPieces];
-  leaf_pieces(row, leaf_w, l, v);
+  uint4 v[kPieces];
+  leaf_pieces<T, kPieces>(row, leaf_w, l, v);
   bk = kNone;
   bi = 0xffffffffu;
 #pragma unroll
-  for (int p = 0; p < kMaxPieces; ++p) {
+  for (int p = 0; p < kPieces; ++p) {
     if (p < P) {
       float f[kVec];
       unpack(v[p], f, row);
@@ -276,7 +282,7 @@ __device__ __forceinline__ void leaves_zoned(const T* row, int leaf_w, int la, i
 
 // leaves_zoned for leaves of whole pieces a lane: both leaves' pieces in
 // flight together.
-template <typename T>
+template <typename T, int kPieces>
 __device__ __forceinline__ void leaves_zoned_vec(const T* row, int leaf_w, int la, int lb, const int* zone, int nz,
                                                  int submargin, uint32_t nk, uint2& ea, uint2& eb) {
   constexpr int kVec = 16 / sizeof(T);
@@ -285,12 +291,12 @@ __device__ __forceinline__ void leaves_zoned_vec(const T* row, int leaf_w, int l
   const uint32_t za = zones_reaching(zone, nz, submargin, la0, la0 + leaf_w - 1);
   const uint32_t zb = zones_reaching(zone, nz, submargin, lb0, lb0 + leaf_w - 1);
   const int off = (threadIdx.x & 31) * P * kVec;
-  uint4 va[kMaxPieces], vb[kMaxPieces];
-  leaf_pieces(row, leaf_w, la, va);
-  leaf_pieces(row, leaf_w, lb < 0 ? la : lb, vb);
+  uint4 va[kPieces], vb[kPieces];
+  leaf_pieces<T, kPieces>(row, leaf_w, la, va);
+  leaf_pieces<T, kPieces>(row, leaf_w, lb < 0 ? la : lb, vb);
   uint32_t ka = kNone, ia = 0xffffffffu, kb = kNone, ib = 0xffffffffu;
 #pragma unroll
-  for (int p = 0; p < kMaxPieces; ++p) {
+  for (int p = 0; p < kPieces; ++p) {
     if (p < P) {
       float fa[kVec], fb[kVec];
       unpack(va[p], fa, row);
@@ -409,8 +415,9 @@ __device__ __forceinline__ uint32_t leaf_table(const T* row, int leaf_w, int l0,
 // then the margin-separated greedy, and their outputs. gk, gi: lane g's
 // group g (G leaves a group; the key no bin has where the lane has none).
 // kVecLeaves: a leaf's re-reduction reads whole 16-byte pieces, all in flight
-// (the row-split form's leaves, >= 32 pieces); else a bin a load.
-template <typename T, bool kVecLeaves>
+// (the row-split form's leaves, >= 32 pieces, at most kPieces a lane); else
+// a bin a load.
+template <typename T, bool kVecLeaves, int kPieces = kMaxPieces>
 __device__ __forceinline__ void chains(const T* row, const RowSmem& s, long long r, int fft, int leaf_w, int G,
                                        uint32_t gk, uint32_t gi, int top_k, int k_sep, int submargin, float neg,
                                        T* __restrict__ top_val, int* __restrict__ top_idx, T* __restrict__ sep_val,
@@ -431,7 +438,7 @@ __device__ __forceinline__ void chains(const T* row, const RowSmem& s, long long
     }
     uint32_t lk, li;
     if constexpr (kVecLeaves) {
-      leaf_after_vec(row, leaf_w, l, wk, w, lk, li);
+      leaf_after_vec<T, kPieces>(row, leaf_w, l, wk, w, lk, li);
     } else {
       leaf_after(row, leaf_w, l, wk, w, lk, li);
     }
@@ -481,7 +488,7 @@ __device__ __forceinline__ void chains(const T* row, const RowSmem& s, long long
       const int la = cut_lo ? l_lo : l_hi, lb = cut_lo && cut_hi ? l_hi : -1;
       uint2 ea, eb;
       if constexpr (kVecLeaves) {
-        leaves_zoned_vec(row, leaf_w, la, lb, s.zone, i + 1, submargin, nk, ea, eb);
+        leaves_zoned_vec<T, kPieces>(row, leaf_w, la, lb, s.zone, i + 1, submargin, nk, ea, eb);
       } else {
         leaves_zoned(row, leaf_w, la, lb, s.zone, i + 1, submargin, nk, ea, eb);
       }
@@ -566,8 +573,9 @@ selection_table(const T* __restrict__ rows, const float* __restrict__ level, uin
 
 // The row-split form, kernel 2: one block of kSplitThreads a row. Its warps
 // copy the row's table into shared memory and reduce its 32 groups; warp 0
-// sums the partial counts and runs the chains.
-template <typename T>
+// sums the partial counts and runs the chains (leaves of at most kPieces
+// pieces a lane).
+template <typename T, int kPieces>
 __global__ void __launch_bounds__(kSplitThreads)
 selection_chain(const T* __restrict__ rows, const uint2* __restrict__ table, const int* __restrict__ part_count,
                 T* __restrict__ top_val, int* __restrict__ top_idx, T* __restrict__ sep_val,
@@ -593,8 +601,8 @@ selection_chain(const T* __restrict__ rows, const uint2* __restrict__ table, con
   cnt = __reduce_add_sync(kFull, cnt);
   if (lane == 0) count[r] = (int)cnt;
   const uint2 e = group[lane];
-  chains<T, true>(rows + r * fft, s, r, fft, leaf_w, G, e.x, e.y, top_k, k_sep, submargin, neg, top_val, top_idx,
-                  sep_val, sep_idx);
+  chains<T, true, kPieces>(rows + r * fft, s, r, fft, leaf_w, G, e.x, e.y, top_k, k_sep, submargin, neg, top_val,
+                           top_idx, sep_val, sep_idx);
 }
 
 // The register form, rows of fft <= 128 bins: lane l holds bins l + 32 e
@@ -681,7 +689,7 @@ selection_small(const T* __restrict__ rows, const float* __restrict__ level,
   }
 }
 
-bool g_ready[kMaxDevices][4];  // [device][slot]: (warp-a-row, row-split chains) x (f32, bf16)
+bool g_ready[kMaxDevices][6];  // [device][slot]: (warp-a-row, row-split chains, wide chains) x (f32, bf16)
 std::mutex g_ready_mutex;  // sessions on several host threads may share a card
 
 // Once per device, under the mutex: kernel fn may take all of a block's
@@ -724,19 +732,27 @@ int launch_split(int slot, const void* rows, const void* level, void* top_val, v
   constexpr int kVec = 16 / sizeof(T);
   const int n_leaf = fft / leaf_w, pieces = leaf_w / (32 * kVec);
   const size_t smem = row_smem_bytes(n_leaf, top_k, k_sep) + kGroups * sizeof(uint2);
-  if (n_leaf % kGroups != 0 || pieces < 1 || pieces > kMaxPieces || pieces * 32 * kVec != leaf_w ||
+  if (n_leaf % kGroups != 0 || pieces < 1 || pieces > 2 * kMaxPieces || pieces * 32 * kVec != leaf_w ||
       (n_leaf / kLeavesALoad) % slices != 0 || smem > kMaxSmem || n_rows > 65535 || table == nullptr ||
       part_count == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = ready(2 + slot, reinterpret_cast<const void*>(selection_chain<T>));
+  const bool wide = pieces > kMaxPieces;  // f32 rows of 2^24: 1024-bin leaves, 8 pieces a lane
+  const cudaError_t err = wide ? ready(4 + slot, reinterpret_cast<const void*>(selection_chain<T, 2 * kMaxPieces>))
+                               : ready(2 + slot, reinterpret_cast<const void*>(selection_chain<T, kMaxPieces>));
   if (err != cudaSuccess) return (int)err;
   const int warps = slices < kSplitThreads / 32 ? slices : kSplitThreads / 32;  // a block
   selection_table<T><<<dim3(slices / warps, n_rows), 32 * warps, 0, s>>>(
       (const T*)rows, (const float*)level, (uint2*)table, (int*)part_count, fft, leaf_w, slices);
-  selection_chain<T><<<n_rows, kSplitThreads, smem, s>>>(
-      (const T*)rows, (const uint2*)table, (const int*)part_count, (T*)top_val, (int*)top_idx, (T*)sep_val,
-      (int*)sep_idx, (int*)count, fft, leaf_w, slices, top_k, k_sep, submargin, neg);
+  if (wide) {
+    selection_chain<T, 2 * kMaxPieces><<<n_rows, kSplitThreads, smem, s>>>(
+        (const T*)rows, (const uint2*)table, (const int*)part_count, (T*)top_val, (int*)top_idx, (T*)sep_val,
+        (int*)sep_idx, (int*)count, fft, leaf_w, slices, top_k, k_sep, submargin, neg);
+  } else {
+    selection_chain<T, kMaxPieces><<<n_rows, kSplitThreads, smem, s>>>(
+        (const T*)rows, (const uint2*)table, (const int*)part_count, (T*)top_val, (int*)top_idx, (T*)sep_val,
+        (int*)sep_idx, (int*)count, fft, leaf_w, slices, top_k, k_sep, submargin, neg);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -748,7 +764,7 @@ int launch_split(int slot, const void* rows, const void* level, void* top_val, v
 // (ops/cuda/select_kernel.leaf_width: a power of 2 >= 32 dividing fft into a
 // multiple of 8 leaves, and of 32 above 32 leaves); slices > 0 (a power of
 // 2; select_kernel.row_slices, from the rows and the fft) the row-split form:
-// slices warps build a row's table, leaf_w = select_kernel.SPLIT_LEAF_WIDTH
+// slices warps build a row's table, leaf_w = select_kernel.split_leaf_width
 // (whole 16-byte pieces a lane, whole groups), table [n_rows, fft / leaf_w]
 // of 8 bytes and part_count [n_rows, slices] int32 its scratch;
 // k_sep <= 32 (a lane a zone);

@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the library's entry points (the launchers return
-# cudaGetLastError; the psd_ queries return a count)
+# cudaGetLastError; the psd_ queries return a count, psd_scratch_bytes a
+# 64-bit one)
 SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "psd_form": [_I],
@@ -40,6 +41,7 @@ SIGNATURES = {
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+RESTYPES = {"psd_scratch_bytes": ctypes.c_longlong}  # the others return int
 
 
 def _nvcc() -> str:
@@ -117,7 +119,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -28,10 +28,12 @@ FFT_MULTIPLE = LEAVES_A_LOAD * LEAF_MIN  # fft must be a multiple (256): whole l
 MAX_LEAVES = 1024  # leaves widen (doubling) while a row has more
 MAX_K_SEP = 32  # margin winners: the kernel tests a bin against the zones, a lane a zone
 SMALL_MAX_FFT = 128  # rows of at most this many bins take the register form (4 bins a lane)
-# the row-split form: rows of 2^17-2^22 bins too few to fill the card with a warp each
+# the row-split form: rows of 2^17-2^24 bins (the PSD kernel's largest fft)
+# too few to fill the card with a warp each
 SPLIT_MIN_FFT = 1 << 17
-SPLIT_MAX_FFT = 1 << 22
+SPLIT_MAX_FFT = 1 << 24
 SPLIT_LEAF_WIDTH = 256  # its leaves: a 16-byte piece a lane in bf16, two in f32
+SPLIT_MAX_LEAVES = 16384  # a row's table in its chain block's shared memory: 128 KB
 SPLIT_WARPS = 2048  # rows x slices it aims at: ~16 warps on each of 132 SMs
 # the most rows it takes: its chain kernel's blocks (8 warps, one running the
 # chains) fit ~3 an SM, 396 rows a wave on 132 SMs; on the H100 the split
@@ -50,6 +52,17 @@ def leaf_width(fft: int) -> int:
     return width
 
 
+def split_leaf_width(fft: int) -> int:
+    """Bins a leaf of the row-split form's table for rows of ``fft`` bins:
+    SPLIT_LEAF_WIDTH, doubled while the row has more than SPLIT_MAX_LEAVES
+    leaves (2^23: 512, 2^24: 1024), so that the table fits the chain
+    block's shared memory."""
+    width = SPLIT_LEAF_WIDTH
+    while fft // width > SPLIT_MAX_LEAVES:
+        width *= 2
+    return width
+
+
 def row_slices(n_rows: int, fft: int) -> int:
     """Warps that build one row's table in the kernel's row-split form, or 0
     where a warp a row runs (the warp-a-row form). The split takes
@@ -59,7 +72,7 @@ def row_slices(n_rows: int, fft: int) -> int:
     128; 45 of 131072: 32; 180: 8; 360: 4)."""
     if not SPLIT_MIN_FFT <= fft <= SPLIT_MAX_FFT or fft & (fft - 1) or not 0 < n_rows <= SPLIT_MAX_ROWS:
         return 0
-    runs = fft // SPLIT_LEAF_WIDTH // LEAVES_A_LOAD
+    runs = fft // split_leaf_width(fft) // LEAVES_A_LOAD
     return min(1 << ((SPLIT_WARPS // n_rows).bit_length() - 1), runs)
 
 
@@ -125,7 +138,7 @@ def fused_selection(
     lib = library()
     dev = rows.device
     slices = row_slices(n_rows, fft)
-    leaf_w = SPLIT_LEAF_WIDTH if slices else leaf_width(fft)
+    leaf_w = split_leaf_width(fft) if slices else leaf_width(fft)
     # the row-split form's scratch, one allocation: the leaf table ((key,
     # bin) pairs, 8 bytes each) and then each warp's int32 count
     table_len = n_rows * (fft // leaf_w)

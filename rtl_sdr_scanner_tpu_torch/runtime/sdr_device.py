@@ -98,9 +98,9 @@ def _channel_rate(config: Config, spec: DeviceSpec) -> int:
 def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
     """A geometry of this device that a kernel on its card does not take:
     compact detection at an fft below ``detection_top_k`` (the JAX package's
-    top-k raises on it too), or an int8 fft above the PSD kernel's 2^22 (or
-    of 1, a band below 250 sps). The selection kernel takes every
-    power-of-two fft, and every fft here is one."""
+    top-k raises on it too), or an int8 fft above the PSD kernel's 2^24 (a
+    band above 4.194304 Gsps at 250 Hz bins; or of 1, a band below 250 sps). The
+    selection kernel takes every power-of-two fft, and every fft here is one."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda.psd_kernel import takes_fft as psd_takes_fft
 
     t = config.tunables
@@ -114,7 +114,7 @@ def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
     # a wideband device's channels reach the scan as f32 pairs (no PSD kernel)
     if spec.channels < 2 and t.int8_ingest and not psd_takes_fft(fft):
         return (
-            f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel's [2, 2^22] "
+            f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel's [2, 2^24] "
             "on the card; set tunables.int8_ingest=false"
         )
     return None
@@ -152,7 +152,7 @@ def unported_path(
     take; None when it runs. Every path of the JAX package is ported, and
     the kernels take every geometry the JAX package scans, so only compact
     detection below ``detection_top_k`` (which the JAX package cannot run
-    either) and an int8 fft above 2^22 remain. The time and band shards of
+    either) and an int8 fft above 2^24 remain. The time and band shards of
     a mesh run the kernels at the device's own fft (a shard holds fewer
     frames or bands, never narrower rows), so the kernel check covers them
     too, on every process of a multi-host run."""

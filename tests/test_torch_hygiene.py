@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "rtl_sdr_scanner_tpu_torch"
 CARD_SCRIPTS = [
     ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py",
-    ROOT / "scripts" / "mesh_cards_torch.py",
+    ROOT / "scripts" / "mesh_cards_torch.py", ROOT / "bench_torch.py",
 ]
 SCAN_FILE = ROOT / "scripts" / "scan_file_torch.py"
 SOURCES = (

@@ -107,19 +107,43 @@ def test_psd_kernel_scratch_form_matches_plain(fft, decim, frames, dev):
     assert chip_smoke.psd_within_bar(agreement), agreement
 
 
+@pytest.mark.parametrize("fft,decim,frames", [
+    (1 << 23, 4, 16), (1 << 23, 1, 3),  # 1966.08 Msps: 64 x 64 x 2048
+    (1 << 24, 4, 16), (1 << 24, 2, 1),  # 3932.16 Msps: 128 x 64 x 2048; 16 frames are 2^31 B of int8
+])
+def test_psd_kernel_three_factor_form_matches_plain(fft, decim, frames, dev):
+    """The three-factor scratch form (fft 2^23-2^24: three passes, the
+    second in place) against the plain version under the PSD bar, at 16
+    frames of decim 4 (a direct-sampling band's block) and odd counts."""
+    import chip_smoke
+
+    rng = np.random.default_rng(fft // 1024 + frames + decim)
+    iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
+    before = psd_kernel.psd_frames_int8.launches
+    got = psd_kernel.psd_frames_int8(iq, 1.96608e9, fft, decim)
+    torch.cuda.synchronize()
+    assert psd_kernel.psd_frames_int8.launches == before + 1
+    assert psd_kernel.form(fft) == "three-factor scratch form"
+    assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
+    want = psd_kernel.psd_frames_int8_plain(iq, 1.96608e9, fft, decim)
+    agreement = chip_smoke.psd_agreement(got, want)
+    assert chip_smoke.psd_within_bar(agreement), agreement
+
+
 def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
     """fft <= 2^17 stays on chip (one block or one cluster a frame, no
-    device-memory intermediate); only the scratch form above needs one."""
+    device-memory intermediate); only the scratch forms above need one, a
+    complex f32 frame, the size the wrapper allocates."""
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 
     lib = build.library()
-    for log in range(1, 23):
+    for log in range(1, 25):
         logs = [n.bit_length() - 1 for n in psd_kernel._split_n(1 << log)]
-        assert (lib.psd_scratch_bytes(*logs) > 0) == (log > 17)
+        assert lib.psd_scratch_bytes(*logs) == (8 << log if log > 17 else 0)
         assert (lib.psd_max_active_clusters(*logs) > 0) == (15 <= log <= 17)
-        want = 0 if log <= 7 else 1 if log <= 14 else 2 if log <= 17 else 3
+        want = 0 if log <= 7 else 1 if log <= 14 else 2 if log <= 17 else 3 if log <= 22 else 4
         assert psd_kernel.form(1 << log) == psd_kernel.FORMS[want]
-    assert lib.psd_form(0) == lib.psd_form(23) == -1
+    assert lib.psd_form(0) == lib.psd_form(25) == -1
     fft, frames = 131072, 8
     iq = torch.zeros((frames, fft * DECIM, 2), dtype=torch.int8, device=dev)
     psd_kernel.psd_frames_int8(iq, 256000.0, fft, DECIM)  # the window, cached
@@ -294,7 +318,8 @@ def test_selection_kernel_register_form_bit_exact(fft, top_k, k_sep, submargin, 
 def test_selection_kernel_row_split_form_bit_exact(n_rows, fft, top_k, k_sep, submargin, dtype, dev):
     """The row-split form (select_kernel.row_slices > 0: one row of 2^18 bins,
     the 491.52 Msps block's 16 of 2^21, a time shard's 45 and a band shard's
-    180 of 131072, zones wider than a slice's 4096 bins, 384 rows) and the
+    180 of 131072, 16 of 2^23 and 2^24 on widened leaves, zones wider than a
+    slice's 4096 bins, 384 rows) and the
     warp-a-row form at the boundary (385 rows), bit-exact against the plain
     version on rows with ties across every slice edge, masked tails and the
     all-suppressed corner (chip_smoke.split_selection_rows)."""

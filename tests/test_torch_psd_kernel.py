@@ -103,23 +103,27 @@ def test_plain_matches_xla_at_the_small_and_large_forms(fft, frames, decim):
     _hold(got, np.asarray(xla))
 
 
-def test_kernel_takes_every_power_of_two_up_to_2_22():
-    """Every power of two from 2 to 2^22 (1.048 Gsps at 250 Hz bins) has a
-    form of the kernel; 1 (no fftshift by (-1)^n), 2^23 and sizes that are
-    not powers of two do not."""
-    assert all(tpsd.takes_fft(1 << log) for log in range(1, 23))
-    assert not any(tpsd.takes_fft(fft) for fft in (0, 1, 96, 3 << 10, 1 << 23))
-    assert all(n1 * n2 == fft and n1 in (n2, 2 * n2) for fft in (1 << log for log in range(1, 23))
+def test_kernel_takes_every_power_of_two_up_to_2_24():
+    """Every power of two from 2 to 2^24 (4.096 Gsps at 250 Hz bins; the
+    three-factor scratch form above 2^22) has a form of the kernel; 1 (no
+    fftshift by (-1)^n), 2^25 (above the sizes the library instantiates)
+    and sizes that are not powers of two do not."""
+    assert tpsd.MAX_FFT == 1 << 24
+    assert all(tpsd.takes_fft(1 << log) for log in range(1, 25))
+    assert not any(tpsd.takes_fft(fft) for fft in (0, 1, 96, 3 << 10, 1 << 25))
+    assert all(n1 * n2 == fft and n1 in (n2, 2 * n2) for fft in (1 << log for log in range(1, 25))
                for n1, n2 in [tpsd._split_n(fft)])
 
 
-@pytest.mark.parametrize("log_n", range(18, 23))
+@pytest.mark.parametrize("log_n", range(18, 25))
 def test_scratch_form_window_formula_matches_shifted_window(log_n):
-    """The scratch form computes its window on the card (psd_kernel.cu's
+    """The scratch forms compute their window on the card (psd_kernel.cu's
     HammingFrameIn) where the other forms read ops.psd.shifted_window. Its
     coefficients, read from the source, evaluated as the kernel does (a
     butterfly's first point from a double cos, then R - 1 f32 rotations by
-    2 pi Q N2 / (N - 1)), within 1e-6 of shifted_window at every point."""
+    2 pi Q N2 / (N - 1)), within 1e-6 of shifted_window at every point. The
+    first pass's columns are N1 points at stride N2 in the two-factor form,
+    A points at stride N / A in the three-factor form (2^23-2^24)."""
     import re
     from pathlib import Path
 
@@ -127,8 +131,11 @@ def test_scratch_form_window_formula_matches_shifted_window(log_n):
     body = src[src.index("struct HammingFrameIn {"):]
     a, b = (np.float32(c) for c in re.search(r"win\[r\] = \(([\d.]+)f - ([\d.]+)f \* z\.x\) \* sign;", body).groups())
     assert "kPerN = 2.0 / (double)((1 << LOG_N) - 1);" in body  # cos(2 pi n / (N - 1)), a symmetric window
-    n, n1, n2 = 1 << log_n, 1 << ((log_n + 1) // 2), 1 << (log_n // 2)
-    r_first = 8 if n1 == 2048 else 32  # pass 1's first radix: 2048 = 8 x 16 x 16, else 32 first
+    n = 1 << log_n
+    n1 = tpsd.scratch_passes(n)[0][0]  # pass 1's column length, the column stride n2 = n / n1
+    n2 = n // n1
+    # pass 1's first radix (next_radix_log): 2048 = 8 x 16 x 16, 128 = 16 x 8, 64 = 8 x 8, else 32 first
+    r_first = {2048: 8, 128: 16, 64: 8}.get(n1, 32)
     q = n1 // r_first
     first = (np.arange(q)[:, None] * n2 + np.arange(n2)[None, :]) * (2.0 / (n - 1))
     z = (np.cos(np.pi * first) + 1j * np.sin(np.pi * first)).astype(np.complex64)
@@ -139,3 +146,32 @@ def test_scratch_form_window_formula_matches_shifted_window(log_n):
         win[r] = (a - b * z.real) * sign
         z = z * step
     np.testing.assert_allclose(win.reshape(n), tps.shifted_window(n), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("fft,want", [
+    (1 << 17, ()),  # the cluster form: on chip, no scratch
+    (1 << 18, ((512, 16, 32), (512, 16, 32))),
+    (1 << 21, ((2048, 8, 128), (1024, 8, 256))),
+    (1 << 22, ((2048, 8, 256), (2048, 8, 256))),
+    (1 << 23, ((64, 128, 1024), (64, 128, 1024), (2048, 8, 512))),  # 1.966 Gsps: 64 x 64 x 2048
+    (1 << 24, ((128, 64, 2048), (64, 128, 2048), (2048, 8, 1024))),  # 3.932 Gsps: 128 x 64 x 2048
+])
+def test_scratch_pass_plan(fft, want):
+    """The scratch forms' passes as the kernel runs them: (points a
+    sequence, sequences a block, blocks a frame). Each block holds 8192
+    points (16384 for 2048-point sequences), at least 8 sequences, and its
+    shared memory (the sequences plus psd_kernel.cu's SmemPad pad after
+    every first radix) within a block's 227 KB; the factors multiply to the
+    fft. (The scratch the library asks for, one complex f32 frame, is held
+    on the card: test_psd_kernel_takes_a_scratch_only_above_the_cluster_form.)"""
+    passes = tpsd.scratch_passes(fft)
+    assert passes == want
+    if not want:
+        return
+    assert np.prod([n for n, _, _ in passes]) == fft and len(passes) == (3 if fft > 1 << 22 else 2)
+    radix = {2048: 8, 1024: 32, 512: 32, 128: 16, 64: 8}
+    for n, seqs, blocks in passes:
+        assert seqs >= 8 and n * seqs in (8192, 16384) and n * seqs * blocks == fft
+        pad = n // radix[n] * seqs
+        assert 8 * (n * seqs + pad) <= 232448
+    assert not tpsd.scratch_passes(1 << 25)

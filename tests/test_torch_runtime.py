@@ -582,14 +582,15 @@ class _Idle:
 
 
 @pytest.mark.parametrize("case", ["select_fft_128", "wideband_select_fft_128", "psd_fft_128", "runs",
-                                  "psd_fft_2_23", "select_below_top_k"])
+                                  "psd_fft_2_23", "psd_fft_2_25", "select_below_top_k"])
 def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
     """On a CUDA device, unported_path names only what the JAX package
     cannot run either (compact detection below detection_top_k) and an int8
-    fft above the PSD kernel's 2^22; the selection at fft 128 (a single
-    32 kHz band, 64 channels of 2.048 Msps) and the int8 PSD at fft 128 run
-    there. It reads only the config, so it launches nothing here. On the CPU
-    the same configs run the plain versions."""
+    fft above the PSD kernel's 2^24; the selection at fft 128 (a single
+    32 kHz band, 64 channels of 2.048 Msps), the int8 PSD at fft 128 and at
+    fft 2^23 (a 2 Gsps direct-sampling band) run there. It reads only the
+    config, so it launches nothing here. On the CPU the same configs run the
+    plain versions."""
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 
     rate, channels, tunables, want = {
@@ -597,7 +598,8 @@ def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
         "wideband_select_fft_128": (2_048_000, 64, {}, None),  # 32 kHz channels
         "psd_fft_128": (32_000, 0, {"compact_detection": False}, None),
         "runs": (2_048_000, 16, {}, None),  # 128 kHz channels: fft 512
-        "psd_fft_2_23": (2_000_000_000, 0, {}, "int8 PSD kernel's [2, 2^22]"),  # fft 2^23
+        "psd_fft_2_23": (2_000_000_000, 0, {}, None),  # fft 2^23: the three-factor scratch form
+        "psd_fft_2_25": (8_000_000_000, 0, {}, "int8 PSD kernel's [2, 2^24]"),  # fft 2^25
         "select_below_top_k": (8_000, 0, {}, "detection_top_k 64"),  # fft 32
     }[case]
     raw = _raw(short_capture, tunables=tunables)
@@ -612,20 +614,21 @@ def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
 
 @pytest.mark.parametrize("compact", [False, True])
 def test_unported_path_takes_every_fft_the_jax_package_scans(short_capture, compact):
-    """Every power-of-two fft from 16 to 2^22 on an int8 single-band device
-    runs on the card, in full-row mode and with compact detection at a
-    detection_top_k the fft holds (the JAX package's top-k needs k <= fft);
-    fft 2^23 is refused."""
+    """Every power-of-two fft from 16 to 2^24 (a 4.096 Gsps band at 250 Hz
+    bins) on an int8 single-band device runs on the card, in full-row mode
+    and with compact detection at a detection_top_k the fft holds (the JAX
+    package's top-k needs k <= fft); fft 2^25, above the PSD kernel's
+    largest instantiated size, is refused."""
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 
-    for log in range(4, 24):
+    for log in range(4, 26):
         fft = 1 << log
         tunables = {"compact_detection": compact, "detection_top_k": min(64, fft)}
         raw = _raw(short_capture, tunables=tunables)
         raw["devices"][0].update(sample_rate=250 * fft)  # 250 Hz bins
         cfg = tconfig.Config(raw)
         reason = sdr_device.unported_path(cfg, cfg.devices[0], torch.device("cuda"))
-        assert (reason is None) == (log <= 22), (fft, reason)
+        assert (reason is None) == (log <= 24), (fft, reason)
     assert not torch.cuda.is_initialized()
 
 

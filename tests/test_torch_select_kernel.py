@@ -163,18 +163,35 @@ def test_plain_matches_pallas_on_rows_the_row_split_form_takes(dtype):
     (45, 131072, 32), (180, 131072, 8), (360, 131072, 4),  # shards and the wideband step's rows
     (384, 131072, 4), (385, 131072, 0), (1024, 131072, 0), (1080, 131072, 0),  # path 1: a warp a row
     (1800, 16384, 0), (75, 16384, 0), (16, 65536, 0),  # below 2^17: a warp a row
-    (16, 1 << 22, 128), (16, 1 << 23, 0), (16, 3 << 17, 0),  # above 2^22 and not a power of two
+    (16, 1 << 22, 128), (16, 1 << 23, 128), (16, 1 << 24, 128),  # 1.966 and 3.932 Gsps: wider leaves
+    (1, 1 << 24, 2048), (16, 1 << 25, 0), (16, 3 << 17, 0),  # above 2^24 and not a power of two
 ])
 def test_row_slices(n_rows, fft, want):
     """The row-split form's warps a row: the largest power of two up to 2048
-    rows x warps, at most one a run of 8 leaves of 256 bins; 0 (a warp a row)
-    outside 2^17-2^22 bins or above SPLIT_MAX_ROWS (384) rows."""
+    rows x warps, at most one a run of 8 leaves (of split_leaf_width: 256
+    bins up to 2^22, wider above); 0 (a warp a row) outside 2^17-2^24 bins or
+    above SPLIT_MAX_ROWS (384) rows."""
     slices = tsel.row_slices(n_rows, fft)
     assert slices == want
     if slices:
-        n_leaf = fft // tsel.SPLIT_LEAF_WIDTH
+        n_leaf = fft // tsel.split_leaf_width(fft)
         assert n_leaf % tsel.GROUPS == 0 and (n_leaf // tsel.LEAVES_A_LOAD) % slices == 0
         assert n_rows * slices <= tsel.SPLIT_WARPS < 2 * n_rows * slices or slices == n_leaf // tsel.LEAVES_A_LOAD
+
+
+@pytest.mark.parametrize("log_fft,want", [(17, 256), (21, 256), (22, 256), (23, 512), (24, 1024)])
+def test_split_leaf_width(log_fft, want):
+    """The row-split form's leaves: 256 bins up to 2^22, widened above so
+    that a row's table (8 bytes a leaf), its 80 winners' log and zones and
+    the 32 groups fit one block's 227 KB of shared memory, as whole 16-byte
+    pieces a lane in both dtypes."""
+    fft = 1 << log_fft
+    width = tsel.split_leaf_width(fft)
+    assert width == want
+    n_leaf = fft // width
+    assert n_leaf <= tsel.SPLIT_MAX_LEAVES and n_leaf % tsel.GROUPS == 0
+    assert n_leaf * 8 + 64 * 12 + 16 * 4 + tsel.GROUPS * 8 <= 232448
+    assert all(width % (32 * (16 // size)) == 0 for size in (2, 4))
 
 
 def test_kernel_table_limits():
