@@ -15,7 +15,9 @@ its last line of output. Progress goes to stderr, with the card's name and
 power limit.
 
 Each step is ``rtl_sdr_scanner_tpu_torch.drivers``' (the one
-``chip_smoke.py`` checks), through the hand-written kernels: the launch
+``chip_smoke.py`` checks: one captured CUDA graph a geometry, replayed each
+block with its state carried in place; the warm-up blocks take the capture),
+through the hand-written kernels: the launch
 counters are set to 0 before the timed windows and checked after them
 (the PSD and the selection once a block, the FIR once a chunk for each of
 its stages; on the wideband path no PSD, the channels being f32 pairs), so

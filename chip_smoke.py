@@ -169,6 +169,27 @@
    form at 8, windows cut to 0.5 s; each checks its kernels' launches over
    its timed windows, and each JSON line must carry bench.py's keys; prints
    both lines.
+14. The graphed steps against eager (before step 9): path 1, path 2 and the
+   491.52 Msps band (``drivers.BandedBlocks``), the fused wideband step
+   (``drivers.WidebandBlocks``, one-card mesh), GRAPH_BLOCKS blocks each,
+   slot 1 of the signal's band restarted on a new shift before block
+   GRAPH_SLOT_BLOCK; and step 6's session on two ranges (it hops, and
+   records the FM) through ``Scanner.run_to_completion()``, serial and
+   pipelined. Each runs its steps' eager ``fn``, then the graphed step,
+   from a fresh state: packed rows and recordings (the session's payloads,
+   byte for byte, and its hops) equal, each step captured once, the
+   kernels' launches equal between the forms and to the per-block counts
+   x blocks. Prints ms a block eager and graphed (wall of synchronised
+   blocks, host until the call returns, and back to back: GRAPH_BLOCKS
+   more blocks with one synchronisation, or the pipelined session), the
+   card's busy share (the captured graphs' device span a block, CUDA
+   events around replays alone, over each form's synchronised wall), the
+   capture time and the pool's bytes.
+
+Every one-card block step runs as a ``graph.donated_step``: captured once
+a geometry as a CUDA graph and replayed (steps 3-8, 12 and 13); the steps
+over more than one shard (10, 11) stay eager, as does step 11d's (it times
+``compact_detection`` around its own launches).
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
@@ -381,6 +402,18 @@ BAND_1966 = Geometry("band_1966", "one band at 1966.08 Msps (fft 2^23, decim 4, 
 # step 13: bench_torch.py's functions, their windows cut to BENCH_SECONDS
 BENCH_BANDS = 24
 BENCH_SECONDS = 0.5
+# step 14: each one-card block step graphed against the same step eager,
+# GRAPH_BLOCKS blocks a form, slot 1 of the signal's band restarted on a new
+# shift before block GRAPH_SLOT_BLOCK; the session on two ranges, so that it
+# hops (its noise learning cut to GRAPH_LEARN_MS, so that a range learns
+# within its first dwells and the FM keyed at 3 s is recorded: 4 tunes, the
+# last held while it records); a captured graph's device span from
+# GRAPH_REPLAYS replays alone
+GRAPH_BLOCKS = 6
+GRAPH_SLOT_BLOCK = 3
+GRAPH_REPLAYS = 5
+GRAPH_RANGES = ((RT_CENTER - 1_000_000, RT_CENTER + 1_000_000), (RT_CENTER + 1_000_000, RT_CENTER + 3_000_000))
+GRAPH_LEARN_MS = 500
 # the keys of bench.py's JSON lines (tests/test_torch_bench.py holds them to bench.py's)
 BENCH_KEYS = {
     "iq_samples_per_second_per_chip_scan_plus_ddc": ("metric", "value", "unit", "vs_baseline", "detection_dtype",
@@ -2196,6 +2229,9 @@ def run_vote_forms(dev, card: str) -> dict:
                     scan_pipeline.compact_detection = timed
                     path.blocks = BandedBlocks(cfg, path.ddc_cfg, path.group_size, TOP_K, g.bands, geo_shifts(g),
                                                dev)
+                    # the eager step: compact_detection is timed around its
+                    # own launches, which a captured graph runs unseen
+                    path.blocks.step = path.blocks.step.fn
                     torch.cuda.synchronize()
                     for fn in wrappers.values():
                         fn.launches = 0
@@ -2515,6 +2551,308 @@ def run_bench(dev, card: str) -> dict:
     return launches
 
 
+# -- step 14: the graphed steps against eager ---------------------------------------
+
+
+def replay_ms(step) -> float:
+    """Device span of one replay of ``step``'s captured graph alone: CUDA
+    events around GRAPH_REPLAYS back-to-back replays (the step's kernels
+    back to back, no host in the loop), mean. The replays advance the
+    step's state and count no launch."""
+    (captured,) = step.graphs()
+    captured.graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        captured.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / GRAPH_REPLAYS
+
+
+def timed_blocks(run, blocks: int) -> tuple:
+    """``run(b)`` -> output tensors, for b < ``blocks``, each block
+    synchronised: (outputs on the host, wall ms, host ms until the call
+    returned), a list each."""
+    outs, wall, host = [], [], []
+    for b in range(blocks):
+        t0 = time.perf_counter()
+        out = run(b)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+        outs.append([x.cpu().numpy() for x in out])
+    return outs, wall, host
+
+
+def pace_ms(run, first: int, blocks: int) -> float:
+    """ms a block of ``blocks`` blocks from block ``first`` run back to back,
+    one synchronisation at the end: the host's enqueue of a block overlaps
+    the card's work on the one before."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(first, first + blocks):
+        run(b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / blocks
+
+
+def hold_outputs(name: str, runs: dict) -> None:
+    """The graphed form's outputs bit-equal to the eager form's, block by block."""
+    for b, (e, g) in enumerate(zip(runs["eager"][0], runs["graphed"][0])):
+        for i, (x, y) in enumerate(zip(e, g)):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                where = np.argwhere(x != y)[:3].tolist() if x.shape == y.shape else (x.shape, y.shape)
+                raise RuntimeError(f"{name}: block {b}, output {i}: graphed differs from eager at {where}")
+
+
+def hold_counts(name: str, counts: dict, want: dict, steps: list) -> None:
+    """The graphed form's launch counts equal to the eager form's and to
+    ``want`` (per-block launches x blocks), and each of ``steps`` captured
+    once."""
+    if not counts["graphed"] == counts["eager"] == want:
+        raise RuntimeError(f"{name}: launches graphed {counts['graphed']}, eager {counts['eager']}, want {want}")
+    for step in steps:
+        if step.captures != 1:
+            raise RuntimeError(f"{name}: {step.name} captured {step.captures} times: {step.capture_log}")
+
+
+def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, device_ms: float,
+                 steps: list) -> dict:
+    """Log and return one path's eager and graphed ms a block (the median of
+    blocks 1.. each synchronised: block 0 holds the graphed form's warm-up
+    and capture, and the session captures its DDC step in the block that
+    first records), host ms, ms a block back to back (``paces``), the
+    card's busy share and the captures' time and pool bytes. Busy is the
+    captured graphs' device span a block (the same kernels both forms run)
+    over each form's synchronised wall."""
+    median = lambda xs: float(np.median(xs[1:]))
+    rec = {
+        "eager_ms": median(walls["eager"]), "graphed_ms": median(walls["graphed"]),
+        "eager_host_ms": median(hosts["eager"]), "graphed_host_ms": median(hosts["graphed"]),
+        "eager_pace_ms": paces["eager"], "graphed_pace_ms": paces["graphed"], "device_ms": device_ms,
+        "capture_s": sum(c["seconds"] for s in steps for c in s.capture_log),
+        "pool_bytes": sum(c["pool_bytes"] for s in steps for c in s.capture_log),
+    }
+    rec["busy_eager"], rec["busy_graphed"] = device_ms / rec["eager_ms"], device_ms / rec["graphed_ms"]
+    log(f"{name}: eager {rec['eager_ms']:.3f} ms a block (host {rec['eager_host_ms']:.3f}), graphed "
+        f"{rec['graphed_ms']:.3f} (host {rec['graphed_host_ms']:.3f}), median of blocks 1.. each synchronised; back "
+        f"to back "
+        f"eager {rec['eager_pace_ms']:.3f}, graphed {rec['graphed_pace_ms']:.3f}; the graphs' device span "
+        f"{device_ms:.3f} ms a block: card busy {rec['busy_eager']:.1%} eager, {rec['busy_graphed']:.1%} graphed; "
+        f"capture {rec['capture_s']:.3f} s, pool {rec['pool_bytes']} bytes ({rec['pool_bytes'] / 2**20:.1f} MiB) "
+        f"on {card}")
+    return rec
+
+
+def restart_slot(ddc_cfg, state, band: int, slot: int):
+    """A banded DDC state with one band's slot zeroed (a recording start)."""
+    from rtl_sdr_scanner_tpu_torch.ops import ddc
+
+    if ddc_cfg.modtap:
+        return ddc.reset_slot2(state, band, slot)
+    return ddc.reset_slot(state, band * ddc_cfg.num_slots + slot)
+
+
+def zero_counts() -> dict:
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
+
+    torch.cuda.synchronize()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
+    """A path's banded fused step (``drivers.BandedBlocks``) eager, then
+    graphed, from a fresh state each; returns ({form: counts}, report)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import BandedBlocks, fir_stages
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
+
+    log(f"-- {geo.name}")
+    path = MainPath(dev, geo, learn_ms=learn_ms)
+    cfg, ddc_cfg = path.cfg, path.ddc_cfg
+    moved = geo_shifts(geo)
+    moved[geo.signal_band, 1] += 2500
+    runs, counts, paces, blocks_of = {}, {}, {}, {}
+    for form in ("eager", "graphed"):
+        blocks = blocks_of[form] = BandedBlocks(cfg, ddc_cfg, path.group_size, TOP_K, geo.bands, geo_shifts(geo), dev)
+        step = blocks.step if form == "graphed" else blocks.step.fn
+
+        def run(b, blocks=blocks, step=step):
+            if b == GRAPH_SLOT_BLOCK:
+                blocks.tables = ddc_pipeline.make_tables(ddc_cfg, moved, device=dev)
+                blocks.state[2] = restart_slot(ddc_cfg, blocks.state[2], geo.signal_band, 1)
+            *blocks.state, outs = step(*blocks.state, path.ring[b % len(path.ring)], blocks.now(b), *blocks.shared,
+                                       blocks.tables)
+            return outs.packed, outs.recording
+
+        wrappers = zero_counts()
+        runs[form] = timed_blocks(run, GRAPH_BLOCKS)
+        counts[form] = {name: fn.launches for name, fn in wrappers.items()}
+        paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
+    want = {"psd_frames_int8": GRAPH_BLOCKS, "fused_selection": GRAPH_BLOCKS,
+            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    step = blocks_of["graphed"].step
+    hold_outputs(geo.name, runs)
+    hold_counts(geo.name, counts, want, [step])
+    report = graph_report(geo.name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()},
+                          paces, replay_ms(step), [step])
+    del path, blocks_of, runs
+    torch.cuda.empty_cache()
+    return counts, report
+
+
+def graph_wideband(dev, card: str) -> tuple:
+    """Step 7's fused wideband step (``drivers.WidebandBlocks`` on a
+    one-card mesh) eager, then graphed; returns ({form: counts}, report)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
+    from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
+
+    geo = WIDE
+    log(f"-- {geo.name}, fused")
+    ring = None
+    runs, counts, paces, steps = {}, {}, {}, {}
+    for form in ("eager", "graphed"):
+        wide = WidebandStep(dev, geo, True, ring or [])
+        if ring is None:
+            ring = wide.ring = wide_ring(geo, wide.cfg.block_samples, dev)
+        blocks = wide.blocks
+        if form == "eager":
+            blocks.step = blocks.step.fn
+        steps[form] = wide
+        moved = geo_shifts(geo)
+        moved[geo.signal_band, 1] += 2500
+        ones = blocks.keep_mask
+
+        def run(b, wide=wide, blocks=blocks, ones=ones):
+            if b == GRAPH_SLOT_BLOCK:  # the slot's carry zeroed by the keep mask, this block only
+                keep = torch.ones(moved.shape, dtype=torch.float32, device=dev)
+                keep[geo.signal_band, 1] = 0.0
+                blocks.keep_mask = ss.shard_bands(keep, wide.mesh)
+                blocks.tables = ss.shard_bands(ddc_pipeline.make_tables(wide.ddc_cfg, moved, device=dev), wide.mesh)
+            else:
+                blocks.keep_mask = ones
+            return wide.run_block(b)
+
+        wrappers = zero_counts()
+        runs[form] = timed_blocks(run, GRAPH_BLOCKS)
+        counts[form] = {name: fn.launches for name, fn in wrappers.items()}
+        paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
+    ddc_cfg = steps["graphed"].ddc_cfg
+    want = {"psd_frames_int8": 0, "fused_selection": GRAPH_BLOCKS,
+            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    step = steps["graphed"].blocks.step
+    hold_outputs(f"{geo.name}, fused", runs)
+    hold_counts(f"{geo.name}, fused", counts, want, [step])
+    report = graph_report(f"{geo.name}, fused", card, {f: r[1] for f, r in runs.items()},
+                          {f: r[2] for f, r in runs.items()}, paces, replay_ms(step), [step])
+    del steps, runs, ring
+    torch.cuda.empty_cache()
+    return counts, report
+
+
+def graph_session(dev, card: str, tmp: Path) -> tuple:
+    """Step 6's session (``Scanner.run_to_completion()`` on its capture) on
+    GRAPH_RANGES, so that it hops, eager (its steps' ``fn``), then graphed,
+    serial and then with ``pipelined_ingest``: payloads equal byte for byte
+    and the same hops in each mode; returns ({form: counts}, report of the
+    serial runs, with the pipelined runs' median ms a ``Scanner.step`` as
+    the pace)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
+    from rtl_sdr_scanner_tpu_torch.runtime.config import Config
+    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
+    from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
+
+    log("-- runtime session on two ranges")
+    capture = tmp / "capture.cs8"
+    write_capture(capture, RT_RATE, RT_SECONDS, RT_SHIFT, RT_KEY)
+
+    def run(form: str, pipelined: bool):
+        config = runtime_config(capture, RT_RATE, RT_CENTER, noise_learning_time_ms=GRAPH_LEARN_MS,
+                                pipelined_ingest=pipelined)
+        config["devices"][0]["ranges"] = [{"start": a, "stop": b} for a, b in GRAPH_RANGES]
+        cfg = Config(json.loads(json.dumps(config)))
+        mqtt = NullMqtt()
+        mqtt.keep_payloads = True
+        scanner = Scanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=dev)
+        session = scanner.device
+        steps = [session._scan_step, session._ddc_step]
+        if form == "eager":
+            session._scan_step, session._ddc_step = session._scan_step.fn, session._ddc_step.fn
+        hops = []
+        real = session.set_frequency_range
+        session.set_frequency_range = lambda rng, now: (hops.append((now, rng)), real(rng, now))[1]
+        clock = None if pipelined else SessionTimer(session)
+        stamps = []
+        real_step = scanner.step
+        scanner.step = lambda: (real_step(), stamps.append(time.perf_counter()))[0]
+        wrappers = zero_counts()
+        scanner.run_to_completion()
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        # a step's ms, the median over the run: a block's submit and the
+        # previous one's finish (pipelined), robust to the captures' steps
+        step_ms = float(np.median(np.diff(stamps))) * 1e3
+        return mqtt.published, hops, counts, clock, steps, session, step_ms
+
+    runs = {(form, piped): run(form, piped) for piped in (False, True) for form in ("eager", "graphed")}
+    for piped in (False, True):
+        e, g = runs[("eager", piped)], runs[("graphed", piped)]
+        trans = sum(1 for t, _ in g[0] if t.endswith("/transmission/uint8"))
+        mode = "pipelined" if piped else "serial"
+        if g[0] != e[0] or g[1] != e[1]:
+            raise RuntimeError(f"session, {mode}: graphed payloads differ from eager ({compare_payloads(e[0], g[0])}) "
+                               f"or hops ({len(g[1])} vs {len(e[1])})")
+        if len(g[1]) < (2 if piped else 3) or trans == 0:  # a hop, or (serial) two
+            raise RuntimeError(f"session, {mode}: {len(g[1])} tunes, {trans} transmissions: the scene should hop and "
+                               "record")
+        log(f"session, {mode}: {len(g[1])} tunes, {trans} transmission payloads; graphed payloads equal eager byte "
+            "for byte")
+    (_, _, e_counts, e_clock, _, _, _), (_, _, g_counts, g_clock, steps, session, _) = (
+        runs[("eager", False)], runs[("graphed", False)])
+    ddc_cfg = session.ddc_cfg
+    blocks = g_clock.block
+    if e_clock.block != blocks or g_clock.ddc_calls == 0:
+        raise RuntimeError(f"session: {e_clock.block} blocks eager, {blocks} graphed, the DDC in {g_clock.ddc_calls}")
+    want = {"psd_frames_int8": blocks, "fused_selection": blocks,
+            "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    counts = {"eager": e_counts, "graphed": g_counts}
+    hold_counts("session", counts, want, steps)
+    log(f"session, serial: {blocks} blocks, the DDC in {g_clock.ddc_calls}")
+    device_ms = replay_ms(steps[0]) + replay_ms(steps[1]) * g_clock.ddc_calls / blocks
+    walls = {"eager": e_clock.walls, "graphed": g_clock.walls}
+    # the session's host ms: wall less the CUDA-event span of its dispatches
+    hosts = {f: list(np.array(c.walls) - np.array(c.device_ms())) for f, c in (("eager", e_clock), ("graphed", g_clock))}
+    paces = {form: runs[(form, True)][6] for form in ("eager", "graphed")}
+    report = graph_report("runtime session", card, walls, hosts, paces, device_ms, steps)
+    del runs
+    torch.cuda.empty_cache()
+    return counts, report
+
+
+def run_graphs(dev, card: str) -> tuple:
+    """Step 14: path 1, path 2, the session, the 491.52 Msps band and the
+    fused wideband step, each eager and graphed. Returns ({phase: counts},
+    {path: report})."""
+    log("---- step 14: the one-card steps graphed (CUDA graphs, donated state) against eager")
+    launches, reports = {}, {}
+    for key, geo, learn_ms in (("path1", PATH1, 0), ("path2", PATH2, 0), ("band_491", BAND_491, BAND_491_LEARN_MS)):
+        counts, reports[key] = graph_banded(dev, card, geo, learn_ms)
+        launches.update({f"graphs_{form}_{key}": c for form, c in counts.items()})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        counts, reports["session"] = graph_session(dev, card, Path(tmp))
+    launches.update({f"graphs_{form}_session": c for form, c in counts.items()})
+    counts, reports["wideband_fused"] = graph_wideband(dev, card)
+    launches.update({f"graphs_{form}_wideband_fused": c for form, c in counts.items()})
+    log(f"step 14 ({card}): {json.dumps(reports)}")
+    return launches, reports
+
+
 def child_main(argv) -> int:
     """A step 11 process: ``--child MODE RANK WORLD PORT ROOT ARGS``, on card
     0 of what CUDA_VISIBLE_DEVICES shows it."""
@@ -2659,6 +2997,8 @@ def main() -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         # the bench before any timing with the profiler (it slows every later launch)
         launches.update(run_bench(dev, card))
+        log(f"[{time.perf_counter() - t_start:.1f} s]")
+        launches.update(run_graphs(dev, card)[0])
         log(f"[{time.perf_counter() - t_start:.1f} s]")
     records = time_psd_and_selection(timed + (NARROW_RT, BAND_491, BAND_1966), dev, card, psd_err, sel_err,
                                      sel_only=wide + (NARROW_WIDE,))

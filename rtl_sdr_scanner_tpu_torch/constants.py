@@ -82,7 +82,8 @@ class Tunables:
     # deterministic replay parity
     pipelined_ingest: bool = False
     # write a torch.profiler trace of replayed scans to this directory
-    # ("" = off)
+    # ("" = off); on the card it shows graph replays and their kernels, not
+    # the steps' stage ranges (graph.py)
     profile_dir: str = ""
     # multi-device (bands mesh), not ported yet: a non-zero value is refused
     mesh_bands: int = 0

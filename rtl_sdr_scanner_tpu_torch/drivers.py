@@ -4,8 +4,11 @@ smoke run on the card (``chip_smoke.py``).
 Each holds one geometry's block step with everything a caller feeds it
 besides the IQ: the carried state, the DDC tables of its slot shifts, the
 detection keys (none pinned), the valid mask (every bin), the start level,
-the spectrogram keep, and the frame times of block b. Both scripts build
-their steps here, so the bench times the step the smoke run checks.
+the spectrogram keep, and the frame times of block b (made on the device).
+Both scripts build their steps here, so the bench times the step the smoke
+run checks. The steps are ``graph.donated_step``s (one captured CUDA graph
+a geometry, the state carried in place; ``.step.fn`` is the eager step),
+but for a wideband mesh of more than one band shard, whose steps stay eager.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.graph import donated_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
@@ -58,11 +62,14 @@ def fir_stages(ddc_cfg: DdcConfig, shards: int = 1) -> list:
     return stages
 
 
-def frame_times(cfg: ScanConfig, b: int) -> np.ndarray:
+def frame_times(cfg: ScanConfig, b: int, device: torch.device) -> torch.Tensor:
     """[F] int32 ms stamps of block b's frames (the first frame of block 0
-    at one frame interval)."""
+    at one frame interval), made on ``device``: (b*F + 1 + k) * interval in
+    f64, truncated, as numpy's ``astype(np.int32)`` does, with no
+    host-to-device copy."""
     f = cfg.frames_per_block
-    return ((b * f + 1 + np.arange(f)) * cfg.frame_interval_ms).astype(np.int32)
+    frames = torch.arange(b * f + 1, b * f + 1 + f, dtype=torch.float64, device=device)
+    return (frames * cfg.frame_interval_ms).to(torch.int32)
 
 
 class BandedBlocks:
@@ -81,7 +88,10 @@ class BandedBlocks:
     ):
         dev = self.device = resolve_device(device)
         self.cfg, self.ddc_cfg, self.n_bands = cfg, ddc_cfg, n_bands
-        self.step = fused_step.make_banded_fused_step(cfg, ddc_cfg, group_size, top_k, device=dev)
+        self.step = donated_step(
+            fused_step.make_banded_fused_step(cfg, ddc_cfg, group_size, top_k, device=dev), donate=(0, 1, 2),
+            name="banded fused step",
+        )
         self.state = [
             scan_pipeline.init_scan_state(cfg, n_bands, 0, device=dev),
             scan_pipeline.init_spectro_acc(cfg, n_bands, device=dev),
@@ -97,8 +107,7 @@ class BandedBlocks:
 
     def now(self, b: int) -> torch.Tensor:
         """[n_bands, F] int32 frame times of block b on the device."""
-        ms = torch.from_numpy(frame_times(self.cfg, b)).to(self.device)
-        return ms.expand(self.n_bands, -1).contiguous()
+        return frame_times(self.cfg, b, self.device).expand(self.n_bands, -1).contiguous()
 
     def run_block(self, b: int, iq: torch.Tensor):
         """Block b of int8 IQ [n_bands, F, fft*decim, 2] through the step;
@@ -134,11 +143,22 @@ class WidebandBlocks:
         self.cfg, self.ddc_cfg, self.n_bands, self.fused, self.mesh = cfg, ddc_cfg, n_bands, fused, mesh
         plan = plan_channelizer(n_bands, bf16=chan_bf16)
         m = mesh
+        # on one band shard the steps are graphed, donating what the JAX
+        # package's donate; across shards they stay eager
+        def graphed(fn, donate, name):
+            return donated_step(fn, donate, name) if m.n_band_shards == 1 else fn
+
         if fused:
-            self.step = ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, group_size, top_k, m, plan, 1, n_bands)
+            self.step = graphed(
+                ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, group_size, top_k, m, plan, 1, n_bands),
+                (0, 1, 2, 3), "wideband fused step",
+            )
         else:
-            self.wide_step = ss.make_sharded_wideband_step(cfg, group_size, top_k, m, plan, 1, n_bands)
-            self.ddc_step = ss.make_sharded_banded_ddc(ddc_cfg, m, n_bands)
+            self.wide_step = graphed(
+                ss.make_sharded_wideband_step(cfg, group_size, top_k, m, plan, 1, n_bands), (0, 1, 2),
+                "wideband step",
+            )
+            self.ddc_step = graphed(ss.make_sharded_banded_ddc(ddc_cfg, m, n_bands), (0,), "banded DDC step")
         self.chan = ss.replicate(init_channelizer_state(plan, dev), m)
         self.scan = ss.init_banded_state(cfg, n_bands, m)
         self.acc = ss.shard_bands(torch.zeros((n_bands, cfg.spectro_size), dtype=torch.float32, device=dev), m)
@@ -154,7 +174,7 @@ class WidebandBlocks:
         through the step; returns (packed, rec) as per-shard lists."""
         from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
 
-        now = ss.replicate(torch.from_numpy(frame_times(self.cfg, b)).to(self.device), self.mesh)
+        now = ss.replicate(frame_times(self.cfg, b, self.device), self.mesh)
         x = ss.replicate(x, self.mesh)
         if self.fused:
             self.chan, self.scan, self.acc, self.ddc, packed, rec, _ = self.step(

@@ -149,21 +149,28 @@ def init_channelizer2x_state(plan: ChannelizerPlan, device: DeviceLike = None) -
     )
 
 
-_BANK_WEIGHTS: dict = {}
+_ON_DEVICE: dict = {}
 
 
-def _bank_weight(plan: ChannelizerPlan, device: torch.device) -> torch.Tensor:
-    """The bank's [C, B*2*D*P] f32 weight on ``device``, gathered there once
-    a (plan, device) from the small host table (as ``make_mod_tables``)."""
-    key = (id(plan), str(device))
-    hit = _BANK_WEIGHTS.get(key)
+def _on_device(plan: ChannelizerPlan, device: torch.device, name: str, make):
+    """``make(plan, device)``, made once a (plan, device, name): no block
+    copies host tables to the card (a copy would synchronise the stream, and
+    a graph capture refuses it)."""
+    key = (id(plan), str(device), name)
+    hit = _ON_DEVICE.get(key)
     if hit is not None and hit[0] is plan:
         return hit[1]
+    value = make(plan, device)
+    _ON_DEVICE[key] = (plan, value)
+    return value
+
+
+def _make_bank_weight(plan: ChannelizerPlan, device: torch.device) -> torch.Tensor:
+    """The bank's [C, B*2*D*P] f32 weight, gathered on ``device`` from the
+    small host table (as ``make_mod_tables``)."""
     gp = torch.from_numpy(plan.mm_g_pad).to(device)  # [B, 2, RM + 1]
     idx = torch.from_numpy(plan.mm_idx).long().to(device)
-    w = torch.movedim(gp[:, :, idx], 2, 0).reshape(plan.mm_plan.chunk_c, -1).contiguous()
-    _BANK_WEIGHTS[key] = (plan, w)
-    return w
+    return torch.movedim(gp[:, :, idx], 2, 0).reshape(plan.mm_plan.chunk_c, -1).contiguous()
 
 
 def _bank_mm(plan: ChannelizerPlan, state: ChannelizerState, xs: torch.Tensor):
@@ -171,7 +178,7 @@ def _bank_mm(plan: ChannelizerPlan, state: ChannelizerState, xs: torch.Tensor):
     y_im) [B, n // B]: channels[b, m] = sum_u G[b, u] ext[m*B + u] with
     ext = [carried tail, x], run by the DDC's ``_modtap_stage1``."""
     b = plan.num_channels
-    w = _bank_weight(plan, xs.device)
+    w = _on_device(plan, xs.device, "bank weight", _make_bank_weight)
     y_re, y_im, new_tail = _modtap_stage1(
         xs[None], state.tail.T[None], w[None], plan.mm_plan, b, bf16=plan.bf16
     )
@@ -189,7 +196,8 @@ def _bank(plan: ChannelizerPlan, state: ChannelizerState, xs: torch.Tensor):
         return _bank_mm(plan, state, xs)
     ext = torch.cat([state.tail.T, xs], dim=-1)  # [2, tail + n]
     branches = ext.reshape(2, -1, b).transpose(1, 2)  # [2, B, M]: branch p of each part
-    kernels = torch.from_numpy(plan.branch_kernels).to(xs.device)[:, None, :]  # [B, 1, T]
+    kernels = _on_device(plan, xs.device, "branch kernels",
+                         lambda p, d: torch.from_numpy(p.branch_kernels).to(d)[:, None, :])  # [B, 1, T]
     v = F.conv1d(branches, kernels, groups=b)  # [2, B, n // B] (re, im parts)
     channels = torch.fft.fft(torch.complex(v[0], v[1]), dim=0).to(torch.complex64)
     new_tail = ext[:, -plan.tail_len :].T.contiguous()

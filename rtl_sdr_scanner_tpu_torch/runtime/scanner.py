@@ -202,7 +202,11 @@ class Scanner:
     # -- lifecycle ---------------------------------------------------------
 
     def run_to_completion(self) -> None:
-        """Drain a replay source synchronously."""
+        """Drain a replay source synchronously. With ``tunables.profile_dir``
+        the run is traced (``trace_<device>.json``): on the card the blocks
+        replay captured CUDA graphs (``graph.py``), so the trace shows graph
+        launches and their kernels, not the step's stage ranges, which are
+        recorded once, at the capture."""
         profile_dir = self._tunables.profile_dir
         if profile_dir:
             import os

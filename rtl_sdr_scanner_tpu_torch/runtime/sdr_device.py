@@ -18,6 +18,9 @@ and one of the per-block vectors (through reusable pinned buffers), the
 dispatch, and one device-to-host read of the packed detector vector (plus
 the recording rows while a slot records): ``submit_block`` never waits for
 the card, so pipelined ingest overlaps block b+1 with block b's host work.
+The one-card scan and DDC steps are ``graph.donated_step``s: each replays
+one captured CUDA graph a block and carries its state in place (the time
+mesh's steps stay eager).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch.profiler import record_function
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch import native
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.graph import donated_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import (
     ScanConfig,
@@ -324,13 +328,20 @@ class SdrDevice:
             self._setup_time_mesh(config, recorders_count)
             cfg = self.scan_cfg
         elif self._compact:
-            self._scan_step = make_compact_scan_step(cfg, self._group_size, t.detection_top_k, device=dev)
+            # the one-card steps carry their state in place, one captured
+            # graph a geometry (graph.py; the JAX package's donate_argnums)
+            self._scan_step = donated_step(
+                make_compact_scan_step(cfg, self._group_size, t.detection_top_k, device=dev), donate=(0, 1),
+                name="compact scan step",
+            )
         else:
             if t.mesh_time > 0:
                 logger.warn(LABEL, "mesh_time needs compact detection; staying serial")
-            self._scan_step = make_scan_step(cfg, device=dev)
+            self._scan_step = donated_step(make_scan_step(cfg, device=dev), donate=(0,), name="full-row scan step")
         if not self.tmesh_ddc:  # _setup_time_mesh may install the time-sharded DDC
-            self._ddc_step = ddc_pipeline.make_ddc_step(self.ddc_cfg, device=dev)
+            self._ddc_step = donated_step(
+                ddc_pipeline.make_ddc_step(self.ddc_cfg, device=dev), donate=(0,), name="DDC step"
+            )
         self._valid_mask_dev = None  # per-retune device copy of the bin mask
         # the start level on the device, made once: no per-block copy
         self._start_level_dev = torch.tensor(float(spec.start_level), dtype=torch.float32, device=dev)
@@ -345,9 +356,13 @@ class SdrDevice:
 
         self._frequency_range: Tuple[int, int] = (0, 0)
         self._scan_state: Optional[ScanState] = None
-        # per-center noise states in the single-band layout the step returns
+        # per-center noise states in the single-band layout the step
+        # returns: snapshots (clones) taken when the session leaves a center
+        # where it scanned, since the live state is the step's donated
+        # buffers, which the next center's state overwrites
         self._noise_states: Dict[int, NoiseState] = {}
         self._pending_noise_center: Optional[int] = None
+        self._noise_scanned = False  # a block ran at the live center since it was tuned
 
         self._tracker = TransmissionTracker(
             fft_size=cfg.fft_size,
@@ -519,13 +534,15 @@ class SdrDevice:
         for rec in self._recorders:
             if rec.is_recording:
                 self._stop_slot(rec)
+        self._snapshot_noise()
         # averager resets on retune; noise floor persists per center
-        # frequency. The reset ring is f32 in every mode, as the reference's
-        # (power_bf16 rows stored in it are bf16 values all the same)
+        # frequency. The reset ring keeps init_scan_state's dtype (bf16 in
+        # power_bf16 mode; the reference resets to an f32 ring, and zeros and
+        # the bf16 rows stored in it are the same values in both), so the
+        # step keeps one signature across hops
         fresh = init_scan_state(self.scan_cfg, start_ms=now_ms, device=self.torch_device)
-        averager = fresh.averager._replace(ring=fresh.averager.ring.to(torch.float32))
         noise = self._noise_states.get(center, fresh.noise)
-        self._scan_state = ScanState(noise=noise, averager=averager)
+        self._scan_state = ScanState(noise=noise, averager=fresh.averager)
         self._pending_noise_center = center
         self._valid_mask_dev = None  # recomputed lazily for the new range
 
@@ -592,7 +609,7 @@ class SdrDevice:
                     self._start_level_dev,
                 )
                 packed = torch.cat([body.reshape(-1), ready.to(torch.float32)[None]])
-            self._noise_states[self._pending_noise_center] = self._scan_state.noise
+            self._noise_scanned = True
             return {
                 "outs": PackedOuts(packed),
                 "iq_dev": iq_dev,
@@ -621,7 +638,7 @@ class SdrDevice:
         else:
             with record_function("session.scan"):
                 self._scan_state, outs = self._scan_step(self._scan_state, framed, now_dev)
-        self._noise_states[self._pending_noise_center] = self._scan_state.noise
+        self._noise_scanned = True
         return {
             "outs": outs,
             "iq_dev": iq_dev,  # kept for the DDC dispatch after the reconcile
@@ -937,7 +954,16 @@ class SdrDevice:
     # [fft] threshold per center under ``t_{center}``, so a snapshot moves
     # between the two packages in both directions.
 
+    def _snapshot_noise(self) -> None:
+        """Keep the live center's noise state (a clone) once a block has
+        scanned there: the reference's per-center dictionary as of now."""
+        if self._noise_scanned:
+            noise = self._scan_state.noise
+            self._noise_states[self._pending_noise_center] = NoiseState(*(t.clone() for t in noise))
+            self._noise_scanned = False
+
     def save_noise_state(self, path: str) -> None:
+        self._snapshot_noise()
         data = {}
         for freq, state in self._noise_states.items():
             if bool(state.ready):

@@ -23,7 +23,8 @@ Enable with ``"channels": B`` on a device config entry. Two forms:
   tables live on their shards (``sharded_scan``'s per-shard lists); the
   wideband block is uploaded to every shard, and packed rows and
   recordings are fetched shard by shard. Trackers, recorders and egress
-  stay per channel on the host.
+  stay per channel on the host. On one band shard each of these steps
+  replays one captured CUDA graph a block (``graph.donated_step``).
 
 Multi-host (``tunables.multihost``, the process group ``runtime/main.py``
 joins): the bands mesh spans every process's cards (``mesh_bands`` -1 =
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.graph import donated_step
 from rtl_sdr_scanner_tpu_torch.ops.channelizer import (
     channel_center_offsets,
     channelize_block_2x_pairs,
@@ -237,8 +239,15 @@ class WidebandScanner:
                 self._local_bands,
             )
         top_k = self._config.tunables.detection_top_k
-        self._wide_step = make_sharded_wideband_step(
-            cfg, session._group_size, top_k, mesh, self._plan, self._oversample, b
+
+        # on one band shard the steps are graphed (graph.py), donating what
+        # the JAX package's donate; across shards they stay eager
+        def graphed(fn, donate, name):
+            return donated_step(fn, donate, name) if mesh.n_band_shards == 1 else fn
+
+        self._wide_step = graphed(
+            make_sharded_wideband_step(cfg, session._group_size, top_k, mesh, self._plan, self._oversample, b),
+            (0, 1, 2), "wideband step",
         )
         self._band_state = init_banded_state(cfg, b, mesh)
         self._chan_state = replicate(self._chan_state, mesh)
@@ -270,12 +279,14 @@ class WidebandScanner:
                 # records the triggering block itself, as the serial one does
                 self._fused = True
                 self._ddc_band_step = None
-                self._fused_step = make_sharded_wideband_fused_step(
-                    cfg, self._ddc_cfg, session._group_size, top_k, mesh, self._plan,
-                    self._oversample, b,
+                self._fused_step = graphed(
+                    make_sharded_wideband_fused_step(
+                        cfg, self._ddc_cfg, session._group_size, top_k, mesh, self._plan, self._oversample, b,
+                    ),
+                    (0, 1, 2, 3), "wideband fused step",
                 )
             else:
-                self._ddc_band_step = make_sharded_banded_ddc(self._ddc_cfg, mesh, b)
+                self._ddc_band_step = graphed(make_sharded_banded_ddc(self._ddc_cfg, mesh, b), (0,), "banded DDC step")
             for s_ in self._sessions:
                 s_.external_ddc = True
         else:

@@ -42,8 +42,9 @@ def wideband_session(card: str, cards: int) -> dict:
     cards, fused and split, each against the CPU run on as many copies of
     the CPU. Returns {form: counts}."""
     import chip_smoke as cs
+    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
 
-    wrappers = cs.kernel_wrappers()
+    wrappers = kernel_wrappers()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="mesh_cards_wb_") as tmp:
         capture = Path(tmp) / "wide.cs8"

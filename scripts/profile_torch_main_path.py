@@ -18,6 +18,12 @@ and prints, per block:
   ctypes are not attributed to a host range, so the span is the measure;
 - the top kernels by device time, the device's busy share of the profiled
   window, and the host wall time.
+These run the step eagerly (its ``GraphedStep.fn``): inside a captured
+CUDA graph the stage ranges are recorded once, at the capture. Then the
+same step graphed (``graph.donated_step``, as ``drivers`` builds it, its
+state carried on from the eager blocks): host wall a block and the device's
+busy share of the profiled window, beside the eager split (not for the time
+mesh, whose steps stay eager).
 ``--path session`` profiles the runtime session instead: chip_smoke.py's
 runtime capture (one replay device, 2.4 Msps, 4 slots at 32 kHz) through
 ``Scanner.step()``, blocks 3.. (the FM signal keyed 3-6 s records there),
@@ -68,10 +74,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_main_path: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from rtl_sdr_scanner_tpu_torch.drivers import card_line
     from rtl_sdr_scanner_tpu_torch.models.fused_step import STAGES
     from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 
-    card = cs.card_line()
+    card = card_line()
     build.library()
     if args.path == "session":
         return profile_session(card, args.blocks)
@@ -94,6 +101,10 @@ def main() -> int:
     else:
         geo = cs.PATH1 if args.path == "1" else cs.PATH2
         path = cs.MainPath(dev, geo)
+    # the stage split runs the eager step; the graphed one follows
+    graphed = getattr(path, "blocks", None) and path.blocks.step
+    if graphed:
+        path.blocks.step = graphed.fn
     for b in range(3):  # warm up: allocator, cuFFT/cuBLAS plans, noise learning under way
         path.run_block(b)
     torch.cuda.synchronize()
@@ -124,7 +135,38 @@ def main() -> int:
     print(f"  {sum(span.values()):9.3f}  sum")
 
     print_kernels(kernels, args.blocks, wall_ms, card)
+    if graphed:
+        path.blocks.step = graphed
+        profile_graphed(path, 3 + args.blocks, args.blocks, card)
     return 0
+
+
+def profile_graphed(path, first: int, blocks: int, card: str) -> None:
+    """The path's graphed step: 3 blocks (the capture in the first), then
+    ``blocks`` blocks under the profiler; host wall a block and the device's
+    busy share (the replays' kernel records)."""
+    step = path.blocks.step
+    for b in range(first, first + 3):
+        path.run_block(b)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in range(first + 3, first + 3 + blocks):
+            path.run_block(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    busy, records = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3 / blocks
+            records += 1
+    capture = step.capture_log[0]
+    share = f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of wall)" if records else (
+        "not measured (the profiler recorded no kernel of the replays)")
+    print(f"graphed ({step.captures} capture, {capture['seconds']:.3f} s, pool {capture['pool_bytes']} bytes): host "
+          f"wall {wall_ms:.3f} ms per block, device busy {share}, {records // blocks} device records a block; the "
+          f"trace holds the graph's kernels, not the stages ({card})")
 
 
 def print_kernels(kernels: dict, blocks: int, wall_ms: float, card: str) -> None:

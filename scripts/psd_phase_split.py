@@ -260,11 +260,12 @@ def time_select(reps: int, shapes) -> None:
     import torch
 
     import chip_smoke as cs
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
     from rtl_sdr_scanner_tpu_torch.ops.cuda import select_kernel
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    level = torch.tensor(cs.LEVEL, device="cuda")
+    level = torch.tensor(LEVEL, device="cuda")
     for name in shapes:
         rows, fft, submargin = select_shape(name)
         t = torch.randn((rows, fft), generator=gen, device="cuda").mul_(6.0).to(torch.bfloat16)

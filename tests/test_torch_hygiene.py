@@ -208,3 +208,29 @@ def test_multi_device_layer_is_checked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_graph_layer_is_checked():
+    """``graph.py`` (the port's donate_argnums: captured CUDA graphs) is among
+    the modules and sources checked above, and imports the standard
+    library, torch and the port only."""
+    assert "rtl_sdr_scanner_tpu_torch.graph" in _modules()
+    assert PKG / "graph.py" in SOURCES
+    for line in (PKG / "graph.py").read_text().splitlines():
+        if line.startswith(("import ", "from ")):
+            top = line.split()[1].split(".")[0]
+            assert top in sys.stdlib_module_names or top in ("torch", "rtl_sdr_scanner_tpu_torch"), line
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS, ids=lambda p: p.name)
+def test_card_scripts_use_only_names_chip_smoke_defines(script):
+    """Every ``cs.X`` / ``chip_smoke.X`` a card script reads exists in
+    chip_smoke.py (a name moved to ``drivers`` leaves no script behind)."""
+    import ast
+
+    import chip_smoke
+
+    for node in ast.walk(ast.parse(script.read_text())):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):
+            if node.value.id in ("cs", "chip_smoke"):
+                assert hasattr(chip_smoke, node.attr), f"{script.name}:{node.lineno} chip_smoke.{node.attr}"

@@ -684,3 +684,204 @@ def test_two_gloo_ranks_on_one_card(dev):
     logs = run_children("mesh", 2, device="cuda", env={"CUDA_VISIBLE_DEVICES": "0"})
     joined = "".join(logs)
     assert "shards=[0]" in joined and "shards=[1]" in joined, joined
+
+
+def _graph_against_eager(dev, make, blocks=4):
+    """``make()`` -> (graphed step, its initial state as a list, ``args_of(b,
+    state)``: block b's other arguments, after any change it makes to the
+    state list, such as a slot reset); the step's eager ``fn`` and the step
+    itself, each from a fresh ``make()`` over ``blocks`` blocks: their
+    outputs and final states bit-equal, one capture, and the kernels'
+    launches over the graphed blocks equal to the eager blocks' (per-block
+    launches x replays). Returns the launches."""
+    from rtl_sdr_scanner_tpu_torch.graph import _flatten
+
+    wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
+    runs = {}
+    for form in ("eager", "graphed"):
+        step, state, args_of = make()
+        call = step if form == "graphed" else step.fn
+        n = len(step.donate)
+        before = [fn.launches for fn in wrappers]
+        outs = []
+        for b in range(blocks):
+            args = args_of(b, state)
+            *state, out = _split(call(*state, *args), n)
+            leaves = []
+            _flatten(out, leaves)
+            outs.append([x.clone() for x in leaves])
+        torch.cuda.synchronize()
+        final = []
+        _flatten(state, final)
+        runs[form] = (outs, final, [fn.launches - b0 for fn, b0 in zip(wrappers, before)], step)
+    (eager, e_state, e_launch, _), (graphed, g_state, g_launch, step) = runs["eager"], runs["graphed"]
+    for b, (want, got) in enumerate(zip(eager, graphed)):
+        for i, (w, g) in enumerate(zip(want, got)):
+            assert torch.equal(w, g), f"block {b}, output leaf {i}"
+    for i, (w, g) in enumerate(zip(e_state, g_state)):
+        assert torch.equal(w, g), f"state leaf {i}"
+    assert step.captures == 1 and len(step.graphs()) == 1
+    assert g_launch == e_launch
+    return e_launch
+
+
+def _split(result, n):
+    """(state x n, outputs) of a step's result, the outputs as one tuple."""
+    return (*result[:n], tuple(result[n:]))
+
+
+def _tone_step_inputs(cfg, blocks, nb, dev):
+    iq, tones = _tone_blocks(cfg, blocks, nb, seed=11)
+    return torch.from_numpy(iq).to(dev), tones
+
+
+def test_graphed_fused_step_equals_eager_on_card(dev):
+    """``drivers.BandedBlocks``' graphed banded fused step (modulated taps
+    with a decimating stage 2: 512 kHz -> 3.2 kHz) against its eager step,
+    a slot restarted on a new shift at block 2."""
+    from rtl_sdr_scanner_tpu_torch import drivers
+
+    cfg = scan_pipeline.ScanConfig.create(512_000, 10, Tunables(noise_learning_time_ms=300))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(512_000, 3_200, 2, cfg.block_samples)
+    iq, tones = _tone_step_inputs(cfg, 4, 2, dev)
+    shifts = np.tile((tones[:1] - cfg.fft_size // 2) * 512_000 // cfg.fft_size, (2, 2)).astype(np.int64)
+
+    def make():
+        blk = drivers.BandedBlocks(cfg, ddc_cfg, 32, 64, 2, shifts, dev)
+        moved = ddc_pipeline.make_tables(ddc_cfg, shifts + 2500, device=dev)
+
+        def args_of(b, state):
+            if b == 2:
+                state[2] = ddc.reset_slot2(state[2], 1, 1)
+                blk.tables = moved
+            return (iq[b], blk.now(b), *blk.shared, blk.tables)
+
+        return blk.step, blk.state, args_of
+
+    assert _graph_against_eager(dev, make) == [4, 4, 4]
+
+
+@pytest.mark.parametrize("rate,bw,frames", [(256_000, 16_000, 10), (240_000, 3_200, 75)], ids=["modtap", "v1"])
+def test_graphed_session_steps_equal_eager_on_card(rate, bw, frames, dev):
+    """The session's graphed steps (``SdrDevice``: the compact scan step
+    donating (0, 1), the single-band DDC step donating (0,)) against their
+    eager steps; the accumulator reset (spectro_keep 0.0) at block 2."""
+    from rtl_sdr_scanner_tpu_torch.graph import donated_step
+
+    cfg = scan_pipeline.ScanConfig.create(rate, frames, Tunables(noise_learning_time_ms=300))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, bw, 2, cfg.block_samples)
+    iq, tones = _tone_step_inputs(cfg, 4, 1, dev)
+    keys = torch.full((16,), -1, dtype=torch.int32, device=dev)
+    valid = torch.ones(cfg.fft_size, dtype=torch.bool, device=dev)
+    level = torch.tensor(LEVEL, device=dev)
+
+    def now(b):
+        return torch.from_numpy(((b * frames + 1 + np.arange(frames)) * cfg.frame_interval_ms).astype(np.int32)).to(dev)
+
+    def make_scan():
+        step = donated_step(scan_pipeline.make_compact_scan_step(cfg, 32, 64, device=dev), donate=(0, 1))
+        state = [scan_pipeline.init_scan_state(cfg, device=dev), scan_pipeline.init_spectro_acc(cfg, device=dev)]
+        return step, state, lambda b, _: (iq[b, 0], now(b), keys, valid, level, 0.0 if b == 2 else 1.0)
+
+    shift = (int(tones[0]) - cfg.fft_size // 2) * rate // cfg.fft_size
+    tables = ddc_pipeline.make_tables(ddc_cfg, np.array([shift, -shift]), device=dev)
+
+    def make_ddc():
+        step = donated_step(ddc_pipeline.make_ddc_step(ddc_cfg, device=dev), donate=(0,))
+        return step, [ddc_pipeline.init_state(ddc_cfg, device=dev)], lambda b, _: (iq[b, 0].reshape(-1, 2), tables)
+
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
+
+    assert _graph_against_eager(dev, make_scan)[:2] == [4, 4]
+    # the modulated-taps chain here has one stage: no FIR launch to count
+    assert _graph_against_eager(dev, make_ddc) == [0, 0, 4 * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))]
+
+
+def test_graphed_wideband_fused_step_equals_eager_on_card(dev):
+    """``drivers.WidebandBlocks``' graphed fused wideband step on a one-card
+    mesh (8 channels of 256 kHz from one int8 stream, 2 slots at 3.2 kHz)
+    against its eager step."""
+    from rtl_sdr_scanner_tpu_torch import drivers
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh
+
+    nb, rate = 8, 256_000
+    cfg = scan_pipeline.ScanConfig.create(rate, 12, Tunables(noise_learning_time_ms=100))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.integers(-60, 60, size=(4, nb * cfg.block_samples, 2), dtype=np.int8)).to(dev)
+    shifts = rng.integers(-rate // 2, rate // 2, size=(nb, 2)).astype(np.int64)
+
+    def make():
+        blk = drivers.WidebandBlocks(cfg, ddc_cfg, 64, 16, nb, shifts, True, mesh.make_mesh(1, 1, devices=[dev]), dev)
+
+        def args_of(b, _):
+            now = [drivers.frame_times(cfg, b, dev)]
+            return ([xs[b]], now, blk.keys, blk.valid, blk.level, 1.0, blk.tables, blk.keep_mask)
+
+        return blk.step, [blk.chan, blk.scan, blk.acc, blk.ddc], args_of
+
+    launches = _graph_against_eager(dev, make)
+    assert launches[0] == 0 and launches[1] == 4
+
+
+def test_a_capture_that_copies_from_the_host_raises(dev):
+    """A step that uploads a host tensor inside itself cannot be captured:
+    every try fails, the call raises (no fallback to the eager step), and
+    the card works on."""
+    from rtl_sdr_scanner_tpu_torch.graph import donated_step
+
+    def uploads(state, x):
+        return state + torch.ones(4).to(x.device), x * 2
+
+    step = donated_step(uploads, donate=(0,))
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step(torch.zeros(4, device=dev), torch.ones(4, device=dev))
+    assert step.captures == 0
+    assert (torch.ones(4, device=dev) * 3).sum().item() == 12.0
+
+
+def test_captures_beside_another_threads_work(dev):
+    """One thread captures step after step while another launches kernels
+    (its first launch of several), replays its own graphed step and reads
+    results back, as two scanner threads on one card do: every capture
+    succeeds (one ended by the other thread's work is taken again) and the
+    other thread sees no error."""
+    import threading
+
+    from rtl_sdr_scanner_tpu_torch.graph import donated_step
+
+    def step(state, x):
+        y = torch.fft.fft(torch.complex(x @ x, x), dim=-1).abs()
+        return state + y.sum(), y[:4]
+
+    stop, errors, blocks = threading.Event(), [], [0]
+
+    def other():
+        try:
+            own = donated_step(step, donate=(0,))
+            state, x = torch.zeros((), device=dev), torch.ones(64, 64, device=dev)
+            ops = [torch.sin, torch.erfinv, torch.lgamma, lambda t: torch.sort(t)[0], lambda t: torch.cumprod(t, 0)]
+            for i in range(10_000):
+                if stop.is_set():
+                    break
+                dtype = (torch.float64, torch.float32)[i // len(ops) % 2]
+                ops[i % len(ops)](torch.ones(1000, device=dev, dtype=dtype))
+                state, out = own(state, x)
+                out.cpu()
+                blocks[0] += 1
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    worker = threading.Thread(target=other, daemon=True)
+    worker.start()
+    try:
+        for i in range(20):
+            state, _ = donated_step(step, donate=(0,), name=f"step {i}")(
+                torch.zeros((), device=dev), torch.full((64, 64), float(i), device=dev))
+            assert state.isfinite().item()
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert not worker.is_alive() and not errors, errors
+    assert blocks[0] > 0
+    torch.cuda.synchronize()
