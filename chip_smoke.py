@@ -112,7 +112,9 @@
    ``main.run`` with ``mesh_time`` 4 and ``power_bf16`` on step 6's
    capture (one visible card: the mesh resolves to 1 shard), payloads
    against the same config's CPU run. Prints ms a block of each form next
-   to its one-card counterpart.
+   to its one-card counterpart. The sharded steps run graphed
+   (``graph.sharded_step``: a graph a shard and segment between the
+   exchanges).
 11. The multi-host layer (``parallel/multihost.py``), two processes of this
    script (``--child``) joined in one process group through the env
    contract, both on card 0 (each on its own card where the machine has
@@ -184,12 +186,22 @@
    more blocks with one synchronisation, or the pipelined session), the
    card's busy share (the captured graphs' device span a block, CUDA
    events around replays alone, over each form's synchronised wall), the
-   capture time and the pool's bytes.
+   capture time and the pool's bytes. Then the sharded steps
+   (``graph.sharded_step``: a graph a (shard, segment) between the
+   exchanges) the same way: 10a's time mesh (4 shards of the card: the
+   scan and the modulated-taps DDC, slot 1 restarted before block
+   GRAPH_SLOT_BLOCK), 10b's wideband step over 2 band shards (fused and
+   split), 10c's session (``mesh_time`` 4 and ``power_bf16``) and 11a's
+   one-process session on 2 band shards (payloads byte for byte), each
+   (shard, segment) captured once, with the number of captures; 11b's
+   processes hold their own graphed steps against eager (rows and
+   recordings bit-equal) and report the same numbers.
 
-Every one-card block step runs as a ``graph.donated_step``: captured once
-a geometry as a CUDA graph and replayed (steps 3-8, 12 and 13); the steps
-over more than one shard (10, 11) stay eager, as does step 11d's (it times
-``compact_detection`` around its own launches).
+Every block step runs graphed: a one-card step as a ``graph.donated_step``
+(captured once a geometry as a CUDA graph and replayed), a step over
+shards (10, 11) as a ``graph.sharded_step``; step 11d's runs eager (it
+times ``compact_detection`` around its own launches, which a graph would
+run unseen).
 
 Each path (and each phase's or form's card run) runs with every kernel's
 launch count set to 0 just before it and read just after. Every failure
@@ -206,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -425,6 +438,15 @@ BENCH_KEYS = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def free_card() -> None:
+    """Give the card back what the finished phases held: collect the
+    reference cycles that keep a finished session's graphs alive (a timer
+    that wraps a scanner's methods makes one), whose private pools stay
+    reserved until then, and empty the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -971,7 +993,7 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
         f"{rate / 1e6:.1f} M samples/s through scan + {geo.slots}-slot DDC at {geo.bands} bands "
         f"(real time {geo.bands * geo.rate / 1e6:.1f} M), on {card}")
     del path
-    torch.cuda.empty_cache()
+    free_card()
     return launches
 
 
@@ -1161,9 +1183,10 @@ class SessionTimer:
         return per_block
 
 
-def run_scanner(config: dict, device, timer: bool = False):
-    """One replay scan through ``Scanner.run_to_completion()``: (payloads,
-    session, wall seconds, SessionTimer or None)."""
+def run_scanner(config: dict, device, timer: bool = False, on_made=None):
+    """One replay scan through ``Scanner.run_to_completion()`` (``on_made``
+    runs on the scanner first): (payloads, session, wall seconds,
+    SessionTimer or None)."""
     from rtl_sdr_scanner_tpu_torch.runtime.config import Config
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
     from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
@@ -1172,6 +1195,8 @@ def run_scanner(config: dict, device, timer: bool = False):
     mqtt = NullMqtt()
     mqtt.keep_payloads = True
     scanner = Scanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device)
+    if on_made is not None:
+        on_made(scanner)
     clock = SessionTimer(scanner.device) if timer else None
     t0 = time.perf_counter()
     scanner.run_to_completion()
@@ -1486,9 +1511,9 @@ def run_wideband_step(dev, card: str) -> dict:
             f"{cfg.block_samples / cfg.sample_rate * 1e3:.0f} ms of stream), {n_wide / (ms / 1e3) / 1e6:.1f} M "
             f"wideband samples/s (real time {geo.bands * geo.rate / 1e6:.2f} M) on {card}")
         del step
-        torch.cuda.empty_cache()
+        free_card()
     del ring
-    torch.cuda.empty_cache()
+    free_card()
     return launches
 
 
@@ -1524,10 +1549,11 @@ class WidebandTimer(SessionTimer):
         scanner.step = timed_step
 
 
-def run_wideband_scanner(config: dict, device, timer: bool = False, cards=None):
+def run_wideband_scanner(config: dict, device, timer: bool = False, cards=None, on_made=None):
     """One replay scan through ``WidebandScanner.run_to_completion()`` and
     ``stop()`` (its meshes over ``cards`` where given, else the visible
-    cards): (payloads, scanner, wall seconds, WidebandTimer or None)."""
+    cards; ``on_made`` runs on the scanner first): (payloads, scanner, wall
+    seconds, WidebandTimer or None)."""
     from rtl_sdr_scanner_tpu_torch.runtime.config import Config
     from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
     from rtl_sdr_scanner_tpu_torch.runtime.wideband import WidebandScanner
@@ -1536,6 +1562,8 @@ def run_wideband_scanner(config: dict, device, timer: bool = False, cards=None):
     mqtt = NullMqtt()
     mqtt.keep_payloads = True
     scanner = WidebandScanner(cfg, cfg.devices[0], mqtt, cfg.recorders_count(), device=device, cards=cards)
+    if on_made is not None:
+        on_made(scanner)
     clock = WidebandTimer(scanner) if timer else None
     t0 = time.perf_counter()
     scanner.run_to_completion()
@@ -1630,13 +1658,14 @@ def time_mesh_configs(dev):
 
 class TimeMesh:
     """Path 1's band at the time mesh's 180 frames on the card: the
-    time-sharded scan and modulated-taps DDC over a mesh of TMESH_SHARDS
-    copies of the card, or of the cards ``devices`` names (``sharded``), or
-    the one-card compact step and DDC; a device-resident ring of
+    time-sharded scan and modulated-taps DDC (graphed) over a mesh of
+    TMESH_SHARDS copies of the card, or of the cards ``devices`` names
+    (``sharded``), or the one-card compact step and DDC; a device-resident ring of
     TMESH.blocks blocks on ``dev``, FM keyed from block 1."""
 
     def __init__(self, dev, sharded: bool, ring=None, devices=None):
         from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL
+        from rtl_sdr_scanner_tpu_torch.graph import sharded_step
         from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, scan_pipeline
         from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
 
@@ -1648,8 +1677,8 @@ class TimeMesh:
             raise RuntimeError(f"the time-sharded DDC does not split {n} ways at {cfg.frames_per_block} frames")
         if sharded:
             m = mesh.make_mesh(1, n, devices=list(devices) if devices else [dev] * n)
-            self.scan_step = ss.make_time_sharded_scan(cfg, m, group_size, TOP_K)
-            self.ddc_step = ss.make_time_sharded_modtap_ddc(ddc_cfg, m)
+            self.scan_step = sharded_step(ss.make_time_sharded_scan(cfg, m, group_size, TOP_K), "time-sharded scan")
+            self.ddc_step = sharded_step(ss.make_time_sharded_modtap_ddc(ddc_cfg, m), "time-sharded DDC")
         else:
             self.scan_step = scan_pipeline.make_compact_scan_step(cfg, group_size, TOP_K, device=dev)
             self.ddc_step = ddc_pipeline.make_ddc_step(ddc_cfg, device=dev)
@@ -1720,6 +1749,8 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
         launches[form] = {name: fn.launches for name, fn in wrappers.items()}
         results[form], block_ms[form] = out, times
         shards = n if form == "time_mesh" else 1
+        if form == "time_mesh":
+            hold_captures(form, [path.scan_step, path.ddc_step])
         want = {"psd_frames_int8": shards * geo.blocks, "fused_selection": shards * geo.blocks,
                 "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
@@ -1782,7 +1813,7 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
         f"vs {one:.1f} ms one-card (blocks 1..{geo.blocks - 1}; first {block_ms['time_mesh'][0]:.1f} / "
         f"{block_ms['time_mesh_one_card'][0]:.1f} ms) on {card}")
     del paths, ring
-    torch.cuda.empty_cache()
+    free_card()
     return launches
 
 
@@ -1820,6 +1851,8 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3)
                 out.append((packed.cpu().numpy(), rec.cpu().numpy()))
             counts = {name: fn.launches for name, fn in wrappers.items()}
+            hold_captures(f"wideband {form}", [step.blocks.step] if fused else [step.blocks.wide_step,
+                                                                               step.blocks.ddc_step])
             want = {"psd_frames_int8": 0, "fused_selection": shards * MESH_BLOCKS,
                     "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
             if counts != want:
@@ -1828,7 +1861,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
             launches[key] = counts
             runs[shards] = (out, times)
             del step
-            torch.cuda.empty_cache()
+            free_card()
         (got, t_n), (ref, t_1) = runs[n_shards], runs[1]
         k2 = TOP_K + 16
         worst_val, worst_lsb, hits = 0.0, 0, {}
@@ -1852,7 +1885,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
         log(f"wideband {form}: {np.mean(t_n[1:]):.1f} ms a block over {where} (the "
             f"channelizer on each) vs {np.mean(t_1[1:]):.1f} ms one-card (blocks 1..{MESH_BLOCKS - 1}) on {card}")
     del ring
-    torch.cuda.empty_cache()
+    free_card()
     return launches
 
 
@@ -2122,8 +2155,9 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
         ref[form] = run_step_blocks(step)
         launches[f"multihost_step_one_process_{form}"] = {name: fn.launches for name, fn in wrappers.items()}
         del step
+        free_card()
     del ring
-    torch.cuda.empty_cache()
+    free_card()
     b_loc = geo.bands // MH_WORLD
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mhs_") as tmp:
         run_children("step", root, Path(tmp) / "step{rank}.pkl")
@@ -2132,15 +2166,30 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
             with open(Path(tmp) / f"step{rank}.pkl", "rb") as fh:
                 children.append(pickle.load(fh))
     for form in ("fused", "split"):
-        packed_1, rec_1, ms_1 = ref[form]
+        packed_1, rec_1, ms_1, _ = ref[form]
         hits, paces = {}, []
         for rank, child in enumerate(children):
             (g,) = child["shards"]
-            packed, rec, ms = child[form]["run"]
+            packed, rec, ms, host = child[form]["run"]
             rows = slice(g * b_loc, (g + 1) * b_loc)
             if not (np.array_equal(packed, packed_1[:, rows]) and np.array_equal(rec, rec_1[:, rows])):
                 raise RuntimeError(f"wideband {form}: process {rank}'s rows or recordings differ from band shard {g} "
                                    "of the one-process run")
+            eager = child[form]["eager"]
+            e_packed, e_rec, e_ms, e_host = eager["run"]
+            if not (np.array_equal(packed, e_packed) and np.array_equal(rec, e_rec)):
+                raise RuntimeError(f"wideband {form}: process {rank}'s graphed rows or recordings differ from eager")
+            if eager["launches"] != child[form]["launches"] or child[form]["captures"] != (1 if form == "fused" else 2):
+                raise RuntimeError(f"wideband {form}: process {rank} launches eager {eager['launches']}, graphed "
+                                   f"{child[form]['launches']}, {child[form]['captures']} captures")
+            median = lambda xs: float(np.median(xs[1:]))
+            c = child[form]
+            log(f"wideband {form}, process {rank}: graphed equal to eager bit for bit; eager {median(e_ms):.3f} ms a "
+                f"block (host {median(e_host):.3f}), graphed {median(ms):.3f} (host {median(host):.3f}), median of "
+                f"blocks 1.. each synchronised; back to back eager {eager['pace_ms']:.3f}, graphed {c['pace_ms']:.3f}; "
+                f"the graphs' device span {c['device_ms']:.3f} ms a block: busy {c['device_ms'] / median(e_ms):.1%} "
+                f"eager, {c['device_ms'] / median(ms):.1%} graphed; {c['captures']} captures in {c['capture_s']:.3f} "
+                f"s, pool {c['pool_bytes']} bytes ({c['pool_bytes'] / 2**20:.1f} MiB) on {card} (both processes on it)")
             counts = child[form]["launches"]
             ddc_cfg = child["ddc"]
             want = {"psd_frames_int8": 0, "fused_selection": MESH_BLOCKS,
@@ -2163,17 +2212,19 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
 
 
 def run_step_blocks(step) -> tuple:
-    """MESH_BLOCKS blocks of a WidebandStep: (packed [blocks, B, L], rec
-    [blocks, B, K, out, 2], ms a block)."""
-    packed, rec, ms = [], [], []
+    """MESH_BLOCKS blocks of a WidebandStep, each synchronised: (packed
+    [blocks, B, L], rec [blocks, B, K, out, 2], ms a block, host ms until
+    the call returned)."""
+    packed, rec, ms, host = [], [], [], []
     for b in range(MESH_BLOCKS):
         t0 = time.perf_counter()
         p, r = step.run_block(b)
+        host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         packed.append(p.cpu().numpy())
         rec.append(r.cpu().numpy())
-    return np.stack(packed), np.stack(rec), ms
+    return np.stack(packed), np.stack(rec), ms, host
 
 
 def run_dryrun(dev, card: str) -> dict:
@@ -2260,7 +2311,7 @@ def run_vote_forms(dev, card: str) -> dict:
                     f"1..{VOTE_BLOCKS - 1}): gather {np.mean(gather_ms[1:]):.2f}, code {np.mean(code_ms[1:]):.2f} "
                     f"on {card}")
             del path
-            torch.cuda.empty_cache()
+            free_card()
     finally:
         scan_pipeline.compact_detection = real
         detect.VOTE_FORM = "code"
@@ -2271,7 +2322,7 @@ def run_multi_host(dev, card: str, root: Path) -> dict:
     """Step 11: the session and the wideband step over MH_WORLD processes,
     the dry run on 4 copies of the card, the gather vote form. Returns
     {form: counts}."""
-    torch.cuda.empty_cache()
+    free_card()
     launches = run_multihost_session(dev, card, root)
     launches.update(run_multihost_step(dev, card, root))
     launches.update(run_dryrun(dev, card))
@@ -2507,7 +2558,7 @@ def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> d
         f"{cfg.block_samples / cfg.sample_rate * 1e3:.1f} ms; the PSD kernel {psd_ms:.3f} ms a block (CUDA events) "
         f"on {card}")
     del path
-    torch.cuda.empty_cache()
+    free_card()
     return counts
 
 
@@ -2547,28 +2598,35 @@ def run_bench(dev, card: str) -> dict:
             raise RuntimeError(f"{phase}: JSON line {result} lacks bench.py's keys or a positive value")
         log(f"{phase} ({time.perf_counter() - t0:.1f} s, windows of {BENCH_SECONDS} s): {json.dumps(result)}; "
             f"launches over the timed windows {launches[phase]} on {card}")
-        torch.cuda.empty_cache()
+        free_card()
     return launches
 
 
 # -- step 14: the graphed steps against eager ---------------------------------------
 
 
-def replay_ms(step) -> float:
-    """Device span of one replay of ``step``'s captured graph alone: CUDA
-    events around GRAPH_REPLAYS back-to-back replays (the step's kernels
-    back to back, no host in the loop), mean. The replays advance the
-    step's state and count no launch."""
-    (captured,) = step.graphs()
-    captured.graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(GRAPH_REPLAYS):
-        captured.graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / GRAPH_REPLAYS
+def replay_ms(step, calls: int = 0) -> float:
+    """Device span of one call of ``step`` from its captured graphs alone:
+    for each graph, CUDA events around GRAPH_REPLAYS back-to-back replays
+    (its kernels back to back, no host in the loop), the mean, weighted by
+    its replays a call over the ``calls`` calls made so far (a sharded
+    step's chunk segments replay several times a call; default: one
+    replay a call). The replays advance the step's state and count no
+    launch."""
+    total = 0.0
+    for captured in step.graphs():
+        weight = captured.replays / calls if calls else 1.0
+        with torch.cuda.device(captured.device):
+            captured.graph.replay()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GRAPH_REPLAYS):
+                captured.graph.replay()
+            end.record()
+            end.synchronize()
+        total += start.elapsed_time(end) / GRAPH_REPLAYS * weight
+    return total
 
 
 def timed_blocks(run, blocks: int) -> tuple:
@@ -2611,12 +2669,19 @@ def hold_outputs(name: str, runs: dict) -> None:
 def hold_counts(name: str, counts: dict, want: dict, steps: list) -> None:
     """The graphed form's launch counts equal to the eager form's and to
     ``want`` (per-block launches x blocks), and each of ``steps`` captured
-    once."""
+    once (a sharded step: each of its (shard, segment) keys)."""
     if not counts["graphed"] == counts["eager"] == want:
         raise RuntimeError(f"{name}: launches graphed {counts['graphed']}, eager {counts['eager']}, want {want}")
+    hold_captures(name, steps)
+
+
+def hold_captures(name: str, steps: list) -> None:
+    """Each of ``steps`` captured once (a sharded step: each of its (shard,
+    segment) keys, whichever cards its arguments came from)."""
     for step in steps:
-        if step.captures != 1:
-            raise RuntimeError(f"{name}: {step.name} captured {step.captures} times: {step.capture_log}")
+        for part in getattr(step, "segments", {"": step}).values():
+            if part.captures != 1:
+                raise RuntimeError(f"{name}: {part.name} captured {part.captures} times: {part.capture_log}")
 
 
 def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, device_ms: float,
@@ -2624,7 +2689,8 @@ def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, de
     """Log and return one path's eager and graphed ms a block (the median of
     blocks 1.. each synchronised: block 0 holds the graphed form's warm-up
     and capture, and the session captures its DDC step in the block that
-    first records), host ms, ms a block back to back (``paces``), the
+    first records), host ms, ms a block back to back (``paces``: None for
+    a session whose blocks are all synchronised), the
     card's busy share and the captures' time and pool bytes. Busy is the
     captured graphs' device span a block (the same kernels both forms run)
     over each form's synchronised wall."""
@@ -2633,17 +2699,18 @@ def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, de
         "eager_ms": median(walls["eager"]), "graphed_ms": median(walls["graphed"]),
         "eager_host_ms": median(hosts["eager"]), "graphed_host_ms": median(hosts["graphed"]),
         "eager_pace_ms": paces["eager"], "graphed_pace_ms": paces["graphed"], "device_ms": device_ms,
+        "captures": sum(s.captures for s in steps),
         "capture_s": sum(c["seconds"] for s in steps for c in s.capture_log),
         "pool_bytes": sum(c["pool_bytes"] for s in steps for c in s.capture_log),
     }
     rec["busy_eager"], rec["busy_graphed"] = device_ms / rec["eager_ms"], device_ms / rec["graphed_ms"]
+    pace = "" if paces["eager"] is None else (
+        f" back to back eager {rec['eager_pace_ms']:.3f}, graphed {rec['graphed_pace_ms']:.3f};")
     log(f"{name}: eager {rec['eager_ms']:.3f} ms a block (host {rec['eager_host_ms']:.3f}), graphed "
-        f"{rec['graphed_ms']:.3f} (host {rec['graphed_host_ms']:.3f}), median of blocks 1.. each synchronised; back "
-        f"to back "
-        f"eager {rec['eager_pace_ms']:.3f}, graphed {rec['graphed_pace_ms']:.3f}; the graphs' device span "
-        f"{device_ms:.3f} ms a block: card busy {rec['busy_eager']:.1%} eager, {rec['busy_graphed']:.1%} graphed; "
-        f"capture {rec['capture_s']:.3f} s, pool {rec['pool_bytes']} bytes ({rec['pool_bytes'] / 2**20:.1f} MiB) "
-        f"on {card}")
+        f"{rec['graphed_ms']:.3f} (host {rec['graphed_host_ms']:.3f}), median of blocks 1.. each synchronised;{pace} "
+        f"the graphs' device span {device_ms:.3f} ms a block: card busy {rec['busy_eager']:.1%} eager, "
+        f"{rec['busy_graphed']:.1%} graphed; {rec['captures']} captures in {rec['capture_s']:.3f} s, pool "
+        f"{rec['pool_bytes']} bytes ({rec['pool_bytes'] / 2**20:.1f} MiB) on {card}")
     return rec
 
 
@@ -2702,28 +2769,32 @@ def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
     report = graph_report(geo.name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()},
                           paces, replay_ms(step), [step])
     del path, blocks_of, runs
-    torch.cuda.empty_cache()
+    free_card()
     return counts, report
 
 
-def graph_wideband(dev, card: str) -> tuple:
-    """Step 7's fused wideband step (``drivers.WidebandBlocks`` on a
-    one-card mesh) eager, then graphed; returns ({form: counts}, report)."""
+def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple:
+    """Step 7's wideband step (``drivers.WidebandBlocks``), fused or split,
+    on a band mesh of ``shards`` copies of the card (a graph a shard and
+    step), eager, then graphed; returns ({form: counts}, report)."""
     from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
     from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
     from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as ss
 
     geo = WIDE
-    log(f"-- {geo.name}, fused")
+    name = f"{geo.name}, {'fused' if fused else 'split'}" + (f", {shards} band shards" if shards > 1 else "")
+    log(f"-- {name}")
+    step_names = ("step",) if fused else ("wide_step", "ddc_step")
     ring = None
     runs, counts, paces, steps = {}, {}, {}, {}
     for form in ("eager", "graphed"):
-        wide = WidebandStep(dev, geo, True, ring or [])
+        wide = WidebandStep(dev, geo, fused, ring or [], shards)
         if ring is None:
             ring = wide.ring = wide_ring(geo, wide.cfg.block_samples, dev)
         blocks = wide.blocks
         if form == "eager":
-            blocks.step = blocks.step.fn
+            for attr in step_names:
+                setattr(blocks, attr, getattr(blocks, attr).fn)
         steps[form] = wide
         moved = geo_shifts(geo)
         moved[geo.signal_band, 1] += 2500
@@ -2744,15 +2815,123 @@ def graph_wideband(dev, card: str) -> tuple:
         counts[form] = {name: fn.launches for name, fn in wrappers.items()}
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     ddc_cfg = steps["graphed"].ddc_cfg
-    want = {"psd_frames_int8": 0, "fused_selection": GRAPH_BLOCKS,
-            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
-    step = steps["graphed"].blocks.step
-    hold_outputs(f"{geo.name}, fused", runs)
-    hold_counts(f"{geo.name}, fused", counts, want, [step])
-    report = graph_report(f"{geo.name}, fused", card, {f: r[1] for f, r in runs.items()},
-                          {f: r[2] for f, r in runs.items()}, paces, replay_ms(step), [step])
+    want = {"psd_frames_int8": 0, "fused_selection": shards * GRAPH_BLOCKS,
+            "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    graphed = [getattr(steps["graphed"].blocks, attr) for attr in step_names]
+    hold_outputs(name, runs)
+    hold_counts(name, counts, want, graphed)
+    calls = 2 * GRAPH_BLOCKS
+    report = graph_report(name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()}, paces,
+                          sum(replay_ms(step, calls) for step in graphed), graphed)
     del steps, runs, ring
-    torch.cuda.empty_cache()
+    free_card()
+    return counts, report
+
+
+def graph_time_mesh(dev, card: str) -> tuple:
+    """Step 10a's time mesh (path 1's band, 180 frames, TMESH_SHARDS shards
+    of the card: the time-sharded scan and modulated-taps DDC) eager, then
+    graphed, slot 1 restarted before block GRAPH_SLOT_BLOCK; returns ({form:
+    counts}, report)."""
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
+    from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
+
+    name = f"{TMESH.name}, {TMESH_SHARDS} time shards"
+    log(f"-- {name}")
+    ring = None
+    runs, counts, paces, meshes = {}, {}, {}, {}
+    for form in ("eager", "graphed"):
+        path = meshes[form] = TimeMesh(dev, True, ring)
+        ring = path.ring
+        if form == "eager":
+            path.scan_step, path.ddc_step = path.scan_step.fn, path.ddc_step.fn
+
+        def run(b, path=path):
+            if b == GRAPH_SLOT_BLOCK:
+                path.ddc = ddc_pipeline.reset_slot(path.ddc, 1)
+            return path.run_block(b)
+
+        wrappers = zero_counts()
+        runs[form] = timed_blocks(run, GRAPH_BLOCKS)
+        counts[form] = {name: fn.launches for name, fn in wrappers.items()}
+        paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
+    graphed = meshes["graphed"]
+    ddc_cfg, n = graphed.ddc_cfg, TMESH_SHARDS
+    want = {"psd_frames_int8": n * GRAPH_BLOCKS, "fused_selection": n * GRAPH_BLOCKS,
+            "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+    steps = [graphed.scan_step, graphed.ddc_step]
+    hold_outputs(name, runs)
+    hold_counts(name, counts, want, steps)
+    calls = 2 * GRAPH_BLOCKS
+    report = graph_report(name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()}, paces,
+                          sum(replay_ms(step, calls) for step in steps), steps)
+    del meshes, runs, ring, path
+    free_card()
+    return counts, report
+
+
+def graph_sharded_session(dev, card: str, tmp: Path, key: str) -> tuple:
+    """A session whose steps are sharded, eager (each step's ``fn``), then
+    graphed, through ``run_to_completion()``: ``key`` "mesh_time" is 10c's
+    (step 6's capture, ``mesh_time`` 4 and ``power_bf16``; one card: the
+    mesh resolves to 1 shard), "multihost" 11a's one-process session on
+    MH_WORLD band shards of the card. Payloads byte for byte, each (shard,
+    segment) captured once, launches equal; returns ({form: counts},
+    report, with no back-to-back pace: its blocks are each synchronised)."""
+    if key == "mesh_time":
+        capture = tmp / "capture_tm.cs8"
+        write_capture(capture, RT_RATE, RT_SECONDS, RT_SHIFT, RT_KEY)
+        config = runtime_config(capture, RT_RATE, RT_CENTER, mesh_time=4, power_bf16=True)
+        name, names = "session, mesh_time 4, power_bf16", ("_scan_step", "_ddc_step")
+    else:
+        capture = tmp / "mh.cs8"
+        write_capture(capture, MH_RATE, MH_SECONDS, MH_SIGNALS, MH_KEY, seed=23)
+        config = runtime_config(capture, MH_RATE, MH_CENTER, channels=MH_CHANNELS, mesh_bands=-1, multihost=True)
+        config["recording"] = dict(MH_RECORDING)
+        name, names = f"multi-host session, one process on {MH_WORLD} band shards", (
+            "_wide_step", "_fused_step", "_ddc_band_step")
+    log(f"-- {name}")
+    runs = {}
+    for form in ("eager", "graphed"):
+        steps = []
+
+        def made(obj, form=form, steps=steps):
+            target = obj.device if key == "mesh_time" else obj
+            for attr in names:
+                step = getattr(target, attr, None)
+                if step is not None:
+                    steps.append(step)
+                    if form == "eager":
+                        setattr(target, attr, step.fn)
+
+        wrappers = zero_counts()
+        if key == "mesh_time":
+            payloads, session, _, clock = run_scanner(config, dev, timer=True, on_made=made)
+            blocks, shards = clock.block, session._time_mesh.shape["time"]
+        else:
+            payloads, scanner, _, clock = run_wideband_scanner(config, dev, timer=True, cards=[dev] * MH_WORLD,
+                                                               on_made=made)
+            blocks, shards = clock.block, scanner._mesh.shape["bands"]
+        counts = {name_: fn.launches for name_, fn in wrappers.items()}
+        runs[form] = (payloads, counts, clock, steps, blocks, shards)
+    (e_pay, e_counts, e_clock, _, blocks, shards), (g_pay, g_counts, g_clock, steps, g_blocks, _) = (
+        runs["eager"], runs["graphed"])
+    trans = sum(1 for t, _ in g_pay if t.endswith("/transmission/uint8"))
+    if g_pay != e_pay or g_blocks != blocks or trans == 0:
+        raise RuntimeError(f"{name}: graphed payloads differ from eager ({compare_payloads(e_pay, g_pay)}), blocks "
+                           f"{g_blocks} / {blocks}, {trans} transmissions")
+    if g_counts["fused_selection"] != blocks * shards:
+        raise RuntimeError(f"{name}: {g_counts} over {blocks} blocks of {shards} shards")
+    log(f"{name}: {blocks} blocks on {shards} shard(s), {len(g_pay)} payloads ({trans} transmissions), graphed equal "
+        "to eager byte for byte")
+    counts = {"eager": e_counts, "graphed": g_counts}
+    hold_counts(name, counts, e_counts, steps)
+    walls = {"eager": e_clock.walls, "graphed": g_clock.walls}
+    hosts = {f: list(np.array(c.walls) - np.array(c.device_ms())) for f, c in (("eager", e_clock), ("graphed", g_clock))}
+    device_ms = sum(replay_ms(step, blocks) for step in steps)
+    report = graph_report(name, card, walls, hosts, {"eager": None, "graphed": None}, device_ms, steps)
+    del runs
+    free_card()
     return counts, report
 
 
@@ -2831,24 +3010,34 @@ def graph_session(dev, card: str, tmp: Path) -> tuple:
     paces = {form: runs[(form, True)][6] for form in ("eager", "graphed")}
     report = graph_report("runtime session", card, walls, hosts, paces, device_ms, steps)
     del runs
-    torch.cuda.empty_cache()
+    free_card()
     return counts, report
 
 
 def run_graphs(dev, card: str) -> tuple:
     """Step 14: path 1, path 2, the session, the 491.52 Msps band and the
-    fused wideband step, each eager and graphed. Returns ({phase: counts},
-    {path: report})."""
-    log("---- step 14: the one-card steps graphed (CUDA graphs, donated state) against eager")
+    fused wideband step, then the sharded forms (10a, 10b fused and split,
+    10c, 11a), each eager and graphed. Returns ({phase: counts}, {path:
+    report})."""
+    log("---- step 14: the steps graphed (CUDA graphs, donated state) against eager")
     launches, reports = {}, {}
     for key, geo, learn_ms in (("path1", PATH1, 0), ("path2", PATH2, 0), ("band_491", BAND_491, BAND_491_LEARN_MS)):
         counts, reports[key] = graph_banded(dev, card, geo, learn_ms)
         launches.update({f"graphs_{form}_{key}": c for form, c in counts.items()})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
         counts, reports["session"] = graph_session(dev, card, Path(tmp))
-    launches.update({f"graphs_{form}_session": c for form, c in counts.items()})
+        launches.update({f"graphs_{form}_session": c for form, c in counts.items()})
+        for key in ("mesh_time", "multihost"):
+            counts, reports[f"session_{key}"] = graph_sharded_session(dev, card, Path(tmp), key)
+            launches.update({f"graphs_{form}_session_{key}": c for form, c in counts.items()})
     counts, reports["wideband_fused"] = graph_wideband(dev, card)
     launches.update({f"graphs_{form}_wideband_fused": c for form, c in counts.items()})
+    counts, reports["time_mesh"] = graph_time_mesh(dev, card)
+    launches.update({f"graphs_{form}_time_mesh": c for form, c in counts.items()})
+    for fused in (True, False):
+        key = f"wideband_{BAND_SHARDS}_shards_{'fused' if fused else 'split'}"
+        counts, reports[key] = graph_wideband(dev, card, fused, BAND_SHARDS)
+        launches.update({f"graphs_{form}_{key}": c for form, c in counts.items()})
     log(f"step 14 ({card}): {json.dumps(reports)}")
     return launches, reports
 
@@ -2905,14 +3094,29 @@ def child_main(argv) -> int:
             ring = wide_ring(geo, cfg.block_samples, dev)
             result = {"shards": list(local.band_shards)}
             for fused in (True, False):
-                step = WidebandStep(dev, geo, fused, ring, mesh=local)
-                result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)))
-                for fn in wrappers.values():
-                    fn.launches = 0
-                run = run_step_blocks(step)
-                result["fused" if fused else "split"] = {
-                    "run": run, "launches": {name: fn.launches for name, fn in wrappers.items()}}
-                del step
+                names = ("step",) if fused else ("wide_step", "ddc_step")
+                runs = {}
+                for form in ("eager", "graphed"):
+                    step = WidebandStep(dev, geo, fused, ring, mesh=local)
+                    graphed = [getattr(step.blocks, n) for n in names]
+                    if form == "eager":
+                        for n, g in zip(names, graphed):
+                            setattr(step.blocks, n, g.fn)
+                    result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)))
+                    torch.cuda.synchronize()
+                    for fn in wrappers.values():
+                        fn.launches = 0
+                    run = run_step_blocks(step)
+                    runs[form] = {"run": run, "launches": {name: fn.launches for name, fn in wrappers.items()},
+                                  "pace_ms": pace_ms(lambda b, step=step: step.run_block(b), MESH_BLOCKS, MESH_BLOCKS)}
+                    if form == "graphed":
+                        runs[form].update(
+                            device_ms=sum(replay_ms(g, 2 * MESH_BLOCKS) for g in graphed),
+                            captures=sum(g.captures for g in graphed),
+                            capture_s=sum(c["seconds"] for g in graphed for c in g.capture_log),
+                            pool_bytes=sum(c["pool_bytes"] for g in graphed for c in g.capture_log))
+                    del step, graphed
+                result["fused" if fused else "split"] = dict(runs["graphed"], eager=runs["eager"])
         finally:
             multihost.shutdown()
         said = f"band shard {result['shards']}"

@@ -6,9 +6,9 @@ besides the IQ: the carried state, the DDC tables of its slot shifts, the
 detection keys (none pinned), the valid mask (every bin), the start level,
 the spectrogram keep, and the frame times of block b (made on the device).
 Both scripts build their steps here, so the bench times the step the smoke
-run checks. The steps are ``graph.donated_step``s (one captured CUDA graph
-a geometry, the state carried in place; ``.step.fn`` is the eager step),
-but for a wideband mesh of more than one band shard, whose steps stay eager.
+run checks. The steps are graphed (``graph.donated_step``: one captured
+CUDA graph a geometry, the state carried in place; a wideband band mesh's
+``graph.sharded_step``: one a band shard); ``.step.fn`` is the eager step.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
-from rtl_sdr_scanner_tpu_torch.graph import donated_step
+from rtl_sdr_scanner_tpu_torch.graph import donated_step, sharded_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
@@ -143,22 +143,17 @@ class WidebandBlocks:
         self.cfg, self.ddc_cfg, self.n_bands, self.fused, self.mesh = cfg, ddc_cfg, n_bands, fused, mesh
         plan = plan_channelizer(n_bands, bf16=chan_bf16)
         m = mesh
-        # on one band shard the steps are graphed, donating what the JAX
-        # package's donate; across shards they stay eager
-        def graphed(fn, donate, name):
-            return donated_step(fn, donate, name) if m.n_band_shards == 1 else fn
-
+        # a graph a band shard, each donating its part of what the JAX package's donate
         if fused:
-            self.step = graphed(
+            self.step = sharded_step(
                 ss.make_sharded_wideband_fused_step(cfg, ddc_cfg, group_size, top_k, m, plan, 1, n_bands),
-                (0, 1, 2, 3), "wideband fused step",
+                "wideband fused step",
             )
         else:
-            self.wide_step = graphed(
-                ss.make_sharded_wideband_step(cfg, group_size, top_k, m, plan, 1, n_bands), (0, 1, 2),
-                "wideband step",
+            self.wide_step = sharded_step(
+                ss.make_sharded_wideband_step(cfg, group_size, top_k, m, plan, 1, n_bands), "wideband step"
             )
-            self.ddc_step = graphed(ss.make_sharded_banded_ddc(ddc_cfg, m, n_bands), (0,), "banded DDC step")
+            self.ddc_step = sharded_step(ss.make_sharded_banded_ddc(ddc_cfg, m, n_bands), "banded DDC step")
         self.chan = ss.replicate(init_channelizer_state(plan, dev), m)
         self.scan = ss.init_banded_state(cfg, n_bands, m)
         self.acc = ss.shard_bands(torch.zeros((n_bands, cfg.spectro_size), dtype=torch.float32, device=dev), m)

@@ -4,7 +4,8 @@
 
 ``dryrun_multichip(n)`` builds an (n / n_time) x n_time mesh (n_time 2
 where n is even) over n copies of one device and runs each multi-device
-form once, checking shapes and finite values, then prints one summary line:
+form once, graphed as the runtime runs it (``graph.sharded_step``),
+checking shapes and finite values, then prints one summary line:
 
 - the bands-axis full-row scan step and the time-sharded v1 DDC (halo
   exchange) at toy widths;
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.graph import sharded_step
 
 PROD_RATE = 20_480_000
 PROD_SLOTS = 2
@@ -67,7 +69,7 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> str:
     group = cfg.fft_size * cfg.decimator_factor
     iq = torch.from_numpy((0.05 * rng.standard_normal((n_bands, cfg.frames_per_block, group, 2))).astype(np.float32))
     now = torch.from_numpy((np.arange(1, cfg.frames_per_block + 1) * cfg.frame_interval_ms).astype(np.int32))
-    step = ss.make_sharded_scan_step(cfg, mesh)
+    step = sharded_step(ss.make_sharded_scan_step(cfg, mesh), "dryrun scan step")
     state = ss.init_banded_state(cfg, n_bands, mesh)
     state, outs = step(state, ss.shard_bands(iq.to(dev), mesh), ss.shard_bands(now.expand(n_bands, -1).to(dev), mesh))
     raw = gather([o.raw for o in outs], torch.device("cpu"))
@@ -80,7 +82,7 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> str:
     n_global = ddc_cfg.block_samples
     x = rng.standard_normal((n_global, 2)).astype(np.float32)
     tables = make_nco_tables(np.array([30000, -20000]), 256000, n_global, dev)
-    ddc = ss.make_time_sharded_ddc(ddc_cfg, mesh)(torch.from_numpy(x).to(dev), tables)
+    ddc = sharded_step(ss.make_time_sharded_ddc(ddc_cfg, mesh), "dryrun DDC")(torch.from_numpy(x).to(dev), tables)
     if ddc.shape[0] != 2 or ddc.shape[2] != 2:
         raise RuntimeError(f"time-sharded DDC: {tuple(ddc.shape)}")
 
@@ -122,8 +124,9 @@ def _production_mesh(n_devices: int, dev: torch.device) -> tuple:
     group_size = int(np.ceil(16000 / cfg.step_hz))  # 103-bin windows
     plan = plan_channelizer(n_bands)
     mesh = make_mesh(n_bands, n_time, devices=[dev] * n_devices)
-    wide_step = ss.make_sharded_wideband_step(cfg, group_size, PROD_TOP_K, mesh, plan, 1, n_bands)
-    ddc_step = ss.make_sharded_banded_ddc(ddc_cfg, mesh, n_bands)
+    wide_step = sharded_step(ss.make_sharded_wideband_step(cfg, group_size, PROD_TOP_K, mesh, plan, 1, n_bands),
+                             "production wideband step")
+    ddc_step = sharded_step(ss.make_sharded_banded_ddc(ddc_cfg, mesh, n_bands), "production banded DDC step")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -176,8 +179,8 @@ def _production_time_mesh(mesh, n_time: int, dev: torch.device) -> int:
     ddc_cfg = DdcConfig.create(PROD_RATE, 16000, PROD_SLOTS, cfg.block_samples)
     if not ss.time_sharded_modtap_fits(ddc_cfg, n_time):
         raise RuntimeError(f"the modulated-taps DDC does not split {n_time} ways at chunk {ddc_cfg.chunk}")
-    scan_step = ss.make_time_sharded_scan(cfg, mesh, group_size, PROD_TOP_K)
-    ddc_step = ss.make_time_sharded_modtap_ddc(ddc_cfg, mesh)
+    scan_step = sharded_step(ss.make_time_sharded_scan(cfg, mesh, group_size, PROD_TOP_K), "production time scan")
+    ddc_step = sharded_step(ss.make_time_sharded_modtap_ddc(ddc_cfg, mesh), "production time-sharded DDC")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     iq = torch.randint(-32, 32, (cfg.block_samples, 2), generator=gen, device=dev, dtype=torch.int8)

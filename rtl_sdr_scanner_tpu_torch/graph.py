@@ -51,16 +51,33 @@ to the eager step.
 Profiler ranges a step opens (``fused_step.STAGES``) are recorded once, at
 the capture: a trace of graphed blocks shows graph launches, not stages
 (``scripts/profile_torch_main_path.py`` splits the eager step).
+
+Steps over several shards (``parallel/sharded_scan.py``: the counterpart of
+``jax.jit`` over ``shard_map``) are written as a ``Program``: a function
+``run(segment, *args)`` that calls ``segment(key, fn, donate, device)(...)``
+for each shard's work between two exchanges (a **segment**: ``fn`` on
+that shard's ``device``, ``key`` naming the (shard, segment)) and runs the
+exchanges (``parallel/collectives.py``, ``parallel/halo.py``) itself,
+eagerly. Calling a ``Program`` runs every segment eagerly, its tensors
+moved to the segment's device. ``sharded_step(program)`` is its graphed
+form: one ``GraphedStep`` a key, built at the key's first call, so that
+two shards of equal shapes on one card never share buffers and no graph
+holds more than one card's work. Each segment's graph replays with its
+card current; a segment replayed several times a call (a chunk loop) is
+still one capture. A segment donates the state it writes (``donate``): the
+state a program returns may be buffers of several segments' graphs.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
+from rtl_sdr_scanner_tpu_torch.parallel.collectives import on, to
 from rtl_sdr_scanner_tpu_torch.utils import logger
 
 LABEL = "graph"
@@ -101,9 +118,12 @@ def _unflatten(structure, leaves):
     return typ(*items) if hasattr(typ, "_fields") else typ(items)
 
 
-def _spec(leaf) -> tuple:
+def _spec(leaf, device: Optional[torch.device] = None) -> tuple:
+    """A leaf's part of a signature; ``device``: a segment's, where every
+    tensor is copied in from wherever it lies (so the card a tensor comes
+    from is no new signature)."""
     if isinstance(leaf, torch.Tensor):
-        return (tuple(leaf.shape), leaf.dtype, leaf.device)
+        return (tuple(leaf.shape), leaf.dtype, device or leaf.device)
     return (type(leaf),)
 
 
@@ -129,11 +149,16 @@ class _Graph:
 
     def __init__(self, step: "GraphedStep", structures: list, leaves: list, specs: Tuple[tuple, ...]):
         """``structures`` and ``leaves``: each argument's (``_flatten``)."""
-        self.step = step
+        # not a reference: a step and its graphs would make a cycle, and a
+        # graph's private pool stays reserved until the cycle is collected
+        self.step = weakref.proxy(step)
         devices = {s[2] for s in specs if len(s) == 3}
-        if len(devices) != 1:
+        if step.device is not None:  # a segment: its tensors copied in from any device
+            self.device = step.device
+        elif len(devices) != 1:
             raise ValueError(f"{step.name}: a graphed step runs on one device, got tensors on {sorted(map(str, devices))}")
-        self.device = devices.pop()
+        else:
+            self.device = devices.pop()
         self.cuda = self.device.type == "cuda"
         self.structures = structures
         self.kinds, self.buffers = [], []  # per argument
@@ -149,6 +174,7 @@ class _Graph:
         self.launches: List[Tuple[Callable, int]] = []
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.replays = 0
 
     def _buffer(self, leaf) -> torch.Tensor:
         if isinstance(leaf, torch.Tensor):
@@ -245,27 +271,31 @@ class _Graph:
         self.capture_s = time.perf_counter() - t0
 
     def run(self, leaves: list) -> tuple:
-        self.load(leaves)
-        if not self.cuda:
-            outs = self.body()
-        else:
-            if self.graph is None:
-                self.capture()
-            self.graph.replay()
-            for fn, n in self.launches:
-                fn.launches += n
-            outs = self.static_outs
-        states = [
-            _unflatten(self.structures[i], iter(self.buffers[i])) for i in self.step.donate
-        ]
-        return (*states, *_unflatten(self.out_structure, iter([x.clone() for x in outs])))
+        # the graph's card current for the loads (which may read another
+        # card's tensors), the replay and the clones
+        with on(self.device):
+            self.load(leaves)
+            if not self.cuda:
+                outs = self.body()
+            else:
+                if self.graph is None:
+                    self.capture()
+                self.graph.replay()
+                for fn, n in self.launches:
+                    fn.launches += n
+                outs = self.static_outs
+            self.replays += 1
+            states = [
+                _unflatten(self.structures[i], iter(self.buffers[i])) for i in self.step.donate
+            ]
+            return (*states, *_unflatten(self.out_structure, iter([x.clone() for x in outs])))
 
 
 def _same(buf: torch.Tensor, x: torch.Tensor) -> bool:
     """``x`` is ``buf`` (the state the step returned, passed back)."""
     return x is buf or (
         x.data_ptr() == buf.data_ptr() and x.shape == buf.shape and x.stride() == buf.stride()
-        and x.dtype == buf.dtype
+        and x.dtype == buf.dtype and x.device == buf.device
     )
 
 
@@ -273,10 +303,14 @@ class GraphedStep:
     """``fn`` with donated state, one captured graph a signature (module
     docstring). ``.fn`` is the eager step; ``.captures`` counts signatures
     captured; ``.capture_log`` holds each capture's signature, seconds and
-    the bytes its graph's private pool took (0 on the CPU)."""
+    the bytes its graph's private pool took (0 on the CPU). ``device``: a
+    segment's, where its buffers live and its graphs run; its arguments may
+    lie on any device (default: the one device of every argument)."""
 
-    def __init__(self, fn: Callable, donate: Sequence[int] = (), name: Optional[str] = None):
+    def __init__(self, fn: Callable, donate: Sequence[int] = (), name: Optional[str] = None,
+                 device: Optional[torch.device] = None):
         self.fn = fn
+        self.device = device
         self.donate = tuple(donate)
         if list(self.donate) != sorted(set(self.donate)):
             raise ValueError(f"donated_step: donate {self.donate} must be increasing argument indices")
@@ -290,7 +324,7 @@ class GraphedStep:
         for arg in args:
             leaves.append([])
             structures.append(_flatten(arg, leaves[-1]))
-        specs = tuple(_spec(x) for arg_leaves in leaves for x in arg_leaves)
+        specs = tuple(_spec(x, self.device) for arg_leaves in leaves for x in arg_leaves)
         key = (tuple(structures), specs)
         graph = self._graphs.get(key)
         if graph is None:
@@ -319,4 +353,69 @@ def donated_step(fn: Callable, donate: Sequence[int] = (), name: Optional[str] =
     return GraphedStep(fn, donate, name)
 
 
-__all__ = ["GraphedStep", "donated_step"]
+def _moved(tree, device: torch.device):
+    if isinstance(tree, torch.Tensor):
+        return to(tree, device)
+    if isinstance(tree, (tuple, list)):
+        items = [_moved(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree
+
+
+def eager_segment(key: Hashable, fn: Callable, donate: Sequence[int] = (), device: Optional[torch.device] = None):
+    """A program's segment run eagerly: ``fn`` on its arguments moved to ``device``."""
+    if device is None:
+        return fn
+    return lambda *args: fn(*(_moved(a, device) for a in args))
+
+
+class Program:
+    """A step over several shards as segments and exchanges (module
+    docstring): ``run(segment, *args)``. Calling it runs it eagerly."""
+
+    def __init__(self, run: Callable):
+        self.run = run
+
+    def __call__(self, *args):
+        return self.run(eager_segment, *args)
+
+
+class ShardedStep:
+    """A ``Program`` as CUDA graphs, one ``GraphedStep`` a (shard, segment)
+    key (``.segments``, in first-call order). ``.fn`` is the eager program;
+    ``.captures``, ``.capture_log`` and ``.graphs()`` gather the segments'."""
+
+    def __init__(self, program: Program, name: str):
+        self.fn = program
+        self.name = name
+        self.segments: Dict[Hashable, GraphedStep] = {}
+
+    def _segment(self, key: Hashable, fn: Callable, donate: Sequence[int] = (),
+                 device: Optional[torch.device] = None) -> GraphedStep:
+        step = self.segments.get(key)
+        if step is None:
+            step = self.segments[key] = GraphedStep(fn, donate, f"{self.name} {key}", device)
+        return step
+
+    def __call__(self, *args):
+        return self.fn.run(self._segment, *args)
+
+    @property
+    def captures(self) -> int:
+        return sum(s.captures for s in self.segments.values())
+
+    @property
+    def capture_log(self) -> List[dict]:
+        return [dict(c, segment=key) for key, s in self.segments.items() for c in s.capture_log]
+
+    def graphs(self) -> List[_Graph]:
+        return [g for s in self.segments.values() for g in s.graphs()]
+
+
+def sharded_step(program: Program, name: str) -> ShardedStep:
+    """``program`` graphed, a graph a (shard, segment) (``jax.jit`` over
+    ``shard_map``, each segment donating what it declares)."""
+    return ShardedStep(program, name)
+
+
+__all__ = ["GraphedStep", "Program", "ShardedStep", "donated_step", "eager_segment", "sharded_step"]

@@ -13,10 +13,12 @@ stream start, as the single-device streaming state starts).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Sequence
 
 import torch
 
+from rtl_sdr_scanner_tpu_torch.graph import eager_segment
 from rtl_sdr_scanner_tpu_torch.ops.ddc import StagePlan, _stage_apply
 from rtl_sdr_scanner_tpu_torch.parallel.collectives import on, ppermute_right
 
@@ -33,7 +35,7 @@ def halo_from_left(
 
 
 def resample_chain_sharded(
-    xs: Sequence[torch.Tensor], plans: Sequence[StagePlan], devices: Sequence[torch.device]
+    xs: Sequence[torch.Tensor], plans: Sequence[StagePlan], devices: Sequence[torch.device], segment=eager_segment
 ) -> List[torch.Tensor]:
     """The staged resampler on a time-sharded stream, with halo exchange.
 
@@ -41,13 +43,15 @@ def resample_chain_sharded(
     layout). The outputs equal the single-device streaming chain run over
     the concatenated stream, split at the shard boundaries. Each stage goes
     through ``ops/ddc._stage_apply``: a decimation-only stage launches the
-    FIR kernel once on each shard."""
+    FIR kernel once on each shard. Each (shard, stage) is a segment of a
+    ``graph.Program`` (``segment``: eager by default), the halos exchanged
+    between them."""
     xs = list(xs)
-    for plan in plans:
+    for i, plan in enumerate(plans):
         tails = halo_from_left(xs, plan.tail_len, devices)
         for s, dev in enumerate(devices):
             with on(dev):
-                xs[s], _ = _stage_apply(xs[s], tails[s], plan)
+                xs[s], _ = segment(f"shard {s} stage {i + 1}", partial(_stage_apply, plan=plan), (), dev)(xs[s], tails[s])
     return xs
 
 

@@ -31,6 +31,13 @@ and splits, exchanges halos and stitches carries inside
 Argument order and layouts are otherwise the JAX functions'. Building a
 step switches TF32 off (the channelizer's and the DDC's f32 products).
 Each shard's work runs with its card current (``collectives.on``).
+
+Every builder returns a ``graph.Program``: each shard's work between two
+exchanges is a segment (its function built once, with the step), the
+exchanges run between them. Called, a Program runs eagerly (the JAX
+function un-jitted); ``graph.sharded_step(program, name)`` captures a
+graph a (shard, segment) and replays them (``jax.jit`` over ``shard_map``),
+each segment donating its shard's part of what the JAX function donates.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.constants import NO_DATA
+from rtl_sdr_scanner_tpu_torch.graph import Program
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
 from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig, _band_axis, _ddc_block_banded
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import (
@@ -72,8 +80,8 @@ from rtl_sdr_scanner_tpu_torch.ops.detect import compact_detection
 from rtl_sdr_scanner_tpu_torch.ops.noise import NoiseState
 from rtl_sdr_scanner_tpu_torch.ops.smooth import sliding_average
 from rtl_sdr_scanner_tpu_torch.ops.spectrogram import accumulate_frames
-from rtl_sdr_scanner_tpu_torch.parallel.collectives import gather, last, on, pmax, ppermute_right, psum, to
-from rtl_sdr_scanner_tpu_torch.parallel.halo import halo_from_left, resample_chain_sharded
+from rtl_sdr_scanner_tpu_torch.parallel.collectives import gather, on, pmax, ppermute_right, psum, to
+from rtl_sdr_scanner_tpu_torch.parallel.halo import resample_chain_sharded
 from rtl_sdr_scanner_tpu_torch.parallel.mesh import Mesh
 
 # the profiler ranges a wideband block opens beyond the scan's own
@@ -144,41 +152,46 @@ def init_banded_ddc_state(cfg: DdcConfig, n_bands: int, mesh: Mesh) -> list:
 # -- bands axis -----------------------------------------------------------------
 
 
-def make_sharded_scan_step(cfg: ScanConfig, mesh: Mesh):
+def _bands_program(devs: Sequence[torch.device], shard_fns: Sequence, donate: Tuple[int, ...]) -> Program:
+    """Band shard i's step ``shard_fns[i]`` on entry i of each per-shard
+    list argument (a number as it is), one segment a shard donating
+    ``donate`` (the shard's part of what the JAX function donates): the
+    bands axis exchanges nothing. Results are per-shard lists."""
+
+    def run(segment, *args):
+        results = []
+        for i, dev in enumerate(devs):
+            part = [a[i] if isinstance(a, (list, tuple)) else a for a in args]
+            with on(dev):
+                results.append(segment(f"shard {i}", shard_fns[i], donate, dev)(*part))
+        return tuple(list(r) for r in zip(*results))
+
+    return Program(run)
+
+
+def make_sharded_scan_step(cfg: ScanConfig, mesh: Mesh) -> Program:
     """Full-row banded step: (state[B,..], iq[B, F, group, 2], now[B, F])
-    -> (state, ScanOutputs[B, ..]), each a per-shard list."""
+    -> (state, ScanOutputs[B, ..]), each a per-shard list; donates (0,)."""
     devs = mesh.band_devices
 
-    def step(states, iqs, nows):
-        out_states, outs = [], []
-        for i, dev in enumerate(devs):
-            with on(dev):
-                state, out = _scan_block(cfg, states[i], iqs[i], nows[i])
-            out_states.append(state)
-            outs.append(out)
-        return out_states, outs
+    def shard(state, iq, now):
+        return _scan_block(cfg, state, iq, now)
 
-    return step
+    return _bands_program(devs, [shard] * len(devs), (0,))
 
 
-def make_sharded_compact_step(cfg: ScanConfig, group_size: int, top_k: int, mesh: Mesh):
+def make_sharded_compact_step(cfg: ScanConfig, group_size: int, top_k: int, mesh: Mesh) -> Program:
     """Compact-detection banded step; each band keeps its own tracked keys
     and valid mask:
     (state[B,..], acc[B,S], iq[B,F,G,2], now[B,F], keys[B,S], valid[B,fft],
      start_level, keep) -> (state, acc, CompactScanOutputs[B,..]),
-    each a per-shard list but ``keep`` (a float)."""
+    each a per-shard list but ``keep`` (a float); donates (0, 1)."""
     devs = mesh.band_devices
 
-    def step(states, accs, iqs, nows, keys, valid, level, keep):
-        results = []
-        for i, dev in enumerate(devs):
-            with on(dev):
-                results.append(_compact_scan_block(
-                    cfg, group_size, top_k, states[i], accs[i], iqs[i], nows[i], keys[i], valid[i], level[i], keep
-                ))
-        return tuple(list(r) for r in zip(*results))
+    def shard(state, acc, iq, now, keys, valid, level, keep):
+        return _compact_scan_block(cfg, group_size, top_k, state, acc, iq, now, keys, valid, level, keep)
 
-    return step
+    return _bands_program(devs, [shard] * len(devs), (0, 1))
 
 
 def _channelizer(plan: ChannelizerPlan, oversample: int):
@@ -220,31 +233,29 @@ def make_sharded_wideband_step(
     plan: ChannelizerPlan,
     oversample: int,
     n_bands: int,
-):
+) -> Program:
     """Channelizer + banded compact scan, one step over the band shards:
     (chan_state, scan_state[B,..], acc[B,S], x_pairs[n,2], now[F],
      keys[B,S], valid[B,fft], level, keep) ->
       (chan_state, scan_state, acc, packed[B,L], channels[B, n_sub, 2])
     each a per-shard list but ``keep`` (a float); x_pairs f32 pairs or int8
-    cs8, level a 0-d f32 tensor (replicated like chan_state, x_pairs, now)."""
+    cs8, level a 0-d f32 tensor (replicated like chan_state, x_pairs, now);
+    donates (0, 1, 2)."""
     no_tf32()
     chan_fn = _channelizer(plan, oversample)
     b_loc = _bands_per_shard(mesh, n_bands)
-    devs = mesh.band_devices
-    shards = mesh.band_shards
 
-    def step(chan_states, states, accs, x_pairs, now, keys, valid, level, keep):
-        results = []
-        for i, dev in enumerate(devs):
-            with on(dev):
-                chan_state, local = _shard_channels(chan_fn, shards[i], b_loc, chan_states[i], x_pairs[i])
-                state, acc, outs = _scan_channels(
-                    cfg, group_size, top_k, b_loc, states[i], accs[i], local, now[i], keys[i], valid[i], level[i], keep
-                )
-            results.append((chan_state, state, acc, outs.packed, local))
-        return tuple(list(r) for r in zip(*results))
+    def shard_fn(g: int):
+        def shard(chan_state, state, acc, x_pairs, now, keys, valid, level, keep):
+            chan_state, local = _shard_channels(chan_fn, g, b_loc, chan_state, x_pairs)
+            state, acc, outs = _scan_channels(
+                cfg, group_size, top_k, b_loc, state, acc, local, now, keys, valid, level, keep
+            )
+            return chan_state, state, acc, outs.packed, local
 
-    return step
+        return shard
+
+    return _bands_program(mesh.band_devices, [shard_fn(g) for g in mesh.band_shards], (0, 1, 2))
 
 
 def make_sharded_wideband_fused_step(
@@ -256,7 +267,7 @@ def make_sharded_wideband_fused_step(
     plan: ChannelizerPlan,
     oversample: int,
     n_bands: int,
-):
+) -> Program:
     """Channelizer + banded compact scan + banded K*B-slot DDC in one step.
     ``keep_mask`` and ``tables`` are inputs: the host supplies the slot
     reconcile it derived from the previous block's detections (the
@@ -266,71 +277,70 @@ def make_sharded_wideband_fused_step(
      now[F], keys[B,S], valid[B,fft], level, keep, tables[B,..],
      keep_mask[B,K]) ->
       (chan_state, scan_state, acc, ddc_state, packed[B,L],
-       rec[B,K,out,2] i8, channels[B, n_sub, 2]), per-shard lists."""
+       rec[B,K,out,2] i8, channels[B, n_sub, 2]), per-shard lists; donates
+    (0, 1, 2, 3)."""
     assert ddc_cfg.modtap, "fused wideband step requires the modulated-taps chain"
     no_tf32()
     chan_fn = _channelizer(plan, oversample)
     b_loc = _bands_per_shard(mesh, n_bands)
-    devs = mesh.band_devices
-    shards = mesh.band_shards
 
-    def step(chan_states, states, accs, ddc_states, x_pairs, now, keys, valid, level, keep, tables, keep_mask):
-        results = []
-        for i, dev in enumerate(devs):
-            with on(dev):
-                chan_state, local = _shard_channels(chan_fn, shards[i], b_loc, chan_states[i], x_pairs[i])
-                state, acc, outs = _scan_channels(
-                    cfg, group_size, top_k, b_loc, states[i], accs[i], local, now[i], keys[i], valid[i], level[i], keep
-                )
-                with record_function("ddc"):
-                    ddc_state, rec = _ddc_block_banded(
-                        ddc_cfg, _keep_slots(ddc_states[i], keep_mask[i]), local, tables[i]
-                    )
-            results.append((chan_state, state, acc, ddc_state, outs.packed, rec, local))
-        return tuple(list(r) for r in zip(*results))
+    def shard_fn(g: int):
+        def shard(chan_state, state, acc, ddc_state, x_pairs, now, keys, valid, level, keep, tables, keep_mask):
+            chan_state, local = _shard_channels(chan_fn, g, b_loc, chan_state, x_pairs)
+            state, acc, outs = _scan_channels(
+                cfg, group_size, top_k, b_loc, state, acc, local, now, keys, valid, level, keep
+            )
+            with record_function("ddc"):
+                ddc_state, rec = _ddc_block_banded(ddc_cfg, _keep_slots(ddc_state, keep_mask), local, tables)
+            return chan_state, state, acc, ddc_state, outs.packed, rec, local
 
-    return step
+        return shard
+
+    return _bands_program(mesh.band_devices, [shard_fn(g) for g in mesh.band_shards], (0, 1, 2, 3))
 
 
-def make_sharded_banded_ddc(cfg: DdcConfig, mesh: Mesh, n_bands: int):
+def make_sharded_banded_ddc(cfg: DdcConfig, mesh: Mesh, n_bands: int) -> Program:
     """All channels' K-slot DDC in one step over the band shards; slot
     resets ride a keep mask (0 = zero that slot's carry before the block):
     (state[NB,..], channels[NB, n, 2] f32 pairs, tables[NB,..], keep[NB, K])
-      -> (state, int8 [NB, K, out_per_block, 2]), per-shard lists."""
+      -> (state, int8 [NB, K, out_per_block, 2]), per-shard lists; donates
+    (0,)."""
     assert cfg.modtap, "banded sharded DDC requires the modulated-taps chain"
     no_tf32()
     _bands_per_shard(mesh, n_bands)
     devs = mesh.band_devices
 
-    def step(states, channels, tables, keep) -> Tuple[list, list]:
-        out_states, recs = [], []
-        for i, dev in enumerate(devs):
-            with on(dev), record_function("ddc"):
-                state, rec = _ddc_block_banded(cfg, _keep_slots(states[i], keep[i]), channels[i], tables[i])
-            out_states.append(state)
-            recs.append(rec)
-        return out_states, recs
+    def shard(state, channels, tables, keep):
+        with record_function("ddc"):
+            return _ddc_block_banded(cfg, _keep_slots(state, keep), channels, tables)
 
-    return step
+    return _bands_program(devs, [shard] * len(devs), (0,))
 
 
 # -- time axis ------------------------------------------------------------------
 
 
-def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: int):
+def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: int) -> Program:
     """One band's detection frames split over the "time" axis, with the
     detector carries stitched across shard seams:
     - noise max-hold: the learning frames are a time prefix and max is
       associative, so the frozen threshold is the max over shards of each
       shard's learning max (``pmax``); readiness is time arithmetic on the
       frame times, the frame before each shard's first included
-      (``prev_now``: -(2**30) before shard 0, int32);
+      (-(2**30) before shard 0);
     - averager ring: each shard takes its left neighbour's last grouping_y
       raw rows (``ppermute``), shard 0 the carried ring, so every boxcar
       window and the history vote's previous rows are exact at the seams;
       the outgoing ring and total are the last shard's;
     - detection runs on each shard's own frames: the PSD kernel (int8
       ingest) and the selection kernel once a shard.
+
+    Three segments a shard, between the exchanges: (a) the PSD and the
+    learning max of frames not yet ready; ``pmax``; (b) the noise-subtracted
+    rows; ``ppermute_right`` of the last grouping_y rows; (c) the averager,
+    smoothing, detection, spectrogram and packed body; then the last
+    shard's ring (``last``), ``gather`` and ``psum`` on ``mesh.device``. No segment donates (the JAX
+    form donates nothing).
 
     Needs frames_per_shard >= grouping_y. Returns a step
     (state, iq[F, group, 2], now[F] i32, keys[S], valid[fft], level)
@@ -352,83 +362,126 @@ def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: 
         )
     f_loc = f_global // n_time
     learn_ms = cfg.noise_learning_ms
+    last_t = n_time - 1
 
-    def step(state: ScanState, iq: torch.Tensor, now: torch.Tensor, keys, valid, level):
+    def psd(iq, now, prev, start, ready_in):
+        """(a): the shard's PSD rows, its last frame's learning test, each
+        frame's readiness and the max of its rows not yet ready."""
+        with record_function("scan.psd"):
+            p = _frames_power(cfg, iq[None])[0]  # [f_loc, fft]
+        c = start + learn_ms <= now
+        ready = ready_in | torch.cat([(start + learn_ms <= prev)[None], c[:-1]])
+        held = torch.where((~ready)[:, None], p, -torch.inf).amax(dim=0)
+        return p, c[-1:], ready, held
+
+    def noise_fn(t: int):
+        def noise(p, ready, threshold_in, held_max, *first):
+            """(b): the noise-subtracted rows; shard 0 also the frozen
+            threshold and the block's readiness (``first``: every shard's
+            last learning test, the carried readiness)."""
+            threshold = torch.maximum(threshold_in, held_max)
+            with record_function("scan.noise"):
+                r = torch.where(ready[:, None], p - threshold[None, :], NO_DATA)
+                r = r.to(torch.bfloat16) if cfg.power_bf16 else r
+            if t == 0:
+                conds, ready0 = first
+                return r, threshold, ready0 | conds.any()
+            return (r,)
+
+        return noise
+
+    def detect_fn(t: int):
+        def detect(raw, left, frames_in, keys, valid, level, p):
+            """(c): shard t's rows through the averager (``left``: the
+            previous grouping_y raw rows, or on shard 0 the carried averager
+            state), smoothing and detection; its spectrogram sum and packed
+            body, the last shard's averager ring and total, shard 0's
+            outgoing position and frame count."""
+            dev = raw.device
+            prev_rows = ordered_history(_band_axis(left, add=True))[0] if t == 0 else left
+            synth = AveragerState(
+                ring=prev_rows[None],
+                total=torch.zeros((1, cfg.fft_size), dtype=torch.float32, device=dev),
+                pos=torch.zeros((1,), dtype=torch.int32, device=dev),
+                frames=torch.clamp(frames_in + t * f_loc, max=depth).to(torch.int32)[None],
+            )
+            with record_function("scan.averager"):
+                avg_state, means = averager_block(synth, raw[None])
+            with record_function("scan.smoothing"):
+                avg_rows = sliding_average(means, cfg.grouping_x)
+            with record_function("scan.detection"):
+                compact = compact_detection(
+                    avg_rows, raw[None], prev_rows[-(half_depth - 1) :][None], keys, valid, level, group_size,
+                    top_k, bf16=cfg.detection_bf16,
+                )
+            with record_function("scan.spectrogram"):
+                spectro = accumulate_frames(p, cfg.spectro_size)
+            f32 = lambda a: a.to(torch.float32)
+            body = torch.cat(
+                [f32(compact.cand_idx), compact.cand_val, f32(compact.cand_best),
+                 f32(compact.cand_count)[..., None], compact.key_val, f32(compact.key_idx)],
+                dim=2,
+            )[0]  # [f_loc, 3K+1+2S]
+            outs = (body, spectro)
+            if t == last_t:
+                outs += (avg_state.ring[0], avg_state.total[0])
+            if t == 0:
+                outs += (torch.zeros_like(left.pos), torch.clamp(frames_in + f_global, max=depth).to(torch.int32))
+            return outs
+
+        return detect
+
+    noise_fns = [noise_fn(t) for t in range(n_time)]
+    detect_fns = [detect_fn(t) for t in range(n_time)]
+    frames = [slice(t * f_loc, (t + 1) * f_loc) for t in range(n_time)]
+
+    def run(segment, state: ScanState, iq: torch.Tensor, now: torch.Tensor, keys, valid, level):
         noise_in = NoiseState(*(to(a, home) for a in state.noise))
         avg_in = AveragerState(*(to(a, home) for a in state.averager))
-        now = to(now, home)
-        prev_now = torch.cat(
-            [torch.full((1,), -(2**30), dtype=torch.int32, device=home), now[f_loc - 1 :: f_loc][:-1]]
-        )
-        frames = [slice(t * f_loc, (t + 1) * f_loc) for t in range(n_time)]
 
-        # -- the PSD and each shard's learning max -------------------------
-        power, cond, was_ready, held = [], [], [], []
+        power, last_cond, was_ready, held = [], [], [], []
         for t, dev in enumerate(devs):
+            prev = -(2**30) if t == 0 else now[t * f_loc - 1]
             with on(dev):
-                with record_function("scan.psd"):
-                    p = _frames_power(cfg, to(iq[frames[t]], dev)[None])[0]  # [f_loc, fft]
-                start = to(noise_in.start_ms, dev)
-                c = start + learn_ms <= to(now[frames[t]], dev)
-                prev_c = start + learn_ms <= to(prev_now[t], dev)
-                ready = to(noise_in.ready, dev) | torch.cat([prev_c[None], c[:-1]])
-                held.append(torch.where((~ready)[:, None], p, -torch.inf).amax(dim=0))
+                p, c, ready, h = segment(f"shard {t} psd", psd, (), dev)(
+                    iq[frames[t]], now[frames[t]], prev, noise_in.start_ms, noise_in.ready)
             power.append(p)
-            cond.append(c)
+            last_cond.append(c)
             was_ready.append(ready)
-        threshold = [torch.maximum(to(noise_in.threshold, d), h) for d, h in zip(devs, pmax(held, devs))]
-        ready_out = noise_in.ready | torch.stack([to(c[-1], home) for c in cond]).any()
+            held.append(h)
+        held_max = pmax(held, devs)
+        conds = gather(last_cond, home)
 
-        # -- noise-subtracted rows, and the averager halo --------------------
         raw = []
         for t, dev in enumerate(devs):
-            with on(dev), record_function("scan.noise"):
-                r = torch.where(was_ready[t][:, None], power[t] - threshold[t][None, :], NO_DATA)
-                raw.append(r.to(torch.bfloat16) if cfg.power_bf16 else r)
+            first = (conds, noise_in.ready) if t == 0 else ()
+            with on(dev):
+                out = segment(f"shard {t} noise", noise_fns[t], (), dev)(
+                    power[t], was_ready[t], noise_in.threshold, held_max[t], *first)
+            raw.append(out[0])
+            if t == 0:
+                threshold, ready_out = out[1:]
         left = ppermute_right([r[-depth:] for r in raw], devs)
-        left[0] = ordered_history(_band_axis(avg_in, add=True))[0]
+        left[0] = avg_in
 
-        # -- averager, smoothing, detection on each shard's frames ------------
-        bodies, spectros, rings, totals = [], [], [], []
+        bodies, spectros = [], []
         for t, dev in enumerate(devs):
             with on(dev):
-                prev_rows = left[t]
-                synth = AveragerState(
-                    ring=prev_rows[None],
-                    total=torch.zeros((1, cfg.fft_size), dtype=torch.float32, device=dev),
-                    pos=torch.zeros((1,), dtype=torch.int32, device=dev),
-                    frames=torch.clamp(to(avg_in.frames, dev) + t * f_loc, max=depth).to(torch.int32)[None],
-                )
-                with record_function("scan.averager"):
-                    avg_state, means = averager_block(synth, raw[t][None])
-                with record_function("scan.smoothing"):
-                    avg_rows = sliding_average(means, cfg.grouping_x)
-                with record_function("scan.detection"):
-                    compact = compact_detection(
-                        avg_rows, raw[t][None], prev_rows[-(half_depth - 1) :][None], to(keys, dev),
-                        to(valid, dev), to(level, dev), group_size, top_k, bf16=cfg.detection_bf16,
-                    )
-                with record_function("scan.spectrogram"):
-                    spectros.append(accumulate_frames(power[t], cfg.spectro_size))
-                f32 = lambda a: a.to(torch.float32)
-                bodies.append(torch.cat(
-                    [f32(compact.cand_idx), compact.cand_val, f32(compact.cand_best),
-                     f32(compact.cand_count)[..., None], compact.key_val, f32(compact.key_idx)],
-                    dim=2,
-                )[0])  # [f_loc, 3K+1+2S]
-            rings.append(avg_state.ring[0])
-            totals.append(avg_state.total[0])
+                out = segment(f"shard {t} detect", detect_fns[t], (), dev)(
+                    raw[t], left[t], avg_in.frames, keys, valid, level, power[t])
+            bodies.append(out[0])
+            spectros.append(out[1])
+            if t == last_t:
+                ring, total = out[2:4]
+            if t == 0:
+                pos, frames_out = out[-2:]
 
-        avg_out = AveragerState(
-            ring=last(rings, home).to(avg_in.ring.dtype),
-            total=last(totals, home),
-            pos=torch.zeros_like(avg_in.pos),
-            frames=torch.clamp(avg_in.frames + f_global, max=depth).to(torch.int32),
-        )
-        noise_out = NoiseState(threshold=threshold[0], ready=ready_out, start_ms=noise_in.start_ms)
+        avg_out = AveragerState(ring=to(ring, home).to(avg_in.ring.dtype), total=to(total, home), pos=pos,
+                                frames=frames_out)
+        noise_out = NoiseState(threshold=threshold, ready=ready_out, start_ms=noise_in.start_ms)
         return ScanState(noise_out, avg_out), gather(bodies, home), psum(spectros, home), ready_out
 
-    return step
+    return Program(run)
 
 
 def time_sharded_modtap_fits(cfg: DdcConfig, n_time: int) -> bool:
@@ -446,7 +499,12 @@ def time_sharded_modtap_fits(cfg: DdcConfig, n_time: int) -> bool:
     return True
 
 
-def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh):
+def _quantized(y: torch.Tensor) -> torch.Tensor:
+    """[K, 2, n] f32 -> int8 [K, n, 2] recording samples."""
+    return torch.clamp(torch.round(torch.movedim(y, 1, 2) * 127.0), -128, 127).to(torch.int8)
+
+
+def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh) -> Program:
     """Streaming time-sharded modulated-taps DDC with the serial step's
     signature: (state: Ddc2State, iq [block, 2] f32 pairs / int8 cs8 or
     [block] complex, tables: ModTables), single-band layouts ->
@@ -455,11 +513,20 @@ def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh):
     The same carry, tables, per-chunk phase stepping and products as the
     serial path (``models/ddc_pipeline._ddc_block``); only each chunk's
     samples are split over the time axis, the raw stage-1 tail and every
-    later stage tail stitched by halo exchange (shard 0 takes the carried
-    block-boundary tail, the last shard's tail becomes the next carry). The
-    rotation tables are gathered per shard by global decimated index, so each
-    output sample is the same product of the same f32 operands in the same
-    order: coarse entry times phase, then the fine entry."""
+    later stage tail stitched at the seams (shard 0 takes the carried
+    block-boundary tail, the last shard's tail becomes the next carry). A
+    shard's stage-1 halo is its left neighbour's last raw samples, which it
+    reads from the block itself; each later stage's halo is exchanged
+    (``ppermute_right``). The rotation tables are gathered per shard by
+    global decimated index, so each output sample is the same product of
+    the same f32 operands in the same order: coarse entry times phase, then
+    the fine entry.
+
+    Segments a shard and chunk: stage 1 with the rotation, then each later
+    stage (the last one quantizing), the same graphs at every chunk. The
+    last shard's segments write the carry, donating it (the JAX form
+    donates (0,)): stage 1 the phase (stepped once a chunk) and the raw
+    tail, each later stage its tail."""
     devs = mesh.time_devices
     home = mesh.device
     n_time = len(devs)
@@ -467,103 +534,139 @@ def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh):
         raise ValueError("geometry cannot be time-sharded exactly; check time_sharded_modtap_fits")
     no_tf32()
     p0 = cfg.plans[0]
+    later = cfg.plans[1:]
     k = cfg.num_slots
+    tail0 = p0.tail_len
     chunk_loc = cfg.chunk // n_time
     out1_loc = cfg.chunk // p0.decim // n_time
     q_val = _nco_q(cfg.chunk // p0.decim)
+    last_t = n_time - 1
 
-    def step(state: Ddc2State, iq: torch.Tensor, tables):
+    def stage1_fn(t: int):
+        def stage1(carry, x, w, rot):
+            """Shard t's chunk samples (with its left neighbour's last
+            tail0 before them, t > 0) through stage 1 and the rotation;
+            the last shard also steps the phase and takes the raw tail."""
+            ph, x_tail = carry
+            comps = torch.stack(_components(x), dim=0)  # [2, (tail0 +) chunk_loc]
+            left, xs = (x_tail, comps) if t == 0 else (comps[:, :tail0], comps[:, tail0:])
+            c_re, c_im, f_re, f_im, step = rot
+            g = t * out1_loc + torch.arange(out1_loc, device=x.device)
+            cre_s, cim_s, fre_s, fim_s = c_re[:, g // q_val], c_im[:, g // q_val], f_re[:, g % q_val], f_im[:, g % q_val]
+            y_re, y_im, local = _modtap_stage1(xs[None], left[None], w[None], p0, k)
+            y_re, y_im = y_re[0], y_im[0]  # [K, out1_loc]
+            ph_re, ph_im = torch.cos(ph)[:, None], torch.sin(ph)[:, None]
+            cre = ph_re * cre_s - ph_im * cim_s
+            cim = ph_re * cim_s + ph_im * cre_s
+            rot_re = cre * fre_s - cim * fim_s
+            rot_im = cre * fim_s + cim * fre_s
+            y = torch.stack([y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=1)
+            y = y if later else _quantized(y)
+            if t == last_t:
+                return (torch.remainder(ph + step, 2.0 * math.pi), local[0]), y
+            return (y,)
+
+        return stage1
+
+    def stage_fn(t: int, s: int):
+        plan, quantize = later[s], s == len(later) - 1
+
+        def apply(y, left):
+            y, local = _stage_apply(y, left.contiguous(), plan)  # eager: a view of the neighbour's rows
+            return (_quantized(y) if quantize else y), local
+
+        if t < last_t:
+            return lambda y, left: apply(y, left)[:1]
+
+        def stage(tail, y, left):
+            """The last shard's stage: its new tail is the carry (on one
+            shard ``left`` is None: the carried tail is its halo)."""
+            y, local = apply(y, tail if left is None else left)
+            return local, y
+
+        return stage
+
+    stage1_fns = [stage1_fn(t) for t in range(n_time)]
+    stage_fns = [[stage_fn(t, s) for s in range(len(later))] for t in range(n_time)]
+
+    def run(segment, state: Ddc2State, iq: torch.Tensor, tables):
         x = iq.reshape(cfg.num_chunks, cfg.chunk, *iq.shape[1:])
-        rot = tables.rot
-        consts = []
-        for t, dev in enumerate(devs):
-            g = t * out1_loc + torch.arange(out1_loc, device=dev)
-            c_re, c_im, f_re, f_im = (to(a, dev) for a in rot[:4])
-            consts.append((
-                to(tables.w, dev)[None],
-                c_re[:, g // q_val], c_im[:, g // q_val], f_re[:, g % q_val], f_im[:, g % q_val],
-            ))
-        ph, x_tail, tails = to(state.phase, home), to(state.x_tail, home), [to(a, home) for a in state.tails]
+        rot = (*tables.rot[:4], tables.rot.step)
+        carry = (state.phase, state.x_tail)
+        tails = list(state.tails)
         outs = []
         for c in range(cfg.num_chunks):
-            xs = []
+            ys = []
             for t, dev in enumerate(devs):
+                xc = x[c, max(t * chunk_loc - tail0, 0) : (t + 1) * chunk_loc]
                 with on(dev):
-                    xs.append(torch.stack(_components(to(x[c, t * chunk_loc : (t + 1) * chunk_loc], dev)), dim=0))
-            lefts = halo_from_left(xs, p0.tail_len, devs)
-            lefts[0] = x_tail
-            ys, local_tails = [], []
-            for t, dev in enumerate(devs):
-                with on(dev):
-                    w, cre_s, cim_s, fre_s, fim_s = consts[t]
-                    y_re, y_im, local = _modtap_stage1(xs[t][None], lefts[t][None], w, p0, k)
-                    y_re, y_im = y_re[0], y_im[0]  # [K, out1_loc]
-                    p = to(ph, dev)
-                    ph_re, ph_im = torch.cos(p)[:, None], torch.sin(p)[:, None]
-                    cre = ph_re * cre_s - ph_im * cim_s
-                    cim = ph_re * cim_s + ph_im * cre_s
-                    rot_re = cre * fre_s - cim * fim_s
-                    rot_im = cre * fim_s + cim * fre_s
-                    ys.append(torch.stack([y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=1))
-                local_tails.append(local[0])
-            x_tail = last(local_tails, home)
-            for s, plan in enumerate(cfg.plans[1:]):
-                lefts = halo_from_left(ys, plan.tail_len, devs)
-                lefts[0] = to(tails[s], devs[0])
-                locals_ = []
+                    if t == last_t:
+                        new_carry, y = segment(f"shard {t} stage 1", stage1_fns[t], (0,), dev)(
+                            carry, xc, tables.w, rot)
+                    else:
+                        (y,) = segment(f"shard {t} stage 1", stage1_fns[t], (), dev)(carry, xc, tables.w, rot)
+                ys.append(y)
+            carry = new_carry
+            for s, plan in enumerate(later):
+                lefts = ppermute_right([y[..., -plan.tail_len :] for y in ys], devs)
+                lefts[0] = None
                 for t, dev in enumerate(devs):
+                    name = f"shard {t} stage {s + 2}"
                     with on(dev):
-                        ys[t], local = _stage_apply(ys[t], lefts[t], plan)
-                    locals_.append(local)
-                tails[s] = last(locals_, home)
-            chunk_out = []
-            for t, dev in enumerate(devs):
-                with on(dev):
-                    chunk_out.append(torch.clamp(torch.round(torch.movedim(ys[t], 1, 2) * 127.0), -128, 127).to(torch.int8))
-            outs.append(gather(chunk_out, home, dim=1))
-            ph = torch.remainder(ph + to(rot.step, home), 2.0 * math.pi)
-        return Ddc2State(phase=ph, x_tail=x_tail, tails=tuple(tails)), torch.cat(outs, dim=1)
+                        if t == last_t:
+                            tails[s], ys[t] = segment(name, stage_fns[t][s], (0,), dev)(tails[s], ys[t], lefts[t])
+                        else:
+                            (ys[t],) = segment(name, stage_fns[t][s], (), dev)(ys[t], tails[s] if t == 0 else lefts[t])
+            outs.append(gather(ys, home, dim=1))
+        state = Ddc2State(phase=to(carry[0], home), x_tail=to(carry[1], home), tails=tuple(to(a, home) for a in tails))
+        return state, torch.cat(outs, dim=1)
 
-    return step
+    return Program(run)
 
 
-def make_time_sharded_ddc(cfg: DdcConfig, mesh: Mesh):
+def make_time_sharded_ddc(cfg: DdcConfig, mesh: Mesh) -> Program:
     """One band's block time-sharded over the "time" axis, K slots batched
     (the v1 chain): (iq [n_global] complex / [n_global, 2] pairs, tables)
     -> int8 [K, out_global, 2] on ``mesh.device``. ``tables`` are built for
     the GLOBAL chunk length (``ops/ddc.make_nco_tables(shifts, rate,
     n_global)``), so each shard takes its own slice of the coarse angles
     exactly; the stage tails come from the left neighbour (zeros on shard 0,
-    a stream start)."""
+    a stream start). Segments a shard: the rotation, each stage
+    (``halo.resample_chain_sharded``), the quantize; no donation."""
     devs = mesh.time_devices
     home = mesh.device
     n_time = len(devs)
     no_tf32()
 
-    def step(iq: torch.Tensor, tables: NcoTables) -> torch.Tensor:
+    def rotate(iq, coarse_re, coarse_im, fine_re, fine_im, step):
         x_re, x_im = _components(iq)
-        n_loc = x_re.shape[-1] // n_time
+        rot_re, rot_im = _rotation(torch.zeros_like(step), NcoTables(coarse_re, coarse_im, fine_re, fine_im, step),
+                                   x_re.shape[-1])
+        return (torch.stack([x_re * rot_re - x_im * rot_im, x_re * rot_im + x_im * rot_re], dim=1),)
+
+    def quantize(y):
+        return (_quantized(y),)
+
+    def run(segment, iq: torch.Tensor, tables: NcoTables) -> torch.Tensor:
+        n_loc = iq.shape[0] // n_time
         nq_loc = tables.coarse_re.shape[-1] // n_time
         ys = []
         for t, dev in enumerate(devs):
+            coarse = slice(t * nq_loc, (t + 1) * nq_loc)
             with on(dev):
-                coarse = slice(t * nq_loc, (t + 1) * nq_loc)
-                rt = NcoTables(
-                    to(tables.coarse_re[:, coarse], dev), to(tables.coarse_im[:, coarse], dev),
-                    to(tables.fine_re, dev), to(tables.fine_im, dev), to(tables.step, dev),
-                )
-                rot_re, rot_im = _rotation(torch.zeros_like(rt.step), rt, n_loc)
-                re = to(x_re[t * n_loc : (t + 1) * n_loc], dev)
-                im = to(x_im[t * n_loc : (t + 1) * n_loc], dev)
-                ys.append(torch.stack([re * rot_re - im * rot_im, re * rot_im + im * rot_re], dim=1))
-        ys = resample_chain_sharded(ys, cfg.plans, devs)
+                (y,) = segment(f"shard {t} rotate", rotate, (), dev)(
+                    iq[t * n_loc : (t + 1) * n_loc], tables.coarse_re[:, coarse], tables.coarse_im[:, coarse],
+                    tables.fine_re, tables.fine_im, tables.step)
+            ys.append(y)
+        ys = resample_chain_sharded(ys, cfg.plans, devs, segment)
         outs = []
         for t, dev in enumerate(devs):
             with on(dev):
-                outs.append(torch.clamp(torch.round(torch.movedim(ys[t], 1, 2) * 127.0), -128, 127).to(torch.int8))
+                (out,) = segment(f"shard {t} quantize", quantize, (), dev)(ys[t])
+            outs.append(out)
         return gather(outs, home, dim=1)
 
-    return step
+    return Program(run)
 
 
 __all__ = [

@@ -19,8 +19,9 @@ dispatch, and one device-to-host read of the packed detector vector (plus
 the recording rows while a slot records): ``submit_block`` never waits for
 the card, so pipelined ingest overlaps block b+1 with block b's host work.
 The one-card scan and DDC steps are ``graph.donated_step``s: each replays
-one captured CUDA graph a block and carries its state in place (the time
-mesh's steps stay eager).
+one captured CUDA graph a block and carries its state in place. The time
+mesh's are ``graph.sharded_step``s: a graph a shard and segment between
+the exchanges (the DDC's replayed at every chunk).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from torch.profiler import record_function
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch import native
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
-from rtl_sdr_scanner_tpu_torch.graph import donated_step
+from rtl_sdr_scanner_tpu_torch.graph import donated_step, sharded_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import (
     ScanConfig,
@@ -430,7 +431,8 @@ class SdrDevice:
         detector carries are stitched across the shard seams; the host
         consumes the same compact rows. Recording shards over the same mesh
         where the chain splits exactly (``make_time_sharded_modtap_ddc``);
-        otherwise the DDC stays on one device, with a warning."""
+        otherwise the DDC stays on one device, with a warning. The sharded
+        steps run graphed (``graph.sharded_step``)."""
         from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
         from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import (
             make_time_sharded_modtap_ddc,
@@ -458,11 +460,14 @@ class SdrDevice:
                 self._tunables.resampler_threshold,
             )
         self._time_mesh = make_mesh(n_bands=1, n_time=n, devices=mesh_devices(dev, n, self._cards))
-        self._scan_step = make_time_sharded_scan(
-            cfg, self._time_mesh, self._group_size, self._tunables.detection_top_k
+        self._scan_step = sharded_step(
+            make_time_sharded_scan(cfg, self._time_mesh, self._group_size, self._tunables.detection_top_k),
+            "time-sharded scan step",
         )
         if time_sharded_modtap_fits(self.ddc_cfg, n):
-            self._ddc_step = make_time_sharded_modtap_ddc(self.ddc_cfg, self._time_mesh)
+            self._ddc_step = sharded_step(
+                make_time_sharded_modtap_ddc(self.ddc_cfg, self._time_mesh), "time-sharded DDC step"
+            )
             self.tmesh_ddc = True
             logger.info(LABEL, "time-sharded DDC active ({} shards)", n)
         else:

@@ -5,7 +5,9 @@
 ``chip_smoke.py`` runs the layer on copies of one card, where every copy
 between shards is a same-device copy on one stream. This script runs it on
 distinct cards, where the copies cross cards and each shard launches on
-its own card's stream:
+its own card's stream; every sharded step graphed (``graph.sharded_step``:
+a graph a (shard, segment) on its own card, each captured once, its inputs
+copied in from the cards they lie on):
 1. path 1's band (20.48 Msps, fft 131072, 180 frames) time-sharded over
    cards 0-3 (with 4 cards), against the one-card step on card 0
    (``chip_smoke.run_time_mesh``'s bars);

@@ -1,7 +1,7 @@
 """Where one block of the port's main path spends its time on the card.
 
     python3 scripts/profile_torch_main_path.py
-        [--path 1|2|491|session|wideband|wideband-session|time-mesh|time-mesh-one-card]
+        [--path 1|2|491|session|wideband|wideband-shards|wideband-session|time-mesh|time-mesh-one-card]
         [--form serial|split|fused] [--blocks 3]
 
 Same geometries and data as chip_smoke.py: path 1, 24 bands x 45 frames x
@@ -18,12 +18,12 @@ and prints, per block:
   ctypes are not attributed to a host range, so the span is the measure;
 - the top kernels by device time, the device's busy share of the profiled
   window, and the host wall time.
-These run the step eagerly (its ``GraphedStep.fn``): inside a captured
+These run the step eagerly (its graphed step's ``.fn``): inside a captured
 CUDA graph the stage ranges are recorded once, at the capture. Then the
-same step graphed (``graph.donated_step``, as ``drivers`` builds it, its
-state carried on from the eager blocks): host wall a block and the device's
-busy share of the profiled window, beside the eager split (not for the time
-mesh, whose steps stay eager).
+same step graphed (``graph.donated_step``, or for a sharded step
+``graph.sharded_step``, as ``drivers`` and ``chip_smoke.TimeMesh`` build
+them, its state carried on from the eager blocks): host wall a block and
+the device's busy share of the profiled window, beside the eager split.
 ``--path session`` profiles the runtime session instead: chip_smoke.py's
 runtime capture (one replay device, 2.4 Msps, 4 slots at 32 kHz) through
 ``Scanner.step()``, blocks 3.. (the FM signal keyed 3-6 s records there),
@@ -32,7 +32,9 @@ and prints the host time of each range a block opens
 ``--path wideband`` profiles chip_smoke.py's wideband step (bench.py's app
 path: 163.84 Msps into 8 channels of path 1's geometry, fused dispatch):
 the device span of the channelizer (``sharded_scan.STAGES``) and of each
-step stage, as for paths 1 and 2. ``--path wideband-session --form F``
+step stage, as for paths 1 and 2; ``--path wideband-shards`` the same step
+over chip_smoke.py's BAND_SHARDS band shards of the card (``--form fused``
+or ``split``). ``--path wideband-session --form F``
 profiles chip_smoke.py's wideband session (2.048 Msps into 16 channels of
 128 kHz) in form F: the host time of each range a block opens (the
 sessions' ranges summed over the 16 channels, the channelizer's and the
@@ -64,11 +66,11 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("1", "2", "491", "session", "wideband", "wideband-session", "time-mesh",
-                                       "time-mesh-one-card"), default="1",
+    ap.add_argument("--path", choices=("1", "2", "491", "session", "wideband", "wideband-shards", "wideband-session",
+                                       "time-mesh", "time-mesh-one-card"), default="1",
                     help="chip_smoke.py's path to drive")
     ap.add_argument("--form", choices=[f for f, _ in cs.WB_FORMS], default="fused",
-                    help="the wideband session's form (--path wideband-session)")
+                    help="the wideband session's form (--path wideband-session; fused or split for wideband-shards)")
     ap.add_argument("--blocks", type=int, default=3, help="blocks to average over")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,11 +87,12 @@ def main() -> int:
     if args.path == "wideband-session":
         return profile_wideband_session(card, args.blocks, args.form)
     dev = torch.device("cuda", 0)
-    if args.path == "wideband":
+    if args.path.startswith("wideband"):
         from rtl_sdr_scanner_tpu_torch.parallel.sharded_scan import STAGES as WIDE_STAGES
 
         geo = cs.WIDE
-        path = cs.WidebandStep(dev, geo, True, [])
+        shards = cs.BAND_SHARDS if args.path == "wideband-shards" else 1
+        path = cs.WidebandStep(dev, geo, args.form != "split", [], shards)
         path.ring = cs.wide_ring(geo, path.cfg.block_samples, dev)
         STAGES = WIDE_STAGES + STAGES
     elif args.path.startswith("time-mesh"):
@@ -101,10 +104,10 @@ def main() -> int:
     else:
         geo = cs.PATH1 if args.path == "1" else cs.PATH2
         path = cs.MainPath(dev, geo)
-    # the stage split runs the eager step; the graphed one follows
-    graphed = getattr(path, "blocks", None) and path.blocks.step
-    if graphed:
-        path.blocks.step = graphed.fn
+    # the stage split runs the eager steps; the graphed ones follow
+    graphed = graphed_steps(path)
+    for owner, attr, step in graphed:
+        setattr(owner, attr, step.fn)
     for b in range(3):  # warm up: allocator, cuFFT/cuBLAS plans, noise learning under way
         path.run_block(b)
     torch.cuda.synchronize()
@@ -136,16 +139,25 @@ def main() -> int:
 
     print_kernels(kernels, args.blocks, wall_ms, card)
     if graphed:
-        path.blocks.step = graphed
-        profile_graphed(path, 3 + args.blocks, args.blocks, card)
+        for owner, attr, step in graphed:
+            setattr(owner, attr, step)
+        profile_graphed(path, [step for _, _, step in graphed], 3 + args.blocks, args.blocks, card)
     return 0
 
 
-def profile_graphed(path, first: int, blocks: int, card: str) -> None:
-    """The path's graphed step: 3 blocks (the capture in the first), then
+def graphed_steps(path) -> list:
+    """(owner, attribute, step) of each graphed step a path runs."""
+    if isinstance(path, cs.TimeMesh):
+        owner, attrs = path, ("scan_step", "ddc_step")
+    else:
+        owner, attrs = path.blocks, ("step", "wide_step", "ddc_step")
+    return [(owner, a, getattr(owner, a)) for a in attrs if hasattr(getattr(owner, a, None), "fn")]
+
+
+def profile_graphed(path, steps: list, first: int, blocks: int, card: str) -> None:
+    """The path's graphed steps: 3 blocks (the captures in the first), then
     ``blocks`` blocks under the profiler; host wall a block and the device's
     busy share (the replays' kernel records)."""
-    step = path.blocks.step
     for b in range(first, first + 3):
         path.run_block(b)
     torch.cuda.synchronize()
@@ -161,12 +173,12 @@ def profile_graphed(path, first: int, blocks: int, card: str) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             busy += e.time_range.elapsed_us() / 1e3 / blocks
             records += 1
-    capture = step.capture_log[0]
+    log = [c for step in steps for c in step.capture_log]
     share = f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of wall)" if records else (
         "not measured (the profiler recorded no kernel of the replays)")
-    print(f"graphed ({step.captures} capture, {capture['seconds']:.3f} s, pool {capture['pool_bytes']} bytes): host "
-          f"wall {wall_ms:.3f} ms per block, device busy {share}, {records // blocks} device records a block; the "
-          f"trace holds the graph's kernels, not the stages ({card})")
+    print(f"graphed ({len(log)} captures, {sum(c['seconds'] for c in log):.3f} s, pool "
+          f"{sum(c['pool_bytes'] for c in log)} bytes): host wall {wall_ms:.3f} ms per block, device busy {share}, "
+          f"{records // blocks} device records a block; the trace holds the graphs' kernels, not the stages ({card})")
 
 
 def print_kernels(kernels: dict, blocks: int, wall_ms: float, card: str) -> None:

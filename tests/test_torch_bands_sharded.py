@@ -15,7 +15,11 @@ and their recordings within 1 LSB.
 Session level (``tests/test_mesh_banded_ddc.py``'s method): the port's
 ``WidebandScanner`` with ``mesh_bands=2`` over two shards against the JAX
 package's on two virtual devices, payload by payload
-(``chip_smoke.compare_payloads``), split and fused. The wideband noise
+(``chip_smoke.compare_payloads``), split and fused.
+
+The step-level comparisons with the one-shard form and with the JAX
+package, and the session, run the port's steps eager and graphed
+(``graph.sharded_step``). The wideband noise
 snapshots stay as the reference has them in the batched forms: the band
 state is not seeded from a snapshot, and no snapshot is saved from it.
 """
@@ -35,12 +39,14 @@ from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
 from rtl_sdr_scanner_tpu.ops import channelizer as jch
 from rtl_sdr_scanner_tpu.parallel import mesh as jmesh
 from rtl_sdr_scanner_tpu.parallel import sharded_scan as jss
+from rtl_sdr_scanner_tpu_torch.graph import ShardedStep, sharded_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline as tdp
 from rtl_sdr_scanner_tpu_torch.models import scan_pipeline as tsp
 from rtl_sdr_scanner_tpu_torch.ops import channelizer as tch
 from rtl_sdr_scanner_tpu_torch.parallel import mesh as tmesh
 from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as tss
 from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
+from rtl_sdr_scanner_tpu_torch.runtime import wideband as twideband
 from tests.test_torch_wideband import B, _raw, _scan, _scene, _write, captures  # noqa: F401
 
 torch.set_num_threads(2)
@@ -74,9 +80,10 @@ def _now(cfg, b):
     return ((b * FRAMES + 1 + np.arange(FRAMES)) * cfg.frame_interval_ms).astype(np.int32)
 
 
-def _run_port(scene, n, form):
-    """Two blocks through the port's bands steps over n shards; returns the
-    stacked (packed, rec, channels) of each block and the final states."""
+def _run_port(scene, n, form, graphed=False):
+    """Two blocks through the port's bands steps over n shards (graphed:
+    ``graph.sharded_step``s); returns the stacked (packed, rec, channels) of
+    each block and the final states."""
     cfg, ddc_cfg, pairs, shifts, keep, keys = scene
     mesh = tmesh.make_mesh(n, 1, devices=["cpu"] * n)
     plan = tch.plan_channelizer(NB)
@@ -94,6 +101,10 @@ def _run_port(scene, n, form):
     banded = tss.make_sharded_banded_ddc(ddc_cfg, mesh, NB)
     compact = tss.make_sharded_compact_step(cfg, GROUP_SIZE, TOP_K, mesh)
     full = tss.make_sharded_scan_step(cfg, mesh)
+    if graphed:
+        fused, wide, banded, compact, full = (
+            sharded_step(s, name) for s, name in ((fused, "fused"), (wide, "wide"), (banded, "banded"),
+                                                  (compact, "compact"), (full, "full")))
     out = []
     for b in range(2):
         x = tss.replicate(torch.from_numpy(pairs[b]), mesh)
@@ -127,11 +138,12 @@ def _channels(plan, pairs, b):
     return ch
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
 @pytest.mark.parametrize("form", ["full", "compact", "split", "fused"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_band_shards_match_one_shard(scene, form, n):
+def test_band_shards_match_one_shard(scene, form, n, graphed):
     one, state1, acc1 = _run_port(scene, 1, form)
-    got, state_n, acc_n = _run_port(scene, n, form)
+    got, state_n, acc_n = _run_port(scene, n, form, graphed)
     for (p1, r1, c1), (pn, rn, cn) in zip(one, got):
         assert torch.equal(pn, p1) and torch.equal(rn, r1) and torch.equal(cn, c1)
     for a, b in zip(tss._leaves(state_n), tss._leaves(state1)):
@@ -153,11 +165,13 @@ def test_fused_equals_split_over_four_shards(scene):
     assert torch.equal(s_acc, f_acc)
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_band_shards_match_jax_multi_device(scene, n):
+def test_band_shards_match_jax_multi_device(scene, n, graphed):
     """The JAX fused step on n virtual devices and the port's on n CPU
-    shards: channels within 2e-5, recordings within 1 LSB, and the packed
-    rows' integer columns (candidate bins, votes, counts) equal."""
+    shards (eager or graphed): channels within 2e-5, recordings within 1
+    LSB, and the packed rows' integer columns (candidate bins, votes,
+    counts) equal."""
     cfg, ddc_cfg, pairs, shifts, keep, keys = scene
     jcfg = dataclasses.replace(jsp.ScanConfig.create(SUB_RATE, frames_per_block=FRAMES), noise_learning_ms=0)
     jddc = jdp.DdcConfig.create(SUB_RATE, 16000, SLOTS, jcfg.block_samples)
@@ -172,7 +186,7 @@ def test_band_shards_match_jax_multi_device(scene, n):
         jax.device_put(jnp.zeros((NB, jcfg.spectro_size), jnp.float32), jmesh.band_sharding(mesh)),
         jss.init_banded_ddc_state(jddc, NB, mesh),
     )
-    got, _, _ = _run_port(scene, n, "fused")
+    got, _, _ = _run_port(scene, n, "fused", graphed)
     for b in range(2):
         *states, packed, rec, channels = step(
             *states, jnp.asarray(pairs[b]), jnp.asarray(_now(cfg, b)), jnp.asarray(keys),
@@ -191,15 +205,20 @@ def test_band_shards_match_jax_multi_device(scene, n):
                 np.testing.assert_allclose(mine[1][:, :4], theirs[1][:, :4], atol=1e-3)
 
 
+@pytest.mark.parametrize("graphed", [True, False], ids=["graphed", "eager"])
 @pytest.mark.parametrize("form", ["split", "fused"])
-def test_two_shard_session_matches_jax(captures, monkeypatch, form):  # noqa: F811
+def test_two_shard_session_matches_jax(captures, monkeypatch, form, graphed):  # noqa: F811
     """WidebandScanner with mesh_bands=2: the port over two CPU shards (two
-    visible cards patched in), the JAX package over two virtual devices."""
+    visible cards patched in; its steps graphed, as the runtime runs them,
+    or their eager programs), the JAX package over two virtual devices."""
     monkeypatch.setattr(sdr_device, "visible_cards", lambda device: 2)
+    if not graphed:
+        monkeypatch.setattr(twideband, "sharded_step", lambda program, name: program)
     raw = _raw(captures["cs8"], "cs8", {"mesh_bands": 2, "wideband_fused_dispatch": form == "fused"})
     want, jscanner = _scan("jax", raw)
     got, scanner = _scan("torch", raw)
     assert scanner._mesh.shape == {"bands": 2, "time": 1} and jscanner._mesh.devices.size == 2
+    assert isinstance(scanner._wide_step, ShardedStep) == graphed
     assert len(scanner._band_state) == 2 and scanner._band_acc[1].shape[0] == B // 2
     stats = compare_payloads(want, got)
     assert stats["transmissions"] > 10

@@ -686,14 +686,16 @@ def test_two_gloo_ranks_on_one_card(dev):
     assert "shards=[0]" in joined and "shards=[1]" in joined, joined
 
 
-def _graph_against_eager(dev, make, blocks=4):
+def _graph_against_eager(dev, make, blocks=4, n_state=None, segments=1):
     """``make()`` -> (graphed step, its initial state as a list, ``args_of(b,
     state)``: block b's other arguments, after any change it makes to the
     state list, such as a slot reset); the step's eager ``fn`` and the step
     itself, each from a fresh ``make()`` over ``blocks`` blocks: their
-    outputs and final states bit-equal, one capture, and the kernels'
-    launches over the graphed blocks equal to the eager blocks' (per-block
-    launches x replays). Returns the launches."""
+    outputs and final states bit-equal, one capture a segment (a sharded
+    step's ``segments`` (shard, segment) keys; ``n_state``: the states it
+    returns first), and the kernels' launches over the graphed blocks equal
+    to the eager blocks' (per-block launches x replays). Returns the
+    launches."""
     from rtl_sdr_scanner_tpu_torch.graph import _flatten
 
     wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
@@ -701,7 +703,7 @@ def _graph_against_eager(dev, make, blocks=4):
     for form in ("eager", "graphed"):
         step, state, args_of = make()
         call = step if form == "graphed" else step.fn
-        n = len(step.donate)
+        n = len(step.donate) if n_state is None else n_state
         before = [fn.launches for fn in wrappers]
         outs = []
         for b in range(blocks):
@@ -720,7 +722,8 @@ def _graph_against_eager(dev, make, blocks=4):
             assert torch.equal(w, g), f"block {b}, output leaf {i}"
     for i, (w, g) in enumerate(zip(e_state, g_state)):
         assert torch.equal(w, g), f"state leaf {i}"
-    assert step.captures == 1 and len(step.graphs()) == 1
+    assert step.captures == segments and len(step.graphs()) == segments
+    assert all(g.graph is not None for g in step.graphs())
     assert g_launch == e_launch
     return e_launch
 
@@ -798,8 +801,8 @@ def test_graphed_session_steps_equal_eager_on_card(rate, bw, frames, dev):
 
 
 def test_graphed_wideband_fused_step_equals_eager_on_card(dev):
-    """``drivers.WidebandBlocks``' graphed fused wideband step on a one-card
-    mesh (8 channels of 256 kHz from one int8 stream, 2 slots at 3.2 kHz)
+    """``drivers.WidebandBlocks``' graphed fused wideband step (a graph a
+    band shard) on a one-card mesh (8 channels of 256 kHz from one int8 stream, 2 slots at 3.2 kHz)
     against its eager step."""
     from rtl_sdr_scanner_tpu_torch import drivers
     from rtl_sdr_scanner_tpu_torch.parallel import mesh
@@ -820,8 +823,111 @@ def test_graphed_wideband_fused_step_equals_eager_on_card(dev):
 
         return blk.step, [blk.chan, blk.scan, blk.acc, blk.ddc], args_of
 
-    launches = _graph_against_eager(dev, make)
+    launches = _graph_against_eager(dev, make, n_state=4)
     assert launches[0] == 0 and launches[1] == 4
+
+
+def test_graphed_time_shards_equal_eager_on_card(dev):
+    """The time axis graphed (``graph.sharded_step``) on a mesh of 4 copies
+    of the card (512 kHz, 84 frames: 21 a shard; 2 slots at 3.2 kHz: a
+    decimating stage 2), against its eager programs: the scan (3 segments a
+    shard), the modulated-taps DDC (2 a shard, replayed at every chunk; a
+    slot restarted at block 2) and the v1 DDC (4 a shard) bit-equal, one
+    capture a (shard, segment), launches equal."""
+    from rtl_sdr_scanner_tpu_torch.graph import sharded_step
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+
+    n, rate, frames = 4, 512_000, 84
+    cfg = scan_pipeline.ScanConfig.create(rate, frames, Tunables(noise_learning_time_ms=300))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
+    assert ss.time_sharded_modtap_fits(ddc_cfg, n) and len(ddc_cfg.plans) == 2
+    m = mesh.make_mesh(1, n, devices=[dev] * n)
+    iq, tones = _tone_step_inputs(cfg, 4, 1, dev)
+    keys = torch.full((16,), -1, dtype=torch.int32, device=dev)
+    valid = torch.ones(cfg.fft_size, dtype=torch.bool, device=dev)
+    level = torch.tensor(LEVEL, device=dev)
+
+    def now(b):
+        return torch.from_numpy(((b * frames + 1 + np.arange(frames)) * cfg.frame_interval_ms).astype(np.int32)).to(dev)
+
+    def make_scan():
+        step = sharded_step(ss.make_time_sharded_scan(cfg, m, 32, 64), "time scan")
+        return step, [scan_pipeline.init_scan_state(cfg, device=dev)], lambda b, _: (
+            iq[b, 0], now(b), keys, valid, level)
+
+    shift = (int(tones[0]) - cfg.fft_size // 2) * rate // cfg.fft_size
+    tables = ddc_pipeline.make_tables(ddc_cfg, np.array([shift, -shift]), device=dev)
+
+    def make_ddc():
+        def args_of(b, state):
+            if b == 2:
+                state[0] = ddc_pipeline.reset_slot(state[0], 1)
+            return (iq[b, 0].reshape(-1, 2), tables)
+
+        step = sharded_step(ss.make_time_sharded_modtap_ddc(ddc_cfg, m), "time DDC")
+        return step, [ddc_pipeline.init_state(ddc_cfg, device=dev)], args_of
+
+    v1_cfg = ddc_pipeline.DdcConfig.create(1_024_000, 16_000, 2, 4096 * 16)
+    v1_tables = ddc.make_nco_tables(np.array([100_000, -50_000]), 1_024_000, v1_cfg.block_samples, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    v1_iq = torch.randn((4, v1_cfg.block_samples, 2), generator=gen, device=dev) * 0.3
+
+    def make_v1():
+        step = sharded_step(ss.make_time_sharded_ddc(v1_cfg, m), "time v1 DDC")
+        return step, [], lambda b, _: (v1_iq[b], v1_tables)
+
+    from rtl_sdr_scanner_tpu_torch.drivers import fir_stages
+
+    assert _graph_against_eager(dev, make_scan, n_state=1, segments=3 * n)[:2] == [4 * n, 4 * n]
+    assert _graph_against_eager(dev, make_ddc, n_state=1, segments=n * len(ddc_cfg.plans)) == [
+        0, 0, 4 * n * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))]
+    _graph_against_eager(dev, make_v1, n_state=0, segments=n * (len(v1_cfg.plans) + 2))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_graphed_band_shards_equal_eager_on_card(fused, dev):
+    """``drivers.WidebandBlocks`` over 2 band shards of the card (8 channels
+    of 256 kHz from one int8 stream, 2 slots at 3.2 kHz), graphed (a graph a
+    shard) against its eager programs, a slot zeroed by the keep mask at
+    block 2: bit-equal, one capture a shard and step, launches equal."""
+    from rtl_sdr_scanner_tpu_torch import drivers
+    from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
+
+    nb, rate, shards = 8, 256_000, 2
+    cfg = scan_pipeline.ScanConfig.create(rate, 12, Tunables(noise_learning_time_ms=100))
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.integers(-60, 60, size=(4, nb * cfg.block_samples, 2), dtype=np.int8)).to(dev)
+    shifts = rng.integers(-rate // 2, rate // 2, size=(nb, 2)).astype(np.int64)
+    m = mesh.make_mesh(shards, 1, devices=[dev] * shards)
+    zeroed = torch.ones((nb, 2), device=dev)
+    zeroed[1, 1] = 0.0
+
+    def make(which):
+        blk = drivers.WidebandBlocks(cfg, ddc_cfg, 64, 16, nb, shifts, fused, m, dev)
+
+        def wide_args(b, _):
+            common = (ss.replicate(xs[b], m), ss.replicate(drivers.frame_times(cfg, b, dev), m), blk.keys, blk.valid,
+                      blk.level, 1.0)
+            keep = ss.shard_bands(zeroed, m) if b == 2 else blk.keep_mask
+            return common + ((blk.tables, keep) if fused else ())
+
+        if fused:
+            return blk.step, [blk.chan, blk.scan, blk.acc, blk.ddc], wide_args
+        if which == "wide":
+            return blk.wide_step, [blk.chan, blk.scan, blk.acc], wide_args
+        channels = [torch.randn((nb // shards, cfg.block_samples, 2), generator=torch.Generator(device=dev).manual_seed(b),
+                                device=dev) for b in range(4)]
+        return blk.ddc_step, [blk.ddc], lambda b, _: (
+            [channels[b]] * shards, blk.tables, ss.shard_bands(zeroed, m) if b == 2 else blk.keep_mask)
+
+    if fused:
+        launches = _graph_against_eager(dev, lambda: make("fused"), n_state=4, segments=shards)
+        assert launches[0] == 0 and launches[1] == 4 * shards
+    else:
+        assert _graph_against_eager(dev, lambda: make("wide"), n_state=3, segments=shards)[:2] == [0, 4 * shards]
+        _graph_against_eager(dev, lambda: make("ddc"), n_state=1, segments=shards)
 
 
 def test_a_capture_that_copies_from_the_host_raises(dev):

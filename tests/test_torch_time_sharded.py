@@ -16,6 +16,9 @@
   serial modulated-taps DDC over two blocks, carry included, and within
   1 LSB of the JAX time-sharded one (the stage-1 products' f32 sums differ
   in order between XLA and torch).
+
+The scan's and the DDC's cases run each step eager and graphed
+(``graph.sharded_step``), to the same bars.
 """
 
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from rtl_sdr_scanner_tpu.models import ddc_pipeline as jdp
 from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
 from rtl_sdr_scanner_tpu.parallel import mesh as jmesh
 from rtl_sdr_scanner_tpu.parallel import sharded_scan as jss
+from rtl_sdr_scanner_tpu_torch.graph import sharded_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline as tdp
 from rtl_sdr_scanner_tpu_torch.models import scan_pipeline as tsp
 from rtl_sdr_scanner_tpu_torch.parallel import mesh as tmesh
@@ -62,8 +66,9 @@ def _now(cfg, b):
     return ((b * cfg.frames_per_block + 1 + np.arange(cfg.frames_per_block)) * cfg.frame_interval_ms).astype(np.int32)
 
 
-def _port_sharded(cfg, blocks, keys, n=N_TIME):
+def _port_sharded(cfg, blocks, keys, n=N_TIME, graphed=False):
     step = tss.make_time_sharded_scan(cfg, _cpu_mesh(n), GROUP_SIZE, TOP_K)
+    step = sharded_step(step, "time-sharded scan") if graphed else step
     state = tsp.init_scan_state(cfg, device="cpu")
     out = []
     for b, blk in enumerate(blocks):
@@ -101,12 +106,13 @@ def _assert_rows_close(got, ref):
     np.testing.assert_allclose(got[:, 3 * K2 + 1 :], ref[:, 3 * K2 + 1 :], atol=2e-3)
 
 
-def test_time_sharded_scan_matches_serial_and_jax():
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_time_sharded_scan_matches_serial_and_jax(graphed):
     cfg = tsp.ScanConfig.create(RATE, frames_per_block=84)  # 21 frames a shard
     jcfg = jsp.ScanConfig.create(RATE, frames_per_block=84)
     blocks = _fm_scene(cfg)
     keys = np.full(S_KEYS, -1, dtype=np.int32)
-    sharded = _port_sharded(cfg, blocks, keys)
+    sharded = _port_sharded(cfg, blocks, keys, graphed=graphed)
     jax_sharded = _jax_sharded(jcfg, blocks, keys)
 
     state = tsp.init_scan_state(cfg, 1, device="cpu")
@@ -185,8 +191,9 @@ def test_time_sharded_modtap_fits_boundaries(n, fits):
     assert not v1.modtap and not tss.time_sharded_modtap_fits(v1, 2)
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_time_sharded_modtap_ddc_matches_serial_and_jax(n):
+def test_time_sharded_modtap_ddc_matches_serial_and_jax(n, graphed):
     cfg = tdp.DdcConfig.create(256000, 16000, 2, 84 * 5120)  # the time-mesh session's block
     jcfg = jdp.DdcConfig.create(256000, 16000, 2, 84 * 5120)
     rng = np.random.default_rng(n)
@@ -195,6 +202,7 @@ def test_time_sharded_modtap_ddc_matches_serial_and_jax(n):
 
     serial = tdp.make_ddc_step(cfg, device="cpu")
     sharded = tss.make_time_sharded_modtap_ddc(cfg, _cpu_mesh(n))
+    sharded = sharded_step(sharded, "time-sharded DDC") if graphed else sharded
     tables = tdp.make_tables(cfg, shifts, device="cpu")
     s_serial = s_sharded = tdp.init_state(cfg, device="cpu")
     jstep = jss.make_time_sharded_modtap_ddc(jcfg, jmesh.make_mesh(n_bands=1, n_time=n))
