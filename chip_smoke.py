@@ -1751,6 +1751,8 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
         shards = n if form == "time_mesh" else 1
         if form == "time_mesh":
             hold_captures(form, [path.scan_step, path.ddc_step])
+            replays = {k: hold_replays(form, [step], geo.blocks)
+                       for k, step in (("scan", path.scan_step), ("DDC", path.ddc_step))}
         want = {"psd_frames_int8": shards * geo.blocks, "fused_selection": shards * geo.blocks,
                 "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
@@ -1809,7 +1811,8 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
     if len(hits) != geo.blocks - geo.signal_from_block or max(hits) > group_size or gain_db < 10 or abs(tone - RT_TONE) >= 40:
         raise RuntimeError(f"time mesh: the planted signal was not detected and recorded: {hits}, {gain_db} dB, {tone} Hz")
     sharded, one = (float(np.mean(block_ms[k][1:])) for k in ("time_mesh", "time_mesh_one_card"))
-    log(f"time mesh: {sharded:.1f} ms a {cfg.block_samples / cfg.sample_rate * 1e3:.0f} ms block on {where} "
+    log(f"time mesh: {sharded:.1f} ms a {cfg.block_samples / cfg.sample_rate * 1e3:.0f} ms block on {where}, "
+        f"{sum(replays.values())} graph replays a block ({replays['scan']} scan + {replays['DDC']} DDC), "
         f"vs {one:.1f} ms one-card (blocks 1..{geo.blocks - 1}; first {block_ms['time_mesh'][0]:.1f} / "
         f"{block_ms['time_mesh_one_card'][0]:.1f} ms) on {card}")
     del paths, ring
@@ -2609,10 +2612,9 @@ def replay_ms(step, calls: int = 0) -> float:
     """Device span of one call of ``step`` from its captured graphs alone:
     for each graph, CUDA events around GRAPH_REPLAYS back-to-back replays
     (its kernels back to back, no host in the loop), the mean, weighted by
-    its replays a call over the ``calls`` calls made so far (a sharded
-    step's chunk segments replay several times a call; default: one
-    replay a call). The replays advance the step's state and count no
-    launch."""
+    its replays a call over the ``calls`` calls made so far (a session's
+    DDC step replays only in the blocks that record; default: one replay
+    a call). The replays advance the step's state and count no launch."""
     total = 0.0
     for captured in step.graphs():
         weight = captured.replays / calls if calls else 1.0
@@ -2684,14 +2686,25 @@ def hold_captures(name: str, steps: list) -> None:
                 raise RuntimeError(f"{name}: {part.name} captured {part.captures} times: {part.capture_log}")
 
 
+def hold_replays(name: str, steps: list, calls: int) -> int:
+    """Each graph of ``steps`` replayed once a call over ``calls`` calls (a
+    sharded step's segments too: a loop over a block's chunks runs inside
+    a segment); returns the replays a call."""
+    graphs = [g for step in steps for g in step.graphs()]
+    if any(g.replays != calls for g in graphs):
+        raise RuntimeError(f"{name}: replays {[g.replays for g in graphs]} over {calls} calls, want one a call")
+    return len(graphs)
+
+
 def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, device_ms: float,
-                 steps: list) -> dict:
+                 steps: list, calls: int = 0) -> dict:
     """Log and return one path's eager and graphed ms a block (the median of
     blocks 1.. each synchronised: block 0 holds the graphed form's warm-up
     and capture, and the session captures its DDC step in the block that
     first records), host ms, ms a block back to back (``paces``: None for
     a session whose blocks are all synchronised), the
-    card's busy share and the captures' time and pool bytes. Busy is the
+    card's busy share and the captures' time and pool bytes (``calls``: the
+    steps' calls so far, for the graphs' replays a block). Busy is the
     captured graphs' device span a block (the same kernels both forms run)
     over each form's synchronised wall."""
     median = lambda xs: float(np.median(xs[1:]))
@@ -2706,6 +2719,9 @@ def graph_report(name: str, card: str, walls: dict, hosts: dict, paces: dict, de
     rec["busy_eager"], rec["busy_graphed"] = device_ms / rec["eager_ms"], device_ms / rec["graphed_ms"]
     pace = "" if paces["eager"] is None else (
         f" back to back eager {rec['eager_pace_ms']:.3f}, graphed {rec['graphed_pace_ms']:.3f};")
+    if calls:
+        rec["replays"] = sum(g.replays for s in steps for g in s.graphs()) / calls
+        pace += f" {rec['replays']:g} graph replays a block;"
     log(f"{name}: eager {rec['eager_ms']:.3f} ms a block (host {rec['eager_host_ms']:.3f}), graphed "
         f"{rec['graphed_ms']:.3f} (host {rec['graphed_host_ms']:.3f}), median of blocks 1.. each synchronised;{pace} "
         f"the graphs' device span {device_ms:.3f} ms a block: card busy {rec['busy_eager']:.1%} eager, "
@@ -2822,7 +2838,7 @@ def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple
     hold_counts(name, counts, want, graphed)
     calls = 2 * GRAPH_BLOCKS
     report = graph_report(name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()}, paces,
-                          sum(replay_ms(step, calls) for step in graphed), graphed)
+                          sum(replay_ms(step, calls) for step in graphed), graphed, calls)
     del steps, runs, ring
     free_card()
     return counts, report
@@ -2863,8 +2879,9 @@ def graph_time_mesh(dev, card: str) -> tuple:
     hold_outputs(name, runs)
     hold_counts(name, counts, want, steps)
     calls = 2 * GRAPH_BLOCKS
+    hold_replays(name, steps, calls)
     report = graph_report(name, card, {f: r[1] for f, r in runs.items()}, {f: r[2] for f, r in runs.items()}, paces,
-                          sum(replay_ms(step, calls) for step in steps), steps)
+                          sum(replay_ms(step, calls) for step in steps), steps, calls)
     del meshes, runs, ring, path
     free_card()
     return counts, report
@@ -2929,7 +2946,7 @@ def graph_sharded_session(dev, card: str, tmp: Path, key: str) -> tuple:
     walls = {"eager": e_clock.walls, "graphed": g_clock.walls}
     hosts = {f: list(np.array(c.walls) - np.array(c.device_ms())) for f, c in (("eager", e_clock), ("graphed", g_clock))}
     device_ms = sum(replay_ms(step, blocks) for step in steps)
-    report = graph_report(name, card, walls, hosts, {"eager": None, "graphed": None}, device_ms, steps)
+    report = graph_report(name, card, walls, hosts, {"eager": None, "graphed": None}, device_ms, steps, blocks)
     del runs
     free_card()
     return counts, report

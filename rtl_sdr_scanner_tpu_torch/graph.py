@@ -63,9 +63,10 @@ moved to the segment's device. ``sharded_step(program)`` is its graphed
 form: one ``GraphedStep`` a key, built at the key's first call, so that
 two shards of equal shapes on one card never share buffers and no graph
 holds more than one card's work. Each segment's graph replays with its
-card current; a segment replayed several times a call (a chunk loop) is
-still one capture. A segment donates the state it writes (``donate``): the
-state a program returns may be buffers of several segments' graphs.
+card current, once a call: a loop over a block's chunks runs inside a
+segment's function (the JAX package's ``lax.scan`` inside ``shard_map``),
+not around its calls. A segment donates the state it writes (``donate``):
+the state a program returns may be buffers of several segments' graphs.
 """
 
 from __future__ import annotations

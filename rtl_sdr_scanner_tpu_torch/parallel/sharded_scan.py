@@ -514,19 +514,23 @@ def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh) -> Program:
     serial path (``models/ddc_pipeline._ddc_block``); only each chunk's
     samples are split over the time axis, the raw stage-1 tail and every
     later stage tail stitched at the seams (shard 0 takes the carried
-    block-boundary tail, the last shard's tail becomes the next carry). A
-    shard's stage-1 halo is its left neighbour's last raw samples, which it
-    reads from the block itself; each later stage's halo is exchanged
-    (``ppermute_right``). The rotation tables are gathered per shard by
-    global decimated index, so each output sample is the same product of
-    the same f32 operands in the same order: coarse entry times phase, then
-    the fine entry.
+    block-boundary tail at chunk 0 and the chunk before's last samples
+    after it; the last shard's tail becomes the next carry). A shard's
+    stage-1 halos are raw samples it reads from the block itself. Each
+    later stage's halos are exchanged once a block, after every shard has
+    run the stage before over every chunk: every chunk's seam to the right
+    neighbour (``ppermute_right``), and the last shard's seams to shard 0,
+    a chunk later. The rotation tables are gathered per shard by global
+    decimated index, so each output sample is the same product of the same
+    f32 operands in the same order: coarse entry times phase, then the
+    fine entry.
 
-    Segments a shard and chunk: stage 1 with the rotation, then each later
-    stage (the last one quantizing), the same graphs at every chunk. The
-    last shard's segments write the carry, donating it (the JAX form
-    donates (0,)): stage 1 the phase (stepped once a chunk) and the raw
-    tail, each later stage its tail."""
+    Segments a shard and stage, each looping over the block's chunks
+    inside (the JAX form's ``lax.scan``) with each product at the serial
+    step's per-chunk shapes: stage 1 with the rotation, then each later
+    stage (the last one quantizing). The last shard's segments write the
+    carry, donating it (the JAX form donates (0,)): stage 1 the phase
+    (stepped once a chunk) and the raw tail, each later stage its tail."""
     devs = mesh.time_devices
     home = mesh.device
     n_time = len(devs)
@@ -536,6 +540,7 @@ def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh) -> Program:
     p0 = cfg.plans[0]
     later = cfg.plans[1:]
     k = cfg.num_slots
+    num_chunks = cfg.num_chunks
     tail0 = p0.tail_len
     chunk_loc = cfg.chunk // n_time
     out1_loc = cfg.chunk // p0.decim // n_time
@@ -543,83 +548,96 @@ def make_time_sharded_modtap_ddc(cfg: DdcConfig, mesh: Mesh) -> Program:
     last_t = n_time - 1
 
     def stage1_fn(t: int):
-        def stage1(carry, x, w, rot):
-            """Shard t's chunk samples (with its left neighbour's last
-            tail0 before them, t > 0) through stage 1 and the rotation;
-            the last shard also steps the phase and takes the raw tail."""
+        def stage1(carry, x, w, rot, prev=None):
+            """Shard t's samples of every chunk, x [num_chunks, (tail0 +)
+            chunk_loc, ...] (t > 0: its left neighbour's last tail0 before
+            them), through stage 1 and the rotation, a chunk at a time.
+            Shard 0's halo is the carried raw tail at chunk 0, then the
+            chunk before's last tail0 samples (``prev`` [num_chunks, tail0,
+            ...], each chunk's). The last shard also returns the phase
+            after the last chunk and the raw tail. -> y [num_chunks, K, 2,
+            out1_loc] (int8 [num_chunks, K, out1_loc, 2] when stage 1 is
+            the last)."""
             ph, x_tail = carry
-            comps = torch.stack(_components(x), dim=0)  # [2, (tail0 +) chunk_loc]
-            left, xs = (x_tail, comps) if t == 0 else (comps[:, :tail0], comps[:, tail0:])
             c_re, c_im, f_re, f_im, step = rot
             g = t * out1_loc + torch.arange(out1_loc, device=x.device)
             cre_s, cim_s, fre_s, fim_s = c_re[:, g // q_val], c_im[:, g // q_val], f_re[:, g % q_val], f_im[:, g % q_val]
-            y_re, y_im, local = _modtap_stage1(xs[None], left[None], w[None], p0, k)
-            y_re, y_im = y_re[0], y_im[0]  # [K, out1_loc]
-            ph_re, ph_im = torch.cos(ph)[:, None], torch.sin(ph)[:, None]
-            cre = ph_re * cre_s - ph_im * cim_s
-            cim = ph_re * cim_s + ph_im * cre_s
-            rot_re = cre * fre_s - cim * fim_s
-            rot_im = cre * fim_s + cim * fre_s
-            y = torch.stack([y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=1)
-            y = y if later else _quantized(y)
+            ys = []
+            for c in range(num_chunks):
+                comps = torch.stack(_components(x[c]), dim=0)  # [2, (tail0 +) chunk_loc]
+                if t > 0:
+                    left, xs = comps[:, :tail0], comps[:, tail0:]
+                else:
+                    left, xs = (x_tail if c == 0 else torch.stack(_components(prev[c - 1]), dim=0)), comps
+                y_re, y_im, local = _modtap_stage1(xs[None], left[None], w[None], p0, k)
+                y_re, y_im = y_re[0], y_im[0]  # [K, out1_loc]
+                ph_re, ph_im = torch.cos(ph)[:, None], torch.sin(ph)[:, None]
+                cre = ph_re * cre_s - ph_im * cim_s
+                cim = ph_re * cim_s + ph_im * cre_s
+                rot_re = cre * fre_s - cim * fim_s
+                rot_im = cre * fim_s + cim * fre_s
+                y = torch.stack([y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=1)
+                ys.append(y if later else _quantized(y))
+                ph = torch.remainder(ph + step, 2.0 * math.pi)
             if t == last_t:
-                return (torch.remainder(ph + step, 2.0 * math.pi), local[0]), y
-            return (y,)
+                return (ph, local[0]), torch.stack(ys)
+            return (torch.stack(ys),)
 
         return stage1
 
     def stage_fn(t: int, s: int):
         plan, quantize = later[s], s == len(later) - 1
 
-        def apply(y, left):
-            y, local = _stage_apply(y, left.contiguous(), plan)  # eager: a view of the neighbour's rows
-            return (_quantized(y) if quantize else y), local
-
-        if t < last_t:
-            return lambda y, left: apply(y, left)[:1]
-
         def stage(tail, y, left):
-            """The last shard's stage: its new tail is the carry (on one
-            shard ``left`` is None: the carried tail is its halo)."""
-            y, local = apply(y, tail if left is None else left)
-            return local, y
+            """Shard t's stage input y [num_chunks, K, 2, n], a chunk at a
+            time. Halos: t > 0, ``left[c]`` (the left neighbour's last
+            samples at chunk c); shard 0, the carried ``tail`` at chunk 0,
+            then ``left[c - 1]`` (the last shard's at the chunk before).
+            Returns the last chunk's new tail (the carry, on the last
+            shard) and the outputs stacked."""
+            outs = []
+            for c in range(num_chunks):
+                halo = left[c] if t > 0 else (tail if c == 0 else left[c - 1])
+                out, local = _stage_apply(y[c], halo.contiguous(), plan)  # eager: a view of another shard's rows
+                outs.append(_quantized(out) if quantize else out)
+            return local, torch.stack(outs)
 
-        return stage
+        return stage if t == last_t else lambda tail, y, left: stage(tail, y, left)[1:]
 
     stage1_fns = [stage1_fn(t) for t in range(n_time)]
     stage_fns = [[stage_fn(t, s) for s in range(len(later))] for t in range(n_time)]
 
     def run(segment, state: Ddc2State, iq: torch.Tensor, tables):
-        x = iq.reshape(cfg.num_chunks, cfg.chunk, *iq.shape[1:])
+        x = iq.reshape(num_chunks, cfg.chunk, *iq.shape[1:])
         rot = (*tables.rot[:4], tables.rot.step)
         carry = (state.phase, state.x_tail)
+        ys = []
+        for t, dev in enumerate(devs):
+            args = (carry, x[:, max(t * chunk_loc - tail0, 0) : (t + 1) * chunk_loc], tables.w, rot)
+            if t == 0:  # each chunk's last raw samples: shard 0's halo at the chunk after
+                args += (x[:, cfg.chunk - tail0 :],)
+            with on(dev):
+                if t == last_t:
+                    new_carry, y = segment(f"shard {t} stage 1", stage1_fns[t], (0,), dev)(*args)
+                else:
+                    (y,) = segment(f"shard {t} stage 1", stage1_fns[t], (), dev)(*args)
+            ys.append(y)
         tails = list(state.tails)
-        outs = []
-        for c in range(cfg.num_chunks):
-            ys = []
+        for s, plan in enumerate(later):
+            seams = [y[..., -plan.tail_len :] for y in ys]
+            lefts = ppermute_right(seams, devs)
+            lefts[0] = to(seams[-1], devs[0])  # shard 0's halos, a chunk later
             for t, dev in enumerate(devs):
-                xc = x[c, max(t * chunk_loc - tail0, 0) : (t + 1) * chunk_loc]
+                name = f"shard {t} stage {s + 2}"
                 with on(dev):
                     if t == last_t:
-                        new_carry, y = segment(f"shard {t} stage 1", stage1_fns[t], (0,), dev)(
-                            carry, xc, tables.w, rot)
+                        tails[s], ys[t] = segment(name, stage_fns[t][s], (0,), dev)(tails[s], ys[t], lefts[t])
                     else:
-                        (y,) = segment(f"shard {t} stage 1", stage1_fns[t], (), dev)(carry, xc, tables.w, rot)
-                ys.append(y)
-            carry = new_carry
-            for s, plan in enumerate(later):
-                lefts = ppermute_right([y[..., -plan.tail_len :] for y in ys], devs)
-                lefts[0] = None
-                for t, dev in enumerate(devs):
-                    name = f"shard {t} stage {s + 2}"
-                    with on(dev):
-                        if t == last_t:
-                            tails[s], ys[t] = segment(name, stage_fns[t][s], (0,), dev)(tails[s], ys[t], lefts[t])
-                        else:
-                            (ys[t],) = segment(name, stage_fns[t][s], (), dev)(ys[t], tails[s] if t == 0 else lefts[t])
-            outs.append(gather(ys, home, dim=1))
-        state = Ddc2State(phase=to(carry[0], home), x_tail=to(carry[1], home), tails=tuple(to(a, home) for a in tails))
-        return state, torch.cat(outs, dim=1)
+                        (ys[t],) = segment(name, stage_fns[t][s], (), dev)(tails[s], ys[t], lefts[t])
+        out = gather(ys, home, dim=2)  # [num_chunks, K, out_per_chunk, 2]
+        state = Ddc2State(phase=to(new_carry[0], home), x_tail=to(new_carry[1], home),
+                          tails=tuple(to(a, home) for a in tails))
+        return state, torch.movedim(out, 0, 1).reshape(k, -1, 2)
 
     return Program(run)
 

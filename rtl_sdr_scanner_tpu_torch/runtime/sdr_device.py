@@ -21,7 +21,8 @@ the card, so pipelined ingest overlaps block b+1 with block b's host work.
 The one-card scan and DDC steps are ``graph.donated_step``s: each replays
 one captured CUDA graph a block and carries its state in place. The time
 mesh's are ``graph.sharded_step``s: a graph a shard and segment between
-the exchanges (the DDC's replayed at every chunk).
+the exchanges, each replayed once a block (the DDC's loop over its chunks
+inside).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ a graph a (shard, segment) on its own card, each captured once, its inputs
 copied in from the cards they lie on):
 1. path 1's band (20.48 Msps, fft 131072, 180 frames) time-sharded over
    cards 0-3 (with 4 cards), against the one-card step on card 0
-   (``chip_smoke.run_time_mesh``'s bars);
+   (``chip_smoke.run_time_mesh``'s bars; each graph replayed once a
+   block, the replays a block logged beside the ms a block);
 2. ``chip_smoke.py``'s wideband step (163.84 Msps into 8 channels) over
    cards 0-1, fused and split, against one card (``run_band_shards``'s
    bars: outputs bit-equal);

@@ -156,11 +156,14 @@ def graphed_steps(path) -> list:
 
 def profile_graphed(path, steps: list, first: int, blocks: int, card: str) -> None:
     """The path's graphed steps: 3 blocks (the captures in the first), then
-    ``blocks`` blocks under the profiler; host wall a block and the device's
-    busy share (the replays' kernel records)."""
+    ``blocks`` blocks under the profiler; host wall a block, the device's
+    busy share (the replays' kernel records) and the graphs' replays a
+    block."""
     for b in range(first, first + 3):
         path.run_block(b)
     torch.cuda.synchronize()
+    replayed = lambda: sum(g.replays for step in steps for g in step.graphs())
+    before = replayed()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -168,6 +171,7 @@ def profile_graphed(path, steps: list, first: int, blocks: int, card: str) -> No
             path.run_block(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+    replays = (replayed() - before) / blocks
     busy, records = 0.0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -178,7 +182,8 @@ def profile_graphed(path, steps: list, first: int, blocks: int, card: str) -> No
         "not measured (the profiler recorded no kernel of the replays)")
     print(f"graphed ({len(log)} captures, {sum(c['seconds'] for c in log):.3f} s, pool "
           f"{sum(c['pool_bytes'] for c in log)} bytes): host wall {wall_ms:.3f} ms per block, device busy {share}, "
-          f"{records // blocks} device records a block; the trace holds the graphs' kernels, not the stages ({card})")
+          f"{replays:g} graph replays and {records // blocks} device records a block; the trace holds the graphs' "
+          f"kernels, not the stages ({card})")
 
 
 def print_kernels(kernels: dict, blocks: int, wall_ms: float, card: str) -> None:

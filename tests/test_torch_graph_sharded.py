@@ -10,7 +10,7 @@ graphed and eager from the same state: the returned state passed back
 buffers), a state reset at a retune and a slot reset (block 3), and, where
 the step takes one, a keep mask that zeroes a slot's carry before block 2.
 Every output and the final state must be bit-equal, and each (shard,
-segment) captured once. Two shards of equal shapes on one device keep
+segment) captured once and replayed once a call. Two shards of equal shapes on one device keep
 distinct state.
 """
 
@@ -83,6 +83,7 @@ def _against_eager(make, n_state: int, segments: int):
         assert torch.equal(w, g), f"state leaf {i}"
     assert len(step.segments) == segments and step.captures == segments, step.capture_log
     assert all(s.captures == 1 for s in step.segments.values())
+    assert sum(g.replays for g in step.graphs()) == BLOCKS * segments  # each segment once a call
     return results
 
 
@@ -278,6 +279,32 @@ def test_time_sharded_modtap_ddc_graphed_equals_eager(time_scene, n):
 
     outs = _against_eager(make, 1, n * len(ddc_cfg.plans))
     assert outs[-1][0].abs().max() > 10
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_time_sharded_modtap_ddc_chunk_loop_graphed_equals_eager(n):
+    """Four chunks a block through two stages ((1, 8) then (1, 16)): graphed
+    bit-equal to eager, and a (shard, segment) captured once and replayed
+    once a call, each segment looping over the chunks inside: n x
+    len(plans) captures and replays a call, not x num_chunks."""
+    cfg = tdp.DdcConfig.create(2_048_000, 16_000, 2, 4 * 32768, chunk_target=32768)
+    assert cfg.num_chunks == 4 and len(cfg.plans) == 2 and tss.time_sharded_modtap_fits(cfg, n)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(-100, 100, size=(BLOCKS, cfg.block_samples, 2), dtype=np.int8))
+    tables = tdp.make_tables(cfg, np.array([250_123, -410_517]), device=CPU)
+
+    def make():
+        def args_of(b, state):
+            if b == 2:
+                state[0] = _copy(state[0])
+            if b == 3:
+                state[0] = tdp.reset_slot(state[0], 1)  # a recording start
+            return (x[b], tables)
+
+        return tss.make_time_sharded_modtap_ddc(cfg, _mesh(1, n)), [tdp.init_state(cfg, device=CPU)], args_of
+
+    outs = _against_eager(make, 1, n * len(cfg.plans))
+    assert outs[-1][0].shape == (2, cfg.out_per_block, 2) and outs[-1][0].abs().max() > 10
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -693,7 +693,7 @@ def _graph_against_eager(dev, make, blocks=4, n_state=None, segments=1):
     itself, each from a fresh ``make()`` over ``blocks`` blocks: their
     outputs and final states bit-equal, one capture a segment (a sharded
     step's ``segments`` (shard, segment) keys; ``n_state``: the states it
-    returns first), and the kernels' launches over the graphed blocks equal
+    returns first), each replayed once a call, and the kernels' launches over the graphed blocks equal
     to the eager blocks' (per-block launches x replays). Returns the
     launches."""
     from rtl_sdr_scanner_tpu_torch.graph import _flatten
@@ -724,6 +724,7 @@ def _graph_against_eager(dev, make, blocks=4, n_state=None, segments=1):
         assert torch.equal(w, g), f"state leaf {i}"
     assert step.captures == segments and len(step.graphs()) == segments
     assert all(g.graph is not None for g in step.graphs())
+    assert sum(g.replays for g in step.graphs()) == blocks * segments
     assert g_launch == e_launch
     return e_launch
 
@@ -831,16 +832,17 @@ def test_graphed_time_shards_equal_eager_on_card(dev):
     """The time axis graphed (``graph.sharded_step``) on a mesh of 4 copies
     of the card (512 kHz, 84 frames: 21 a shard; 2 slots at 3.2 kHz: a
     decimating stage 2), against its eager programs: the scan (3 segments a
-    shard), the modulated-taps DDC (2 a shard, replayed at every chunk; a
-    slot restarted at block 2) and the v1 DDC (4 a shard) bit-equal, one
-    capture a (shard, segment), launches equal."""
+    shard), the modulated-taps DDC (4 chunks a block: 2 segments a shard,
+    each looping over the chunks; a slot restarted at block 2) and the v1
+    DDC (4 a shard) bit-equal, one capture a (shard, segment), each
+    replayed once a call, launches equal."""
     from rtl_sdr_scanner_tpu_torch.graph import sharded_step
     from rtl_sdr_scanner_tpu_torch.parallel import mesh, sharded_scan as ss
 
     n, rate, frames = 4, 512_000, 84
     cfg = scan_pipeline.ScanConfig.create(rate, frames, Tunables(noise_learning_time_ms=300))
-    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples)
-    assert ss.time_sharded_modtap_fits(ddc_cfg, n) and len(ddc_cfg.plans) == 2
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 3_200, 2, cfg.block_samples, chunk_target=1 << 18)
+    assert ss.time_sharded_modtap_fits(ddc_cfg, n) and len(ddc_cfg.plans) == 2 and ddc_cfg.num_chunks == 4
     m = mesh.make_mesh(1, n, devices=[dev] * n)
     iq, tones = _tone_step_inputs(cfg, 4, 1, dev)
     keys = torch.full((16,), -1, dtype=torch.int32, device=dev)
