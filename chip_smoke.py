@@ -13,7 +13,7 @@
    bit-exact in bf16 and f32, at each path's fft, decimation and
    submargin; the PSD also at the ends of each of its forms (one block a
    frame: fft 256 and 16384; a cluster: 32768 and 131072) and at every size
-   of its scratch forms (two-factor 2^18-2^22, three-factor 2^23-2^24, 16
+   of its scratch forms (2^18-2^22, and 2^23-2^24 on clusters, 16
    frames at decim 4 there), decimations 1-4, odd frame counts (1, 3,
    17); the selection also at the wideband channels' fft 512, at fft 256 and
    at SPLIT_SELECT_CASES (its row-split form: [1, 2^18], [16, 2^21], [45,
@@ -160,7 +160,7 @@
    dB, recordings within 1 LSB; each block's PSD rows held against the
    plain version under step 2's bar; prints ms a block and the PSD
    kernel's ms. (e) The same at 1966.08 Msps (an RFSoC-class
-   direct-sampling band: fft 2^23, the PSD's three-factor form and the
+   direct-sampling band: fft 2^23, the PSD's cluster scratch form and the
    selection's row-split form on widened leaves; 1.07 GB of int8 a 0.273 s
    block, FIR stages (1, 16) x 3 on 256 chunks a block), 3 blocks, without
    the CPU run ((d) holds these stages card against CPU). Step 2 holds the
@@ -283,7 +283,7 @@ RT_TONE = 800.0
 RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 32 kHz)", RT_RATE, 75, 32_000,
                    -600_000, bands=1, slots=4)
 # (fft, decim, frames): the ends of the PSD kernel's forms beyond the paths' shapes, and every
-# size of its scratch forms (fft 2^18-2^22 two-factor, 2^23-2^24 three-factor) at
+# size of its scratch forms (fft 2^18-2^22, 2^23-2^24 on clusters) at
 # decimations 1-4 and odd frame counts; 16 frames at decim 4 (a direct-sampling
 # band's block) at 2^23 and 2^24
 PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (262144, 2, 3),
@@ -405,7 +405,7 @@ BAND_491 = Geometry("band_491", "one band at 491.52 Msps (fft 2^21, decim 4, 16 
 BAND_491_LEARN_MS = 200
 BAND_491_CPU_BLOCKS = 2
 # 12e: one band at 1966.08 Msps (an RFSoC-class direct-sampling front end):
-# fft 2^23 (the PSD's three-factor form), decim 4, 16 frames (1.07 GB of
+# fft 2^23 (the PSD's cluster scratch form), decim 4, 16 frames (1.07 GB of
 # int8 a 0.273 s block); 30 kHz recordings, chain (16, 16, 16, 16), 256
 # chunks a block; depth and noise learning cut as 12d's, no CPU run (12d
 # holds these stages card against CPU)

@@ -52,11 +52,11 @@
 //   operations are ~70% of the byte bound's time at fft 131072) keep it
 //   above the byte bound; PERF.md has the split.
 //
-// * Scratch form, fft > 2^17 (2^18..2^22: wideband front ends at the 250 Hz
-//   step, up to a 1.048 Gsps band). The cluster form stops at 2^17 = 16
-//   blocks of 8192 points (a cluster holds at most 16 blocks; 2^19 would not
-//   fit 16 blocks' shared memory at all), so two passes pass a complex f32
-//   scratch in device memory between them:
+// * Scratch form, fft > 2^17 (2^18..2^24: wideband front ends at the 250 Hz
+//   step, up to a 4.096 Gsps direct-sampling band). The cluster form stops
+//   at 2^17 = 16 blocks of 8192 points (a cluster holds at most 16 blocks;
+//   2^19 would not fit 16 blocks' shared memory at all), so two passes pass
+//   a complex f32 scratch in device memory between them:
 //     pass 1 (psd_scratch1): one block per (frame, S1 columns n2) runs
 //             their N1-point FFTs, its first Stockham pass reading the int8
 //             pairs and computing the window (HammingFrameIn), its last
@@ -66,15 +66,15 @@
 //             the scratch), runs their N2-point FFTs and writes the dB of
 //             X[k1 + N1 k2] (DbOut).
 //   The same register Stockham passes as the on-chip forms (1024 points: two
-//   passes of radix 32; 2048: radix 8, 16, 16): two or three barriers a
-//   sequence, twiddles once per butterfly with running products, no
-//   bit-reversed scatter. A block holds 8 or more sequences, so that pass
-//   1's int8 reads run 16 B and its scratch writes and pass 2's dB writes
-//   32 B or more: 8192 points (64 KB, two blocks an SM, one's loads overlap
-//   the other's passes) up to 1024-point sequences, 16384 (128 KB, one an
-//   SM) for 2048. The shared-memory layouts pad after every first-pass
-//   radix's worth of elements (SmemPad), so that the first pass's strided
-//   writes spread over the banks.
+//   passes of radix 32; 2048: radix 8, 16, 16; 4096: 8, 32, 16): two or
+//   three barriers a sequence, twiddles once per butterfly with running
+//   products, no bit-reversed scatter. A block holds 8 or more sequences, so
+//   that pass 1's int8 reads run 16 B and its scratch writes and pass 2's dB
+//   writes 32 B or more: 8192 points (64 KB, two blocks an SM, one's loads
+//   overlap the other's passes) up to 1024-point sequences, 16384 (128 KB,
+//   one an SM) for 2048. The shared-memory layouts pad after every
+//   first-pass radix's worth of elements (SmemPad), so that the first pass's
+//   strided writes spread over the banks.
 //   Its scratch round trip costs 2 x 8 B per point on top of the 6 B the
 //   function must move: 22 B a point. Bound (bytes, the larger): 16 frames
 //   of 2^21 (the 491.52 Msps block) must move 0.201 GB, 0.060 ms at 3.35
@@ -85,38 +85,38 @@
 //   one wave; PERF.md has the split). The wrapper asks psd_scratch_bytes()
 //   whether a size needs the scratch; the on-chip forms take none.
 //
-// * Three-factor scratch form, fft 2^23..2^24 (direct-sampling front ends
-//   of 1.966-4.096 Gsps at the 250 Hz step). The two-factor split gives
-//   N1 = 4096 there, and 8 sequences of 4096 points (256 KB of complex f32)
-//   exceed the 227 KB a block may use; fewer sequences would cut pass 1's
-//   int8 runs below 16 B. So N = A*B*C with C = 2048 and A*B = N/C split
-//   again (A >= B: 64 x 64 at 2^23, 128 x 64 at 2^24), n = a*B*C + b*C + c,
-//   k = ka + A*kb + A*B*kc, in three passes over one complex f32 scratch:
-//     pass 1 (psd_scratch3a): one block per (frame, S columns m = b*C + c)
-//             runs their A-point FFTs over a, reading the int8 pairs and
-//             computing the window as the two-factor pass 1 does, and writes
-//             T[ka][m];
-//     pass 2 (psd_scratch3b): one block per (frame, ka, S columns c) reads
-//             T[ka][b*C + c] along b times exp(-2 pi i ka b / (A*B)), runs
-//             their B-point FFTs and writes the result over what it read
-//             (in place: a block's region is its own, and every read comes
-//             before the block's barrier and every write after it), k12 =
-//             ka + A*kb at scratch row ka*B + kb;
-//     pass 3 (psd_scratch3c): the two-factor pass 2 with N1 = A*B, N2 = C,
-//             its rows k12 read from scratch row (k12 mod A)*B + k12/A.
-//   Passes 1 and 2 hold 8192 points a block (two blocks an SM; 64-128
-//   columns, so their reads and writes run 256 B and more), pass 3 16384
-//   (8 rows of 2048). Chosen over 4096-point sequences across a 2-block
-//   cluster (22 B a point) because it is built from the passes the
-//   two-factor form already runs, and it reaches any size memory holds
-//   (each factor <= 2048 up to 2^33; the instantiations stop at 2^24, the
-//   fastest front end of the class). Its price is a second scratch round
-//   trip: 38 B a point (2 in, 3 x 8 out and 2 x 8 back, 4 of dB out) where
-//   the two-factor form moves 22. Bound (bytes): 16 frames of 2^23 must
-//   move 0.805 GB, 0.240 ms at 3.35 TB/s; with both round trips 5.10 GB,
-//   1.52 ms, this design's own floor (2^24: twice each). Every offset into
-//   the input, the scratch and the output is 64-bit (16 frames of 2^24 at
-//   decim 4 are 2^31 B of int8).
+// * Cluster scratch form, fft 2^23..2^24 (direct-sampling front ends of
+//   1.966-4.096 Gsps at the 250 Hz step): the scratch form's two passes
+//   where a pass's sequences have 4096 points (N1 = 4096 at both sizes, N2
+//   = 4096 at 2^24). Eight 4096-point sequences (256 KB of complex f32) do
+//   not fit the 227 KB one block may use, and fewer would cut pass 1's int8
+//   runs below 16 B and pass 2's dB runs below 32 B. So a thread-block
+//   cluster of 2^kScratchClusterLog = 2 blocks holds the 8 (4 a block, 144
+//   KB with the pad, one block an SM):
+//     pass 1: each block of a cluster reads its 8 B of every 16 B run of
+//             pairs while its peer, on a neighbouring SM at the same time,
+//             reads the other 8 (one sector a row, read from device memory
+//             once), and writes its 4 columns (32 B runs of scratch);
+//     pass 2 (2^24): each block runs all but the last Stockham pass on its
+//             own 4 rows; after the cluster's barrier, block rank c runs the
+//             last pass's butterflies [c Q / 2, (c + 1) Q / 2) of all 8 rows
+//             (Q = 4096 / 16), reading the other block's rows through
+//             distributed shared memory (ClusterPad), so that the dB writes
+//             run 32 B. At 2^23 pass 2's rows have 2048 points: the scratch
+//             form's 8 rows of one block.
+//   Every offset into the input, the scratch and the output is 64-bit (16
+//   frames of 2^24 at decim 4 are 2^31 B of int8). It replaces the TPU
+//   kernel psd_frames_int8_pallas / _psd_kernel as the other forms do, and
+//   is bound by the bytes: 16 frames of 2^23 must move 0.805 GB, 0.2404 ms
+//   at 3.35 TB/s (their operations: 0.23 ms at the f32 peak); with the one
+//   scratch round trip, 22 B a point, 2.95 GB and 0.88 ms, this design's
+//   own floor (2^24: twice each); three passes over N = 64 x 64 x 2048, in
+//   blocks of 8 sequences of at most 2048 points, would move 38 B a point
+//   (1.52 ms). Measured on the H100 (PERF.md has the split): writes of less
+//   than a sector cost most (a cluster of 4 blocks, 16 B of scratch a row;
+//   pass 2 without the cluster's last pass, 16 B runs of dB), and pass 1's
+//   last pass across the cluster (64 B runs of scratch, half of it read
+//   through distributed shared memory) cost more than it saved.
 //
 // * Small-frame form, fft <= 128 (a band of 32 kHz or less at 250 Hz bins).
 //   The one-block form's passes hold 32 points a thread and need N2 >= 16,
@@ -147,8 +147,9 @@ constexpr int kOnChipMaxLog = 17;  // a cluster of 16 blocks, the most the card 
 constexpr int kScratchBlockLog = 13;  // 8192 points a block, two blocks an SM,
 constexpr int kScratchNarrowLog = 10;  // for sequences up to 1024 points; 2048 take 16384 a block
 constexpr int kScratchMaxLog = 22;  // 8 sequences of 2048 points a block
-// ---- three-factor scratch form
-constexpr int kScratch3LastLog = 11;  // C = 2048: pass 3 is the two-factor pass 2 at N2 = 2048
+// ---- cluster scratch form
+constexpr int kScratchWideLog = 11;  // above: 4096-point sequences, 8 over a cluster
+constexpr int kScratchClusterLog = 1;  // of 2 blocks (4 sequences, 16384 points a block, one an SM)
 constexpr int kMaxLog = 24;  // the largest fft instantiated (4.096 Gsps at 250 Hz bins)
 
 // ---- small-frame form
@@ -159,14 +160,14 @@ constexpr int kSmallPointsLog = 12;  // 4096 points a block: 4096 / N frames
 
 // The forms as psd_form() numbers them (ops/cuda/psd_kernel.FORMS names
 // them); the dispatcher and the queries below all decide by form_of().
-enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3, kScratch3 = 4 };
+enum Form { kSmall = 0, kBlock = 1, kCluster = 2, kScratch = 3, kClusterScratch = 4 };
 
 Form form_of(int log_n) {
   if (log_n <= kSmallMaxLog) return kSmall;
   if (log_n <= kSingleMaxLog) return kBlock;
   if (log_n <= kOnChipMaxLog) return kCluster;
   if (log_n <= kScratchMaxLog) return kScratch;
-  return kScratch3;
+  return kClusterScratch;
 }
 
 __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
@@ -257,9 +258,14 @@ __device__ __forceinline__ void dft_regs(float2* v) {
 
 // log2 of the radix of the next Stockham pass when 2^rem of the length is
 // left: 16 -> 16; 32 -> 32; 64 -> 8, 8; 128 -> 16, 8; 256 -> 16, 16;
-// 512 -> 32, 16; 1024 -> 32, 32; 2048 -> 8, 16, 16.
+// 512 -> 32, 16; 1024 -> 32, 32; 2048 -> 8, 16, 16; 4096 -> 8, 32, 16.
 __host__ __device__ constexpr int next_radix_log(int rem) {
   return (rem == 4 || rem == 7 || rem == 8) ? 4 : (rem == 5 || rem == 9 || rem == 10) ? 5 : (rem == 2 ? 2 : 3);
+}
+
+// log2 of the radix of the last of those passes.
+__host__ __device__ constexpr int last_radix_log(int rem) {
+  return next_radix_log(rem) == rem ? rem : last_radix_log(rem - next_radix_log(rem));
 }
 
 // Item k of thread t in a phase of NT threads over 2^LOG_B interleaved
@@ -344,9 +350,8 @@ struct FrameIn {
 // running product. Lanes run along n2, so that a warp reads runs of
 // consecutive columns from one block (distributed shared memory moves whole
 // sectors; lanes along k1 would each fetch their own). sync() waits until
-// every block of the cluster has read. LOG_A > 0 (the three-factor form's
-// pass 3): row k1 = ka + A kb is stored at row ka B + kb (B = N / (A BA)).
-template <int LOG_N, int LOG_BA, int SA, bool kClustered, int LOG_A = 0>
+// every block of the cluster has read.
+template <int LOG_N, int LOG_BA, int SA, bool kClustered>
 struct ExchangeIn {
   enum : bool { kShared = true, kAlongJ = true, kFetch = false };
   float2* s;
@@ -354,14 +359,12 @@ struct ExchangeIn {
   template <int R, int Q>
   __device__ __forceinline__ void load(int j, int b, float2* v) const {
     const int k1 = k1_0 + b;
-    int row = k1;
-    if constexpr (LOG_A > 0) row = ((k1 & ((1 << LOG_A) - 1)) << (LOG_N - LOG_BA - LOG_A)) + (k1 >> LOG_A);
     const float2 step = twiddle<LOG_N>(k1 * Q);
     float2 tw = twiddle<LOG_N>(k1 * j);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int n2 = j + r * Q;
-      const float2* src = s + row * SA + (n2 & ((1 << LOG_BA) - 1));
+      const float2* src = s + k1 * SA + (n2 & ((1 << LOG_BA) - 1));
       if constexpr (kClustered) src = cg::this_cluster().map_shared_rank(src, (unsigned)(n2 >> LOG_BA));
       v[r] = cmul(*src, tw);
       tw = cmul(tw, step);
@@ -394,19 +397,20 @@ struct DbOut {
 // 2^LOG_L, after passes whose radices multiply to NS = 2^LOG_NS. Butterfly
 // (b, j) reads i = j + r L/R, multiplies by exp(-2 pi i (j mod NS) r / (NS R)),
 // and writes i = (j / NS) NS R + (j mod NS) + r NS. A thread takes 32/R
-// butterflies, all read before it writes any.
+// butterflies, all read before it writes any; the block takes the pass's
+// butterflies from j0 on (a cluster's blocks split a pass's butterflies).
 template <int R, int LOG_L, int LOG_B, int LOG_NS, int NT, class In, class Out>
-__device__ __forceinline__ void stockham_pass(const In& in, const Out& out) {
+__device__ __forceinline__ void stockham_pass(const In& in, const Out& out, int j0 = 0) {
   constexpr int K = kPerThread / R, LOG_Q = LOG_L - log2_c(R), Q = 1 << LOG_Q, NS = 1 << LOG_NS;
   const int t = threadIdx.x;
   // butterfly j of sequence b for item k
-  const auto bj = [t](int k, int& b, int& j) {
+  const auto bj = [t, j0](int k, int& b, int& j) {
     if constexpr (In::kAlongJ) {
-      j = seq_of<LOG_Q, NT>(t, k);
+      j = seq_of<LOG_Q, NT>(t, k) + j0;
       b = pos_of<LOG_Q, NT>(t, k);
     } else {
       b = seq_of<LOG_B, NT>(t, k);
-      j = pos_of<LOG_B, NT>(t, k);
+      j = pos_of<LOG_B, NT>(t, k) + j0;
     }
   };
   float2 v[kPerThread];
@@ -461,16 +465,18 @@ __device__ __forceinline__ void stockham_pass(const In& in, const Out& out) {
   if constexpr (Out::kShared) __syncthreads();
 }
 
-// FFTs of the block's 2^LOG_B sequences of length 2^LOG_L (16 <= L <= 2048
+// FFTs of the block's 2^LOG_B sequences of length 2^LOG_L (16 <= L <= 4096
 // here), natural order in and out: the first pass reads from `first`, the
-// last writes to `last`, the others go through `mid` (next_radix_log).
-template <int LOG_L, int LOG_B, int NT, int LOG_NS = 0, class First, class Mid, class Last>
+// last writes to `last`, the others go through `mid` (next_radix_log). The
+// passes from radix product 2^LOG_NS to 2^LOG_END (a part of the FFT: the
+// cluster scratch form runs its first or last pass across the cluster).
+template <int LOG_L, int LOG_B, int NT, int LOG_NS = 0, int LOG_END = LOG_L, class First, class Mid, class Last>
 __device__ __forceinline__ void stockham_fft(const First& first, const Mid& mid, const Last& last) {
-  if constexpr (LOG_NS < LOG_L) {
+  if constexpr (LOG_NS < LOG_END) {
     constexpr int rem = LOG_L - LOG_NS;
     constexpr int lr = next_radix_log(rem);
     static_assert(rem >= 2, "no radix-2 pass");
-    constexpr bool is_first = LOG_NS == 0, is_last = LOG_NS + lr == LOG_L;
+    constexpr bool is_first = LOG_NS == 0, is_last = LOG_NS + lr == LOG_END;
     if constexpr (is_first && is_last) {
       stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(first, last);
     } else if constexpr (is_first) {
@@ -480,7 +486,7 @@ __device__ __forceinline__ void stockham_fft(const First& first, const Mid& mid,
     } else {
       stockham_pass<1 << lr, LOG_L, LOG_B, LOG_NS, NT>(mid, mid);
     }
-    stockham_fft<LOG_L, LOG_B, NT, LOG_NS + lr>(first, mid, last);
+    stockham_fft<LOG_L, LOG_B, NT, LOG_NS + lr, LOG_END>(first, mid, last);
   }
 }
 
@@ -594,28 +600,40 @@ cudaError_t onchip_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, On
   return cudaSuccess;
 }
 
-// ---- scratch form (2^17 < fft <= 2^22)
+// ---- scratch forms (2^17 < fft <= 2^24)
 
-// The scratch form's geometry at fft 2^LOG_N: the four-step split N1 x N2.
-// A pass's block holds 2^LOG_P points: 8192 (64 KB, 256 threads, two blocks
-// an SM) for sequences of up to 1024 points, 16384 (128 KB, 512 threads,
-// one block an SM) for 2048, so that it still takes 8 of them: pass 1 takes
-// S1 = 2^LOG_P1 / N1 columns, pass 2 S2 = 2^LOG_P2 / N2 rows; each pass's
-// first Stockham radix is 2^LOG_RA (columns) / 2^LOG_RB (rows).
+// One scratch pass over sequences of 2^LOG_L points: 2^LOG_S of them a block,
+// 2^LOG_G = 2^(LOG_S + LOG_C) over a cluster of 2^LOG_C blocks, so that a
+// cluster (a lone block below 4096 points) holds at least 8. A block holds
+// 2^LOG_P points: 8192 (64 KB, 256 threads, two blocks an SM) for sequences
+// of up to 1024 points, 16384 (128 KB, 512 threads, one an SM) for 2048;
+// 4096-point sequences take a cluster of 2^kScratchClusterLog blocks that
+// holds 8 of them. LOG_R / LOG_RL: the first / last Stockham radix.
+template <int LOG_L>
+struct ScratchPass {
+  static constexpr int LOG_C = LOG_L > kScratchWideLog ? kScratchClusterLog : 0;
+  static constexpr int LOG_P = LOG_C > 0 ? LOG_L + 3 - LOG_C
+                               : LOG_L > kScratchNarrowLog ? kScratchBlockLog + 1 : kScratchBlockLog;
+  static constexpr int LOG_S = LOG_P - LOG_L, LOG_G = LOG_S + LOG_C, S = 1 << LOG_S;
+  static constexpr int NT = 1 << (LOG_P - kLogPerThread);
+  static constexpr int MIN_BLOCKS = LOG_P <= kScratchBlockLog ? 2 : 1;  // a SM
+  static constexpr int LOG_R = next_radix_log(LOG_L), LOG_RL = last_radix_log(LOG_L);
+  static_assert(LOG_G >= 3, "at least 8 sequences a cluster: 16-byte runs in, 32-byte runs out");
+};
+
+// The scratch forms' geometry at fft 2^LOG_N: the four-step split N1 x N2,
+// pass 1 over the N2 columns (P1), pass 2 over the N1 rows (P2), and each
+// pass's shared memory (its sequences and SmemPad's pad after every first
+// radix: S slots a pad in pass 1, one in pass 2).
 template <int LOG_N>
 struct Scratch {
   static constexpr int LOG_N1 = (LOG_N + 1) / 2, LOG_N2 = LOG_N / 2;
   static constexpr int N1 = 1 << LOG_N1, N2 = 1 << LOG_N2;
-  static constexpr int LOG_P1 = LOG_N1 > kScratchNarrowLog ? kScratchBlockLog + 1 : kScratchBlockLog;
-  static constexpr int LOG_P2 = LOG_N2 > kScratchNarrowLog ? kScratchBlockLog + 1 : kScratchBlockLog;
-  static constexpr int LOG_S1 = LOG_P1 - LOG_N1, LOG_S2 = LOG_P2 - LOG_N2;
-  static constexpr int S1 = 1 << LOG_S1, S2 = 1 << LOG_S2;
-  static constexpr int NT1 = 1 << (LOG_P1 - kLogPerThread), NT2 = 1 << (LOG_P2 - kLogPerThread);
-  static constexpr int MIN1 = LOG_P1 == kScratchBlockLog ? 2 : 1, MIN2 = LOG_P2 == kScratchBlockLog ? 2 : 1;
-  static constexpr int LOG_RA = next_radix_log(LOG_N1), LOG_RB = next_radix_log(LOG_N2);
-  static constexpr size_t SMEM1 = sizeof(float2) * ((size_t)N1 + (N1 >> LOG_RA)) * S1;
-  static constexpr size_t SMEM2 = sizeof(float2) * ((size_t)N2 * S2 + (N2 >> LOG_RB));
-  static_assert(S2 >= 8 && S1 >= 8, "at least 8 sequences a block: 16-byte runs in, 32-byte runs out");
+  using P1 = ScratchPass<LOG_N1>;
+  using P2 = ScratchPass<LOG_N2>;
+  static constexpr size_t SMEM1 = sizeof(float2) * ((size_t)N1 + (N1 >> P1::LOG_R)) * P1::S;
+  static constexpr size_t SMEM2 = sizeof(float2) * ((size_t)N2 * P2::S + (N2 >> P2::LOG_R));
+  static_assert(SMEM1 <= 232448 && SMEM2 <= 232448, "a block's 227 KB of shared memory");
 };
 
 // Shared memory for the scratch passes: element i of sequence b at
@@ -637,20 +655,35 @@ struct SmemPad {
   __device__ __forceinline__ void sync() const { __syncthreads(); }
 };
 
+// A cluster's sequences in its blocks' shared memory, read as the input of
+// a pass: sequence b lives in the block of rank b >> LOG_S as that block's
+// sequence b mod 2^LOG_S, in SmemPad's layout, reached through distributed
+// shared memory. sync() is the cluster's barrier: no block leaves while
+// another may still read its shared memory.
+template <int LOG_S, int LOG_P, int PAD>
+struct ClusterPad {
+  enum : bool { kShared = true, kAlongJ = false, kFetch = false };
+  float2* s;
+  template <int R, int Q>
+  __device__ __forceinline__ void load(int j, int b, float2* v) const {
+    const SmemPad<1 << LOG_S, LOG_P, PAD> block{cg::this_cluster().map_shared_rank(s, (unsigned)(b >> LOG_S))};
+    block.template load<R, Q>(j, b & ((1 << LOG_S) - 1), v);
+  }
+  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
+};
+
 // Pass 1's input: FrameIn's int8 pairs (element n1 of column b is the
-// frame's pair n1 N2 + b; x points at the block's first column, n2 = c0),
-// with the window computed, not read: reading it (4 B a point, in half
-// sectors) cost pass 1 more than its pairs. Hamming 0.54 - 0.46 cos(2 pi n /
-// (N - 1)) times (-1)^n at n = n1 N2 + n2, which is the table the wrapper
-// passes the other forms (its sign is (-1)^n2: N2 is even); a butterfly's
-// cosines from one double sincospi at its first point, then a rotation by
-// 2 pi Q N2 / (N - 1) a point (<= 31 roundings, ~2e-6 of the window).
-// The three-factor form's pass 1 reads columns of stride 2^LOG_STRIDE = N / A
-// (its N2 here), element a of column m at n = a N / A + m.
-template <int LOG_N, int LOG_STRIDE = LOG_N / 2>
+// frame's pair n1 N2 + b; x points at the first column, n2 = c0), with the
+// window computed, not read: reading it (4 B a point, in half sectors) cost
+// pass 1 more than its pairs. Hamming 0.54 - 0.46 cos(2 pi n / (N - 1))
+// times (-1)^n at n = n1 N2 + n2, which is the table the wrapper passes the
+// other forms (its sign is (-1)^n2: N2 is even); a butterfly's cosines from
+// one double sincospi at its first point, then a rotation by 2 pi Q N2 /
+// (N - 1) a point (<= 31 roundings, ~2e-6 of the window).
+template <int LOG_N>
 struct HammingFrameIn {
   enum : bool { kShared = false, kAlongJ = false, kFetch = true };
-  static constexpr int N2 = 1 << LOG_STRIDE;
+  static constexpr int N2 = 1 << (LOG_N / 2);
   const char2* x;
   int c0;
   template <int R, int Q>
@@ -684,164 +717,92 @@ struct ScratchOut {
   __device__ __forceinline__ void store(int i, int b, float2 x) const { c[(long long)i * N2 + b] = x; }
 };
 
-// Pass 1: one block per (S1 columns n2, frame): the columns' N1-point FFTs,
-// the first Stockham pass reading the int8 pairs from device memory, the
-// last writing C[k1][n2] to the scratch.
+// Pass 1: the N1-point FFTs of the block's S columns n2 (one block per (S
+// columns, frame)), the first Stockham pass reading the int8 pairs from
+// device memory, the last writing C[k1][n2] to the scratch. Where the
+// columns have 4096 points, a cluster per (8 columns, frame): each block
+// reads its S pairs of every 16-byte run while the cluster's other block
+// reads the rest (one sector a row, read from device memory once).
 template <int LOG_N>
-__global__ void __launch_bounds__(Scratch<LOG_N>::NT1, Scratch<LOG_N>::MIN1)
+__global__ void __launch_bounds__(Scratch<LOG_N>::P1::NT, Scratch<LOG_N>::P1::MIN_BLOCKS)
 psd_scratch1(const char2* __restrict__ iq, float2* __restrict__ scratch, int decim) {
   using G = Scratch<LOG_N>;
+  using P = typename G::P1;
   extern __shared__ float2 smem[];
   const long long frame = blockIdx.y;
-  const int c0 = blockIdx.x << G::LOG_S1;
+  const int c0 = blockIdx.x << P::LOG_S;  // the block's first column
   // the Decimator keeps the first N pairs of each N*decim group
   const HammingFrameIn<LOG_N> in{iq + ((frame * decim) << LOG_N) + c0, c0};
   const ScratchOut<G::N2> out{scratch + (frame << LOG_N) + c0};
-  stockham_fft<G::LOG_N1, G::LOG_S1, G::NT1>(in, SmemPad<G::S1, G::LOG_RA, G::S1>{smem}, out);
+  stockham_fft<G::LOG_N1, P::LOG_S, P::NT>(in, SmemPad<P::S, P::LOG_R, P::S>{smem}, out);
 }
 
-// Pass 2: one block per (S2 rows k1, frame): the rows' N2-point FFTs, the
-// first pass reading C[k1][:] along n2 with the twiddle exp(-2 pi i k1 n2 / N)
-// (ExchangeIn over the scratch: a running product a butterfly), the last
-// writing the dB of X[k1 + N1 k2].
+// Pass 2: the N2-point FFTs of the block's S rows k1 (one block per (S rows,
+// frame)), the first pass reading C[k1][:] along n2 with the twiddle
+// exp(-2 pi i k1 n2 / N) (ExchangeIn over the scratch: a running product a
+// butterfly), the last writing the dB of X[k1 + N1 k2]. Where the rows have
+// 4096 points, a cluster per (8 rows, frame): each block runs all but the
+// last pass on its own S rows, then, after the cluster's barrier, block
+// rank c the last pass's butterflies [c Q / C, (c + 1) Q / C) of all 8
+// rows, the others' read through distributed shared memory (32-byte runs
+// of dB).
 template <int LOG_N>
-__global__ void __launch_bounds__(Scratch<LOG_N>::NT2, Scratch<LOG_N>::MIN2)
+__global__ void __launch_bounds__(Scratch<LOG_N>::P2::NT, Scratch<LOG_N>::P2::MIN_BLOCKS)
 psd_scratch2(float2* __restrict__ scratch, float* __restrict__ out, float rate) {
   using G = Scratch<LOG_N>;
+  using P = typename G::P2;
   extern __shared__ float2 smem[];
   const long long frame = blockIdx.y;
-  const int r0 = blockIdx.x << G::LOG_S2;
+  const int r0 = blockIdx.x << P::LOG_S;  // the block's first row
   const ExchangeIn<LOG_N, G::LOG_N2, G::N2, false> ex{scratch + (frame << LOG_N), r0};
-  const DbOut<G::N1> db{out + (frame << LOG_N) + r0, 1.0f / rate};
-  stockham_fft<G::LOG_N2, G::LOG_S2, G::NT2>(ex, SmemPad<G::S2, G::LOG_RB, 1>{smem}, db);
+  const SmemPad<P::S, P::LOG_R, 1> mine{smem};
+  if constexpr (P::LOG_C == 0) {
+    stockham_fft<G::LOG_N2, P::LOG_S, P::NT>(ex, mine, DbOut<G::N1>{out + (frame << LOG_N) + r0, 1.0f / rate});
+  } else {
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int g0 = r0 - rank * P::S;  // the cluster's first row
+    constexpr int kLogQ = G::LOG_N2 - P::LOG_RL;  // the last pass's butterflies a row
+    stockham_fft<G::LOG_N2, P::LOG_S, P::NT, 0, kLogQ>(ex, mine, mine);
+    cg::this_cluster().sync();  // every block's rows are ready
+    stockham_pass<1 << P::LOG_RL, G::LOG_N2, P::LOG_G, kLogQ, P::NT>(
+        ClusterPad<P::LOG_S, P::LOG_R, 1>{smem}, DbOut<G::N1>{out + (frame << LOG_N) + g0, 1.0f / rate},
+        rank << (kLogQ - P::LOG_C));
+  }
+}
+
+// Launches one scratch pass of `blocks` blocks a frame, in clusters of
+// 2^P::LOG_C blocks where its sequences have 4096 points.
+template <class P, class... Params, class... Args>
+cudaError_t launch_pass(void (*fn)(Params...), size_t smem, int blocks, int frames, cudaStream_t s,
+                        Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)frames, 1);
+  cfg.blockDim = dim3(P::NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  if constexpr (P::LOG_C > 0) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1u << P::LOG_C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  return cudaLaunchKernelEx(&cfg, fn, args...);
 }
 
 template <int LOG_N>
 int launch_scratch(const void* iq, void* scratch, void* out, int frames, int decim, float rate,
                    cudaStream_t s) {
   using G = Scratch<LOG_N>;
-  cudaError_t err =
-      cudaFuncSetAttribute(psd_scratch1<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM1);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(psd_scratch2<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM2);
-  if (err != cudaSuccess) return (int)err;
-  psd_scratch1<LOG_N><<<dim3(G::N2 >> G::LOG_S1, (unsigned)frames), G::NT1, G::SMEM1, s>>>(
-      (const char2*)iq, (float2*)scratch, decim);
-  psd_scratch2<LOG_N><<<dim3(G::N1 >> G::LOG_S2, (unsigned)frames), G::NT2, G::SMEM2, s>>>(
-      (float2*)scratch, (float*)out, rate);
-  return (int)cudaGetLastError();
-}
-
-// ---- three-factor scratch form (2^22 < fft <= 2^24)
-
-// Its geometry at fft 2^LOG_N: N = A B C, C = 2048; passes 1 and 2 hold
-// 8192 points a block (S1 columns of A points, S2 of B), pass 3 16384 (S3 =
-// 8 rows of C points); each pass's first Stockham radix 2^LOG_R1..3.
-template <int LOG_N>
-struct Scratch3 {
-  static constexpr int LOG_C = kScratch3LastLog, LOG_AB = LOG_N - LOG_C;
-  static constexpr int LOG_A = (LOG_AB + 1) / 2, LOG_B = LOG_AB / 2;
-  static constexpr int A = 1 << LOG_A, B = 1 << LOG_B, C = 1 << LOG_C, AB = 1 << LOG_AB;
-  static constexpr int LOG_S1 = kScratchBlockLog - LOG_A, LOG_S2 = kScratchBlockLog - LOG_B;
-  static constexpr int LOG_S3 = kScratchBlockLog + 1 - LOG_C;
-  static constexpr int S1 = 1 << LOG_S1, S2 = 1 << LOG_S2, S3 = 1 << LOG_S3;
-  static constexpr int NT12 = 1 << (kScratchBlockLog - kLogPerThread);
-  static constexpr int NT3 = 1 << (kScratchBlockLog + 1 - kLogPerThread);
-  static constexpr int LOG_R1 = next_radix_log(LOG_A), LOG_R2 = next_radix_log(LOG_B);
-  static constexpr int LOG_R3 = next_radix_log(LOG_C);
-  static constexpr size_t SMEM1 = sizeof(float2) * ((size_t)A + (A >> LOG_R1)) * S1;
-  static constexpr size_t SMEM2 = sizeof(float2) * ((size_t)B + (B >> LOG_R2)) * S2;
-  static constexpr size_t SMEM3 = sizeof(float2) * ((size_t)C * S3 + (C >> LOG_R3));
-  static_assert(LOG_A <= 11 && LOG_B >= 4 && S2 <= C && S3 >= 8, "factors of 16..2048 points");
-};
-
-// Pass 2's input: element b of column s is T[ka][b C + s] (t points at
-// T[ka][c0]) times exp(-2 pi i ka b / AB), a running product a butterfly.
-// kShared: the pass writes over what it reads, so a one-pass FFT (B <= 32)
-// syncs between reading and writing too.
-template <int LOG_AB, int C>
-struct TwiddleColumnIn {
-  enum : bool { kShared = true, kAlongJ = false, kFetch = false };
-  const float2* t;
-  int ka;
-  template <int R, int Q>
-  __device__ __forceinline__ void load(int j, int b, float2* v) const {
-    const float2 step = twiddle<LOG_AB>(ka * Q);
-    float2 tw = twiddle<LOG_AB>(ka * j);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      v[r] = cmul(t[(j + r * Q) * C + b], tw);
-      tw = cmul(tw, step);
-    }
-  }
-  __device__ __forceinline__ void sync() const { __syncthreads(); }
-};
-
-// Pass 1: one block per (S1 columns m, frame): the columns' A-point FFTs
-// over a (element a at pair a N / A + m), the first Stockham pass reading the
-// int8 pairs and computing the window, the last writing T[ka][m].
-template <int LOG_N>
-__global__ void __launch_bounds__(Scratch3<LOG_N>::NT12, 2)
-psd_scratch3a(const char2* __restrict__ iq, float2* __restrict__ scratch, int decim) {
-  using G = Scratch3<LOG_N>;
-  extern __shared__ float2 smem[];
-  const long long frame = blockIdx.y;
-  const int m0 = blockIdx.x << G::LOG_S1;
-  const HammingFrameIn<LOG_N, LOG_N - G::LOG_A> in{iq + ((frame * decim) << LOG_N) + m0, m0};
-  const ScratchOut<(1 << (LOG_N - G::LOG_A))> out{scratch + (frame << LOG_N) + m0};
-  stockham_fft<G::LOG_A, G::LOG_S1, G::NT12>(in, SmemPad<G::S1, G::LOG_R1, G::S1>{smem}, out);
-}
-
-// Pass 2: one block per (S2 columns c, ka, frame), blockIdx.x = ka * (C /
-// S2) + c0 / S2: the B-point FFTs over b of T[ka][b C + c] with the twiddle,
-// written in place (scratch row ka B + kb holds k12 = ka + A kb).
-template <int LOG_N>
-__global__ void __launch_bounds__(Scratch3<LOG_N>::NT12, 2)
-psd_scratch3b(float2* scratch) {
-  using G = Scratch3<LOG_N>;
-  extern __shared__ float2 smem[];
-  const long long frame = blockIdx.y;
-  constexpr int kLogPerRow = G::LOG_C - G::LOG_S2;  // blocks a ka
-  const int ka = blockIdx.x >> kLogPerRow;
-  const int c0 = (blockIdx.x & ((1 << kLogPerRow) - 1)) << G::LOG_S2;
-  float2* t = scratch + (frame << LOG_N) + ((long long)ka << (LOG_N - G::LOG_A)) + c0;
-  const TwiddleColumnIn<G::LOG_AB, G::C> in{t, ka};
-  const ScratchOut<G::C> out{t};
-  stockham_fft<G::LOG_B, G::LOG_S2, G::NT12>(in, SmemPad<G::S2, G::LOG_R2, G::S2>{smem}, out);
-}
-
-// Pass 3: one block per (S3 rows k12, frame): the C-point FFTs over c of row
-// k12 (at scratch row (k12 mod A) B + k12 / A) with exp(-2 pi i k12 c / N),
-// writing the dB of X[k12 + AB kc].
-template <int LOG_N>
-__global__ void __launch_bounds__(Scratch3<LOG_N>::NT3, 1)
-psd_scratch3c(const float2* __restrict__ scratch, float* __restrict__ out, float rate) {
-  using G = Scratch3<LOG_N>;
-  extern __shared__ float2 smem[];
-  const long long frame = blockIdx.y;
-  const int r0 = blockIdx.x << G::LOG_S3;
-  const ExchangeIn<LOG_N, G::LOG_C, G::C, false, G::LOG_A> ex{const_cast<float2*>(scratch) + (frame << LOG_N), r0};
-  const DbOut<G::AB> db{out + (frame << LOG_N) + r0, 1.0f / rate};
-  stockham_fft<G::LOG_C, G::LOG_S3, G::NT3>(ex, SmemPad<G::S3, G::LOG_R3, 1>{smem}, db);
-}
-
-template <int LOG_N>
-int launch_scratch3(const void* iq, void* scratch, void* out, int frames, int decim, float rate, cudaStream_t s) {
-  using G = Scratch3<LOG_N>;
-  const void* fns[3] = {(const void*)psd_scratch3a<LOG_N>, (const void*)psd_scratch3b<LOG_N>,
-                        (const void*)psd_scratch3c<LOG_N>};
-  const size_t smem[3] = {G::SMEM1, G::SMEM2, G::SMEM3};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
-    if (err != cudaSuccess) return (int)err;
-  }
-  psd_scratch3a<LOG_N><<<dim3(1u << (LOG_N - G::LOG_A - G::LOG_S1), (unsigned)frames), G::NT12, G::SMEM1, s>>>(
-      (const char2*)iq, (float2*)scratch, decim);
-  psd_scratch3b<LOG_N><<<dim3(1u << (G::LOG_A + G::LOG_C - G::LOG_S2), (unsigned)frames), G::NT12, G::SMEM2, s>>>(
-      (float2*)scratch);
-  psd_scratch3c<LOG_N><<<dim3(1u << (G::LOG_AB - G::LOG_S3), (unsigned)frames), G::NT3, G::SMEM3, s>>>(
-      (const float2*)scratch, (float*)out, rate);
-  return (int)cudaGetLastError();
+  cudaError_t err = launch_pass<typename G::P1>(psd_scratch1<LOG_N>, G::SMEM1, G::N2 >> G::P1::LOG_S, frames,
+                                                s, (const char2*)iq, (float2*)scratch, decim);
+  if (err == cudaSuccess) err = launch_pass<typename G::P2>(psd_scratch2<LOG_N>, G::SMEM2, G::N1 >> G::P2::LOG_S,
+                                                            frames, s, (float2*)scratch, (float*)out, rate);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 int launch_scratch(const void* iq, void* scratch, void* out, int frames, int log_n, int decim, float rate,
@@ -852,8 +813,8 @@ int launch_scratch(const void* iq, void* scratch, void* out, int frames, int log
     case 20: return launch_scratch<20>(iq, scratch, out, frames, decim, rate, s);
     case 21: return launch_scratch<21>(iq, scratch, out, frames, decim, rate, s);
     case 22: return launch_scratch<22>(iq, scratch, out, frames, decim, rate, s);
-    case 23: return launch_scratch3<23>(iq, scratch, out, frames, decim, rate, s);
-    case 24: return launch_scratch3<24>(iq, scratch, out, frames, decim, rate, s);
+    case 23: return launch_scratch<23>(iq, scratch, out, frames, decim, rate, s);
+    case 24: return launch_scratch<24>(iq, scratch, out, frames, decim, rate, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -952,10 +913,10 @@ extern "C" int psd_form(int log_n) {
 
 // Bytes of global scratch one frame needs: 0 for the on-chip and
 // small-frame forms (fft <= 2^17), a complex f32 frame for both scratch
-// forms (the three-factor form's pass 2 works in place).
+// forms.
 extern "C" long long psd_scratch_bytes(int log_n1, int log_n2) {
   const Form f = form_of(log_n1 + log_n2);
-  return f == kScratch || f == kScratch3 ? (long long)sizeof(float2) << (log_n1 + log_n2) : 0;
+  return f == kScratch || f == kClusterScratch ? (long long)sizeof(float2) << (log_n1 + log_n2) : 0;
 }
 
 // Clusters of the cluster form that the card holds at once
@@ -979,8 +940,7 @@ extern "C" int psd_max_active_clusters(int log_n1, int log_n2) {
 // that is 0;
 // out: [frames, fft] f32. fft = 2^(log_n1 + log_n2), 2 <= fft <= 2^24, with
 // log_n1 = ceil(log2(fft) / 2) (_split_n); fft <= 128 takes the small-frame
-// form, which splits nothing, and fft >= 2^23 the three-factor form, which
-// splits N as A B C itself.
+// form, which splits nothing.
 // Returns cudaGetLastError(); a launch the card refuses (a cluster it cannot
 // place) is returned, never rerouted.
 extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, void* out,
@@ -993,7 +953,7 @@ extern "C" int psd_frames_int8(const void* iq, const void* win, void* scratch, v
   }
   const Form form = form_of(log_n);
   if (form == kSmall) return launch_small(iq, win, out, frames, log_n, decim, rate, s);
-  if (form == kScratch || form == kScratch3) {
+  if (form == kScratch || form == kClusterScratch) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     return launch_scratch(iq, scratch, out, frames, log_n, decim, rate, s);
   }

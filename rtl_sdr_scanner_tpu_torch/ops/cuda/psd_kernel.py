@@ -4,9 +4,9 @@ and its plain PyTorch version.
 Counterpart of the JAX package's ``ops/pallas/psd_kernel.py``
 (``psd_frames_int8_pallas``). The kernel's note says which form runs for
 which fft (up to 128: many frames a block; on chip up to 2^17: one block or
-one thread-block cluster per frame; a global scratch above, two passes up
-to 2^22 and three up to 2^24), what bounds each and what its design does
-about it.
+one thread-block cluster per frame; above, two passes over a global
+scratch, whose 4096-point passes (2^23-2^24) run on two-block clusters),
+what bounds each and what its design does about it.
 """
 
 from __future__ import annotations
@@ -18,14 +18,13 @@ import torch
 from rtl_sdr_scanner_tpu_torch.ops.psd import dequantize_cs8, device_window, psd_frames
 
 
-# the largest fft the library instantiates: the three-factor scratch form's
-# passes keep >= 8 sequences of <= 2048 points a block at any size memory
-# holds; 2^24 is a 4.096 Gsps band at 250 Hz bins
+# the largest fft the library instantiates (4096-point passes): a 4.096 Gsps
+# band at 250 Hz bins
 MAX_FFT = 1 << 24
 # the kernel's forms, in the order of the library's psd_form() numbers
-FORMS = ("small-frame form", "one block a frame", "cluster form", "scratch form", "three-factor scratch form")
+FORMS = ("small-frame form", "one block a frame", "cluster form", "scratch form", "cluster scratch form")
 SCRATCH_BLOCK_POINTS = 8192  # a scratch pass's block (16384 where its sequences have 2048 points)
-SCRATCH3_LAST = 2048  # the three-factor form's last factor C
+SCRATCH_CLUSTER = 2  # blocks a cluster where a pass's sequences have 4096 points
 
 
 def _split_n(n: int) -> Tuple[int, int]:
@@ -42,25 +41,24 @@ def takes_fft(fft_size: int) -> bool:
     return 2 <= fft_size <= MAX_FFT and fft_size & (fft_size - 1) == 0
 
 
-def scratch_passes(fft_size: int) -> Tuple[Tuple[int, int, int], ...]:
-    """The scratch forms' passes at ``fft_size`` as the kernel runs them
-    (the plan the CPU tests hold to a block's shared memory; the wrapper
-    asks the library for the scratch itself):
-    (points a sequence, sequences a block, blocks a frame) for each; () for
-    the on-chip and small-frame forms (fft <= 2^17). Two passes over the
-    four-step split N1 x N2 up to 2^22, three over N = A x B x C with C =
-    2048 above (csrc's Scratch and Scratch3). A block holds 8192 points, or
-    16384 where its sequences have 2048, so at least 8 sequences."""
+def scratch_passes(fft_size: int) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The scratch forms' two passes (over the four-step split N1 x N2) at
+    ``fft_size`` as the kernel runs them (the plan the CPU tests hold to a
+    block's shared memory; the wrapper asks the library for the scratch
+    itself): (points a sequence, sequences a block, blocks a cluster,
+    blocks a frame) for each; () for the on-chip and small-frame forms (fft
+    <= 2^17). A block holds 8192 points, or 16384 where its sequences have
+    2048; 4096-point sequences (2^23-2^24) take a cluster of
+    SCRATCH_CLUSTER blocks of 16384. So a cluster (or a lone block) holds at
+    least 8 sequences (csrc's ScratchPass)."""
     if not takes_fft(fft_size) or fft_size <= 1 << 17:
         return ()
-    if fft_size <= 1 << 22:
-        factors = _split_n(fft_size)
-    else:
-        factors = (*_split_n(fft_size // SCRATCH3_LAST), SCRATCH3_LAST)
     passes = []
-    for n in factors:
-        seqs = SCRATCH_BLOCK_POINTS * (2 if n == 2048 else 1) // n
-        passes.append((n, seqs, fft_size // n // seqs))
+    for n in _split_n(fft_size):
+        cluster = SCRATCH_CLUSTER if n > 2048 else 1
+        points = 2 * SCRATCH_BLOCK_POINTS if n >= 2048 else SCRATCH_BLOCK_POINTS
+        seqs = points // n
+        passes.append((n, seqs, cluster, fft_size // n // seqs))
     return tuple(passes)
 
 

@@ -14,7 +14,8 @@ records); the PSD's also ``torch.fft.fft``'s on the same complex frames.
 Shapes (``--shape``, repeatable): ``path1`` and ``path2`` (the main paths'
 block rows), ``491`` (chip_smoke.py step 12d's block: 16 frames of fft 2^21,
 decim 4; its selection rows [16, 2^21] with submargin 64), ``2^18`` ...
-``2^22`` (16 frames, decim 4) and ``scratch`` (all five); for the selection
+``2^24`` (16 frames, decim 4; ``2^23`` is chip_smoke.py step 12e's block)
+and ``scratch`` (all seven); for the selection
 also ``time-shard`` ([45, 131072]), ``band-shard`` ([180, 131072]),
 ``wideband`` (the wideband step's [360, 131072]) and any ``ROWSxFFT``
 (``1024x131072``; submargin 52).
@@ -34,7 +35,12 @@ also ``time-shard`` ([45, 131072]), ``band-shard`` ([180, 131072]),
   its product; ``no scratch read``: pass 2 transforms made-up points), ``no
   window`` (pass 1 computes no window), ``8192 points a block`` (2048-point
   sequences 4 a block, two blocks an SM, in place of 8 in one) and ``2048 as
-  32 x 8 x 8`` (the 2048-point passes' radices).
+  32 x 8 x 8`` (the 2048-point passes' radices);
+- the 4096-point passes (fft 2^23-2^24): ``cluster of 4`` (8 sequences over
+  4 blocks of 8192 points, two blocks an SM, in place of 2 of 16384) and
+  ``no distributed shared memory`` (each block of a cluster transforms its
+  own sequences alone: 8-byte runs of pairs, its peer's half of each run
+  read by its peer, and at 2^24 16-byte runs of dB).
 
 ``--kernel fir`` (``stage_apply_fir``; path 1: 96 rows x 34,560 at M = 40;
 path 2: 96 x 1,228,800 at M = 75) with FIR_VARIANTS. ``--kernel select``
@@ -87,8 +93,14 @@ PSD_VARIANTS = {  # the on-chip forms
         "  static constexpr int LOG_C = LOG_N > kSingleMaxLog ? 3 : 0;",
     )],
     # the scratch form
-    "pass 1 alone": [("  psd_scratch2<LOG_N><<<", "  if (frames < 0) psd_scratch2<LOG_N><<<")],
-    "pass 2 alone": [("  psd_scratch1<LOG_N><<<", "  if (frames < 0) psd_scratch1<LOG_N><<<")],
+    "pass 1 alone": [(
+        "  if (err == cudaSuccess) err = launch_pass<typename G::P2>",
+        "  if (frames < 0) err = launch_pass<typename G::P2>",
+    )],
+    "pass 2 alone": [(
+        "  cudaError_t err = launch_pass<typename G::P1>(",
+        "  cudaError_t err = frames > 0 ? cudaSuccess : launch_pass<typename G::P1>(",
+    )],
     "no scratch write": [(
         "  __device__ __forceinline__ void store(int i, int b, float2 x) const { c[(long long)i * N2 + b] = x; }",
         "  __device__ __forceinline__ void store(int i, int b, float2 x) const {\n"
@@ -105,10 +117,20 @@ PSD_VARIANTS = {  # the on-chip forms
     "8192 points a block": [(  # 2048-point sequences too: 4 a block, two blocks an SM
         "constexpr int kScratchNarrowLog = 10;", "constexpr int kScratchNarrowLog = 11;",
     ), (
-        "static_assert(S2 >= 8 && S1 >= 8,", "static_assert(S2 >= 4 && S1 >= 4,",
+        "static_assert(LOG_G >= 3,", "static_assert(LOG_G >= 2,",
     )],
     "2048 as 32 x 8 x 8": [(
         "(rem == 5 || rem == 9 || rem == 10) ? 5", "(rem == 5 || rem == 9 || rem == 10 || rem == 11) ? 5",
+    )],
+    # the cluster scratch form
+    "cluster of 4": [("constexpr int kScratchClusterLog = 1;", "constexpr int kScratchClusterLog = 2;")],
+    "no distributed shared memory": [("  if constexpr (P::LOG_C == 0) {", "  if constexpr (true) {")],
+    "4096 as 16 x 16 x 16": [(
+        "(rem == 4 || rem == 7 || rem == 8) ? 4", "(rem == 4 || rem == 7 || rem == 8 || rem == 12) ? 4",
+    )],
+    "no pairs read": [(  # pass 1 reads no int8 (made-up pairs; the window still computed)
+        "    for (int r = 0; r < R; ++r) iq[r] = x[(j + r * Q) * N2 + b];",
+        "    for (int r = 0; r < R; ++r) iq[r] = make_char2((signed char)(j + r), (signed char)b);",
     )],
 }
 FIR_VARIANTS = {
@@ -181,7 +203,7 @@ SELECT_VARIANTS = {  # edits of csrc/select_kernel.cu, or (file under the packag
     "chains a warp a block": [(  # the row-split form's chain kernel in blocks of one warp
         "__launch_bounds__(kSplitThreads)\nselection_chain(", "__launch_bounds__(32)\nselection_chain(",
     ), (
-        "selection_chain<T><<<n_rows, kSplitThreads, smem, s>>>(", "selection_chain<T><<<n_rows, 32, smem, s>>>(",
+        "><<<n_rows, kSplitThreads, smem, s>>>(", "><<<n_rows, 32, smem, s>>>(",  # both chain launches
     )],
     "a warp a row throughout": [(
         SELECT_PY, "or not 0 < n_rows <= SPLIT_MAX_ROWS:", "or True:",
@@ -193,7 +215,7 @@ SELECT_VARIANTS = {  # edits of csrc/select_kernel.cu, or (file under the packag
         "return min(max(2, 1 << ((SPLIT_WARPS // n_rows).bit_length() - 1)), runs)",
     )],
 }
-SCRATCH_SIZES = tuple(f"2^{log}" for log in range(18, 23))
+SCRATCH_SIZES = tuple(f"2^{log}" for log in range(18, 25))
 # (frames, fft, decim): the main paths, step 12d's block, 16 frames of each scratch size
 PSD_SHAPES = {"path1": (1080, 131072, 3), "path2": (1800, 16384, 2), "491": (16, 1 << 21, 4),
               **{name: (16, 1 << int(name[2:]), 4) for name in SCRATCH_SIZES}}

@@ -108,13 +108,14 @@ def test_psd_kernel_scratch_form_matches_plain(fft, decim, frames, dev):
 
 
 @pytest.mark.parametrize("fft,decim,frames", [
-    (1 << 23, 4, 16), (1 << 23, 1, 3),  # 1966.08 Msps: 64 x 64 x 2048
-    (1 << 24, 4, 16), (1 << 24, 2, 1),  # 3932.16 Msps: 128 x 64 x 2048; 16 frames are 2^31 B of int8
+    (1 << 23, 4, 16), (1 << 23, 1, 3),  # 1966.08 Msps: 4096 x 2048, the columns on clusters
+    (1 << 24, 4, 16), (1 << 24, 2, 1),  # 3932.16 Msps: 4096 x 4096; 16 frames are 2^31 B of int8
 ])
-def test_psd_kernel_three_factor_form_matches_plain(fft, decim, frames, dev):
-    """The three-factor scratch form (fft 2^23-2^24: three passes, the
-    second in place) against the plain version under the PSD bar, at 16
-    frames of decim 4 (a direct-sampling band's block) and odd counts."""
+def test_psd_kernel_cluster_scratch_form_matches_plain(fft, decim, frames, dev):
+    """The cluster scratch form (fft 2^23-2^24: two passes, the 4096-point
+    ones on two-block clusters) against the plain version under the PSD
+    bar, at 16 frames of decim 4 (a direct-sampling band's block) and odd
+    counts."""
     import chip_smoke
 
     rng = np.random.default_rng(fft // 1024 + frames + decim)
@@ -123,7 +124,7 @@ def test_psd_kernel_three_factor_form_matches_plain(fft, decim, frames, dev):
     got = psd_kernel.psd_frames_int8(iq, 1.96608e9, fft, decim)
     torch.cuda.synchronize()
     assert psd_kernel.psd_frames_int8.launches == before + 1
-    assert psd_kernel.form(fft) == "three-factor scratch form"
+    assert psd_kernel.form(fft) == "cluster scratch form"
     assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
     want = psd_kernel.psd_frames_int8_plain(iq, 1.96608e9, fft, decim)
     agreement = chip_smoke.psd_agreement(got, want)

@@ -91,9 +91,10 @@ def test_zero_frames_sit_at_the_floor():
     (16, 5, 3), (64, 5, 3), (128, 7, 1),  # the kernel's small-frame form: a band of 32 kHz or less
     (1 << 18, 3, 2),  # its scratch form's smallest: 16 sequences a block in both passes
     (1 << 21, 2, 1), (1 << 21, 2, 3),  # its 2048-point column passes: 491.52 Msps at 234 Hz bins
+    (1 << 23, 1, 1),  # its cluster scratch form (4096-point columns): 1966.08 Msps at 234 Hz bins
 ])
 def test_plain_matches_xla_at_the_small_and_large_forms(fft, frames, decim):
-    """The sizes the kernel's small-frame form and its scratch form take,
+    """The sizes the kernel's small-frame form and its scratch forms take,
     where the JAX package's int8 ingest runs XLA's FFT: the plain version
     (what a CPU tensor gets) within the PSD bar of it."""
     iq = np.random.default_rng(fft + decim).integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)
@@ -105,7 +106,7 @@ def test_plain_matches_xla_at_the_small_and_large_forms(fft, frames, decim):
 
 def test_kernel_takes_every_power_of_two_up_to_2_24():
     """Every power of two from 2 to 2^24 (4.096 Gsps at 250 Hz bins; the
-    three-factor scratch form above 2^22) has a form of the kernel; 1 (no
+    cluster scratch form above 2^22) has a form of the kernel; 1 (no
     fftshift by (-1)^n), 2^25 (above the sizes the library instantiates)
     and sizes that are not powers of two do not."""
     assert tpsd.MAX_FFT == 1 << 24
@@ -122,8 +123,7 @@ def test_scratch_form_window_formula_matches_shifted_window(log_n):
     coefficients, read from the source, evaluated as the kernel does (a
     butterfly's first point from a double cos, then R - 1 f32 rotations by
     2 pi Q N2 / (N - 1)), within 1e-6 of shifted_window at every point. The
-    first pass's columns are N1 points at stride N2 in the two-factor form,
-    A points at stride N / A in the three-factor form (2^23-2^24)."""
+    first pass's columns are N1 points at stride N2."""
     import re
     from pathlib import Path
 
@@ -134,8 +134,9 @@ def test_scratch_form_window_formula_matches_shifted_window(log_n):
     n = 1 << log_n
     n1 = tpsd.scratch_passes(n)[0][0]  # pass 1's column length, the column stride n2 = n / n1
     n2 = n // n1
-    # pass 1's first radix (next_radix_log): 2048 = 8 x 16 x 16, 128 = 16 x 8, 64 = 8 x 8, else 32 first
-    r_first = {2048: 8, 128: 16, 64: 8}.get(n1, 32)
+    # pass 1's first radix (next_radix_log): 4096 = 8 x 32 x 16, 2048 = 8 x 16 x 16, 128 = 16 x 8,
+    # 64 = 8 x 8, else 32 first
+    r_first = {4096: 8, 2048: 8, 128: 16, 64: 8}.get(n1, 32)
     q = n1 // r_first
     first = (np.arange(q)[:, None] * n2 + np.arange(n2)[None, :]) * (2.0 / (n - 1))
     z = (np.cos(np.pi * first) + 1j * np.sin(np.pi * first)).astype(np.complex64)
@@ -150,28 +151,30 @@ def test_scratch_form_window_formula_matches_shifted_window(log_n):
 
 @pytest.mark.parametrize("fft,want", [
     (1 << 17, ()),  # the cluster form: on chip, no scratch
-    (1 << 18, ((512, 16, 32), (512, 16, 32))),
-    (1 << 21, ((2048, 8, 128), (1024, 8, 256))),
-    (1 << 22, ((2048, 8, 256), (2048, 8, 256))),
-    (1 << 23, ((64, 128, 1024), (64, 128, 1024), (2048, 8, 512))),  # 1.966 Gsps: 64 x 64 x 2048
-    (1 << 24, ((128, 64, 2048), (64, 128, 2048), (2048, 8, 1024))),  # 3.932 Gsps: 128 x 64 x 2048
+    (1 << 18, ((512, 16, 1, 32), (512, 16, 1, 32))),
+    (1 << 21, ((2048, 8, 1, 128), (1024, 8, 1, 256))),
+    (1 << 22, ((2048, 8, 1, 256), (2048, 8, 1, 256))),
+    (1 << 23, ((4096, 4, 2, 512), (2048, 8, 1, 512))),  # 1.966 Gsps: 4096 x 2048, columns on clusters
+    (1 << 24, ((4096, 4, 2, 1024), (4096, 4, 2, 1024))),  # 3.932 Gsps: 4096 x 4096, both on clusters
 ])
 def test_scratch_pass_plan(fft, want):
-    """The scratch forms' passes as the kernel runs them: (points a
-    sequence, sequences a block, blocks a frame). Each block holds 8192
-    points (16384 for 2048-point sequences), at least 8 sequences, and its
-    shared memory (the sequences plus psd_kernel.cu's SmemPad pad after
-    every first radix) within a block's 227 KB; the factors multiply to the
-    fft. (The scratch the library asks for, one complex f32 frame, is held
-    on the card: test_psd_kernel_takes_a_scratch_only_above_the_cluster_form.)"""
+    """The scratch forms' two passes as the kernel runs them: (points a
+    sequence, sequences a block, blocks a cluster, blocks a frame). Each
+    block holds 8192 points (16384 for 2048- and 4096-point sequences), its
+    cluster (or the lone block) at least 8 sequences, and its shared memory
+    (the sequences plus psd_kernel.cu's SmemPad pad after every first radix)
+    within a block's 227 KB; the factors multiply to the fft. (The scratch
+    the library asks for, one complex f32 frame, is held on the card:
+    test_psd_kernel_takes_a_scratch_only_above_the_cluster_form.)"""
     passes = tpsd.scratch_passes(fft)
     assert passes == want
     if not want:
         return
-    assert np.prod([n for n, _, _ in passes]) == fft and len(passes) == (3 if fft > 1 << 22 else 2)
-    radix = {2048: 8, 1024: 32, 512: 32, 128: 16, 64: 8}
-    for n, seqs, blocks in passes:
-        assert seqs >= 8 and n * seqs in (8192, 16384) and n * seqs * blocks == fft
+    assert np.prod([n for n, _, _, _ in passes]) == fft and len(passes) == 2
+    radix = {4096: 8, 2048: 8, 1024: 32, 512: 32, 128: 16, 64: 8}
+    for n, seqs, cluster, blocks in passes:
+        assert seqs * cluster >= 8 and n * seqs in (8192, 16384) and n * seqs * blocks == fft
+        assert blocks % cluster == 0 and cluster == (2 if n == 4096 else 1)
         pad = n // radix[n] * seqs
         assert 8 * (n * seqs + pad) <= 232448
     assert not tpsd.scratch_passes(1 << 25)

@@ -598,7 +598,7 @@ def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
         "wideband_select_fft_128": (2_048_000, 64, {}, None),  # 32 kHz channels
         "psd_fft_128": (32_000, 0, {"compact_detection": False}, None),
         "runs": (2_048_000, 16, {}, None),  # 128 kHz channels: fft 512
-        "psd_fft_2_23": (2_000_000_000, 0, {}, None),  # fft 2^23: the three-factor scratch form
+        "psd_fft_2_23": (2_000_000_000, 0, {}, None),  # fft 2^23: the cluster scratch form
         "psd_fft_2_25": (8_000_000_000, 0, {}, "int8 PSD kernel's [2, 2^24]"),  # fft 2^25
         "select_below_top_k": (8_000, 0, {}, "detection_top_k 64"),  # fft 32
     }[case]
