@@ -82,8 +82,9 @@ class Tunables:
     # deterministic replay parity
     pipelined_ingest: bool = False
     # write a torch.profiler trace of replayed scans to this directory
-    # ("" = off); on the card it shows graph replays and their kernels, not
-    # the steps' stage ranges (graph.py)
+    # ("" = off); on the card it shows graph replays and their kernels, each
+    # stage of a replayed step between its two marker kernels
+    # (trace_enter_<stage>, trace_exit_<stage>: utils/trace.py)
     profile_dir: str = ""
     # multi-device (bands mesh), not ported yet: a non-zero value is refused
     mesh_bands: int = 0

@@ -32,8 +32,9 @@ shape that differs from the captured buffers' is never cast into them.
 
 On the card the first call of a signature runs ``fn`` once eagerly on
 clones of the donated state (a warm-up: cuBLAS handles, cuFFT plans, the
-kernel wrappers' once-per-device attributes and weight uploads, none of
-which may happen inside a capture; the real state does not advance), then
+kernel wrappers' once-per-device attributes and weight uploads, the span
+markers' load, none of which may happen inside a capture; the real state
+does not advance), then
 captures ``fn`` into a ``torch.cuda.CUDAGraph`` with a private memory pool
 and ``capture_error_mode="thread_local"`` (other scanner threads launch
 and read meanwhile; captures, which open with device-wide calls, take
@@ -48,9 +49,14 @@ another thread's work ended is taken again (``CAPTURE_TRIES``); a capture
 that fails every time, or a replay that fails, raises; nothing falls back
 to the eager step.
 
-Profiler ranges a step opens (``fused_step.STAGES``) are recorded once, at
-the capture: a trace of graphed blocks shows graph launches, not stages
-(``scripts/profile_torch_main_path.py`` splits the eager step).
+Spans a step opens (``utils/trace.span``: ``fused_step.STAGES``, the
+sharded steps' ``channelize``) are host ranges, recorded once, at the
+capture; each also writes its two marker kernels into the capture
+(``trace_enter_<stage>``, ``trace_exit_<stage>``), so a device trace of
+graphed blocks shows every stage of every replay between its markers. The
+warm-up loads the markers. What lies outside every span is this layer's own
+device work: the input loads before a replay, the state copies at the end
+of the body and the output clones after it.
 
 Steps over several shards (``parallel/sharded_scan.py``: the counterpart of
 ``jax.jit`` over ``shard_map``) are written as a ``Program``: a function
@@ -80,6 +86,7 @@ import torch
 
 from rtl_sdr_scanner_tpu_torch.parallel.collectives import on, to
 from rtl_sdr_scanner_tpu_torch.utils import logger
+from rtl_sdr_scanner_tpu_torch.utils.trace import load_marks
 
 LABEL = "graph"
 NUMBER_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float32}
@@ -241,6 +248,7 @@ class _Graph:
         t0 = time.perf_counter()
         with _CAPTURE_LOCK, torch.cuda.device(dev):
             counts = _kernel_counts()
+            load_marks()
             current = torch.cuda.current_stream(dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(current)

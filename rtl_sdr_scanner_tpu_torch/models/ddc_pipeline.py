@@ -12,7 +12,6 @@ Single-band layouts are the JAX package's: no band axis.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -39,6 +38,7 @@ from rtl_sdr_scanner_tpu_torch.ops.ddc import (
     reset_slot2,
 )
 from rtl_sdr_scanner_tpu_torch.ops.ddc import reset_slot as _reset_slot_v1
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 State = Union[DdcState, Ddc2State]
 Tables = Union[NcoTables, ModTables]
@@ -188,10 +188,16 @@ def _ddc_block(
 
 def make_ddc_step(cfg: DdcConfig, device: DeviceLike = None):
     """Single-band block step (state, iq, tables) -> (state, int8
-    [K, out_per_block, 2]) on ``device``; building it switches TF32 off."""
+    [K, out_per_block, 2]) on ``device``, in the span "ddc"; building it
+    switches TF32 off."""
     resolve_device(device)
     no_tf32()
-    return functools.partial(_ddc_block, cfg)
+
+    def step(state: State, iq: torch.Tensor, tables: Tables) -> Tuple[State, torch.Tensor]:
+        with span("ddc"):
+            return _ddc_block(cfg, state, iq, tables)
+
+    return step
 
 
 __all__ = [

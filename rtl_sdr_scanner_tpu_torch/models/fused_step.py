@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
 from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import (
@@ -21,6 +20,7 @@ from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import (
 )
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig, _check_device, _compact_scan_block
 from rtl_sdr_scanner_tpu_torch.ops.ddc import no_tf32
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 # the step's profiler ranges, in the order one block runs them
 STAGES = (
@@ -71,7 +71,7 @@ def make_banded_fused_step(
             keys, valid_mask, start_level, spectro_keep,
         )
         nb = iq.shape[0]
-        with record_function("ddc"):
+        with span("ddc"):
             ddc_state, rec = _ddc_block_banded(ddc_cfg, ddc_state, iq.reshape(nb, -1, 2), tables)
         return scan_state, spectro_acc, ddc_state, FusedOutputs(
             packed=outs.packed, recording=rec

@@ -19,7 +19,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.constants import DEFAULT, Tunables
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
@@ -36,6 +35,7 @@ from rtl_sdr_scanner_tpu_torch.ops.psd import pairs_to_complex, psd_frames
 from rtl_sdr_scanner_tpu_torch.ops.smooth import sliding_average
 from rtl_sdr_scanner_tpu_torch.ops.spectrogram import accumulate_frames, spectrogram_output_size
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_fft
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,15 +177,15 @@ def _scan_block(
 ) -> Tuple[ScanState, ScanOutputs]:
     """Full-row block over all bands: iq [NB, F, fft*decim, 2] int8 or f32
     pairs, now_ms [NB, F] i32."""
-    with record_function("scan.psd"):
+    with span("scan.psd"):
         power = _frames_power(cfg, iq)
-    with record_function("scan.noise"):
+    with span("scan.noise"):
         noise_state, raw_rows = noise_block(state.noise, power, now_ms, cfg.noise_learning_ms)
-    with record_function("scan.averager"):
+    with span("scan.averager"):
         avg_state, mean_rows = averager_block(state.averager, raw_rows)
-    with record_function("scan.smoothing"):
+    with span("scan.smoothing"):
         avg_rows = sliding_average(mean_rows, cfg.grouping_x)
-    with record_function("scan.spectrogram"):
+    with span("scan.spectrogram"):
         spectro = accumulate_frames(power, cfg.spectro_size)
     state = ScanState(noise_state, avg_state)
     return state, ScanOutputs(
@@ -259,12 +259,13 @@ def _compact_scan_block(
     start_level: torch.Tensor,  # 0-d f32
     spectro_keep,  # 0-d f32 tensor or float: 1 = accumulate, 0 = reset first
 ) -> Tuple[ScanState, torch.Tensor, CompactScanOutputs]:
-    # each stage is a named profiler range (fused_step.STAGES), cheap when
-    # no profiler records; scripts/profile_torch_main_path.py times them
-    with record_function("scan.psd"):
+    # each stage is a span (fused_step.STAGES): a profiler range, cheap when
+    # no profiler records, and under a graph capture two marker kernels
+    # that replay with the graph (utils/trace.py)
+    with span("scan.psd"):
         power = _frames_power(cfg, iq)
 
-    with record_function("scan.noise"):
+    with span("scan.noise"):
         # newest (depth - depth//2 - 1) ring rows BEFORE this block feed the vote
         half_depth = cfg.grouping_y - cfg.grouping_y // 2
         prev_tail = ordered_history(state.averager)[:, -(half_depth - 1) :]
@@ -273,13 +274,13 @@ def _compact_scan_block(
             # the rows are stored and voted in bf16 (one quantization); the
             # sums, means and reported values stay f32 arithmetic over them
             raw_rows = raw_rows.to(torch.bfloat16)
-    with record_function("scan.averager"):
+    with span("scan.averager"):
         avg_state, mean_rows = averager_block(state.averager, raw_rows)
     state = ScanState(noise_state, avg_state)
-    with record_function("scan.smoothing"):
+    with span("scan.smoothing"):
         avg_rows = sliding_average(mean_rows, cfg.grouping_x)
 
-    with record_function("scan.detection"):
+    with span("scan.detection"):
         compact = compact_detection(
             avg_rows,
             raw_rows,
@@ -291,9 +292,9 @@ def _compact_scan_block(
             top_k,
             bf16=cfg.detection_bf16,
         )
-    with record_function("scan.spectrogram"):
+    with span("scan.spectrogram"):
         spectro_acc = spectro_acc * spectro_keep + accumulate_frames(power, cfg.spectro_size)
-    with record_function("scan.pack"):
+    with span("scan.pack"):
         f32 = lambda a: a.to(torch.float32)
         nb = power.shape[0]
         body = torch.cat(

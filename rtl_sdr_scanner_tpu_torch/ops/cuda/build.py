@@ -32,7 +32,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the library's entry points (the launchers return
 # cudaGetLastError; the psd_ queries return a count, psd_scratch_bytes a
-# 64-bit one)
+# 64-bit one; trace_marks_load returns a CUDA error, trace_mark_count a
+# count)
 SIGNATURES = {
     "psd_frames_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "psd_form": [_I],
@@ -40,6 +41,9 @@ SIGNATURES = {
     "psd_max_active_clusters": [_I, _I],
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "trace_mark": [_I, _P],
+    "trace_marks_load": [],
+    "trace_mark_count": [],
 }
 RESTYPES = {"psd_scratch_bytes": ctypes.c_longlong}  # the others return int
 

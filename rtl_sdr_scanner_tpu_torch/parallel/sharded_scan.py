@@ -46,7 +46,6 @@ import math
 from typing import List, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.constants import NO_DATA
 from rtl_sdr_scanner_tpu_torch.graph import Program
@@ -83,6 +82,7 @@ from rtl_sdr_scanner_tpu_torch.ops.spectrogram import accumulate_frames
 from rtl_sdr_scanner_tpu_torch.parallel.collectives import gather, on, pmax, ppermute_right, psum, to
 from rtl_sdr_scanner_tpu_torch.parallel.halo import resample_chain_sharded
 from rtl_sdr_scanner_tpu_torch.parallel.mesh import Mesh
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 # the profiler ranges a wideband block opens beyond the scan's own
 # (fused_step.STAGES) and "ddc"
@@ -212,7 +212,7 @@ def _keep_slots(state: Ddc2State, keep: torch.Tensor) -> Ddc2State:
 def _shard_channels(chan_fn, i: int, b_loc: int, chan_state, x_pairs):
     """The channelizer on one shard (every band), and the shard's own
     channels [B/n, n_sub, 2] (``i``: its global index)."""
-    with record_function("channelize"):
+    with span("channelize"):
         chan_state, channels = chan_fn(chan_state, x_pairs)  # [B, n_sub, 2]
     return chan_state, channels[i * b_loc : (i + 1) * b_loc]
 
@@ -290,7 +290,7 @@ def make_sharded_wideband_fused_step(
             state, acc, outs = _scan_channels(
                 cfg, group_size, top_k, b_loc, state, acc, local, now, keys, valid, level, keep
             )
-            with record_function("ddc"):
+            with span("ddc"):
                 ddc_state, rec = _ddc_block_banded(ddc_cfg, _keep_slots(ddc_state, keep_mask), local, tables)
             return chan_state, state, acc, ddc_state, outs.packed, rec, local
 
@@ -311,7 +311,7 @@ def make_sharded_banded_ddc(cfg: DdcConfig, mesh: Mesh, n_bands: int) -> Program
     devs = mesh.band_devices
 
     def shard(state, channels, tables, keep):
-        with record_function("ddc"):
+        with span("ddc"):
             return _ddc_block_banded(cfg, _keep_slots(state, keep), channels, tables)
 
     return _bands_program(devs, [shard] * len(devs), (0,))
@@ -367,7 +367,7 @@ def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: 
     def psd(iq, now, prev, start, ready_in):
         """(a): the shard's PSD rows, its last frame's learning test, each
         frame's readiness and the max of its rows not yet ready."""
-        with record_function("scan.psd"):
+        with span("scan.psd"):
             p = _frames_power(cfg, iq[None])[0]  # [f_loc, fft]
         c = start + learn_ms <= now
         ready = ready_in | torch.cat([(start + learn_ms <= prev)[None], c[:-1]])
@@ -380,7 +380,7 @@ def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: 
             threshold and the block's readiness (``first``: every shard's
             last learning test, the carried readiness)."""
             threshold = torch.maximum(threshold_in, held_max)
-            with record_function("scan.noise"):
+            with span("scan.noise"):
                 r = torch.where(ready[:, None], p - threshold[None, :], NO_DATA)
                 r = r.to(torch.bfloat16) if cfg.power_bf16 else r
             if t == 0:
@@ -405,16 +405,16 @@ def make_time_sharded_scan(cfg: ScanConfig, mesh: Mesh, group_size: int, top_k: 
                 pos=torch.zeros((1,), dtype=torch.int32, device=dev),
                 frames=torch.clamp(frames_in + t * f_loc, max=depth).to(torch.int32)[None],
             )
-            with record_function("scan.averager"):
+            with span("scan.averager"):
                 avg_state, means = averager_block(synth, raw[None])
-            with record_function("scan.smoothing"):
+            with span("scan.smoothing"):
                 avg_rows = sliding_average(means, cfg.grouping_x)
-            with record_function("scan.detection"):
+            with span("scan.detection"):
                 compact = compact_detection(
                     avg_rows, raw[None], prev_rows[-(half_depth - 1) :][None], keys, valid, level, group_size,
                     top_k, bf16=cfg.detection_bf16,
                 )
-            with record_function("scan.spectrogram"):
+            with span("scan.spectrogram"):
                 spectro = accumulate_frames(p, cfg.spectro_size)
             f32 = lambda a: a.to(torch.float32)
             body = torch.cat(

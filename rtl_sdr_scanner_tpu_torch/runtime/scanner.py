@@ -204,9 +204,10 @@ class Scanner:
     def run_to_completion(self) -> None:
         """Drain a replay source synchronously. With ``tunables.profile_dir``
         the run is traced (``trace_<device>.json``): on the card the blocks
-        replay captured CUDA graphs (``graph.py``), so the trace shows graph
-        launches and their kernels, not the step's stage ranges, which are
-        recorded once, at the capture."""
+        replay captured CUDA graphs (``graph.py``), whose stage ranges are
+        host events recorded once, at the capture; on the device's timeline
+        each replayed stage lies between its two marker kernels
+        (``trace_enter_<stage>``, ``trace_exit_<stage>``: ``utils/trace.py``)."""
         profile_dir = self._tunables.profile_dir
         if profile_dir:
             import os

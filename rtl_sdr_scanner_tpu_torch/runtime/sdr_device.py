@@ -33,7 +33,6 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch import native
@@ -58,6 +57,7 @@ from rtl_sdr_scanner_tpu_torch.runtime.transmission_tracker import FrequencyFlus
 from rtl_sdr_scanner_tpu_torch.utils import logger
 from rtl_sdr_scanner_tpu_torch.utils.perf import PerformanceLogger
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import format_frequency, get_tuned_frequency
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 LABEL = "sdr"
 
@@ -591,7 +591,7 @@ class SdrDevice:
         ).astype(np.int32)
 
         slot_keys = None
-        with record_function("session.upload"):
+        with span("session.upload"):
             iq_dev = self._upload_iq(iq)
             if self._compact:
                 if self._valid_mask_dev is None:
@@ -605,7 +605,7 @@ class SdrDevice:
                 now_dev = self._stage.upload(now_arr)
         framed = iq_dev.reshape(cfg.frames_per_block, group, 2)
         if self._time_mesh is not None:
-            with record_function("session.scan"):
+            with span("session.scan"):
                 self._scan_state, body, spectro_sum, ready = self._scan_step(
                     self._scan_state,
                     framed,
@@ -629,7 +629,7 @@ class SdrDevice:
                 self._spectro_acc = init_spectro_acc(cfg, device=self.torch_device)
             keep = 0.0 if self._spectro_reset_pending else 1.0
             self._spectro_reset_pending = False
-            with record_function("session.scan"):
+            with span("session.scan"):
                 self._scan_state, self._spectro_acc, outs = self._scan_step(
                     self._scan_state,
                     self._spectro_acc,
@@ -642,7 +642,7 @@ class SdrDevice:
                 )
             self._spectro_pending_frames += cfg.frames_per_block
         else:
-            with record_function("session.scan"):
+            with span("session.scan"):
                 self._scan_state, outs = self._scan_step(self._scan_state, framed, now_dev)
         self._noise_scanned = True
         return {
@@ -666,9 +666,9 @@ class SdrDevice:
         if self._compact:
             slot_keys = handle["slot_keys"]
             # single device->host transfer for the whole block's detector data
-            with record_function("session.fetch"):
+            with span("session.fetch"):
                 packed = _host(outs.packed)
-            with record_function("session.tracker"):
+            with span("session.tracker"):
                 (
                     cand_idx,
                     cand_val,
@@ -698,13 +698,13 @@ class SdrDevice:
                         flush_any[shift] = flush_any.get(shift, False) or flush
                         first_seen_frame.setdefault(shift, k)
         else:
-            with record_function("session.fetch"):
+            with span("session.fetch"):
                 raw = outs.raw.cpu().numpy()
                 avg = outs.avg.cpu().numpy()
                 if self._power_sink is not None and self._power_sink.recording:
                     # reference taps raw PSD pre-noise (sdr_device.cpp:175)
                     self._power_sink.write(outs.power.cpu().numpy())
-            with record_function("session.tracker"):
+            with span("session.tracker"):
                 for k in range(cfg.frames_per_block):
                     notification = self._tracker.process(raw[k], avg[k], int(now_arr[k]))
                     for shift, flush in notification:
@@ -729,7 +729,7 @@ class SdrDevice:
                 )
 
         # merge per-frame flush flags into the block-level reconcile
-        with record_function("session.reconcile"):
+        with span("session.reconcile"):
             merged = [(shift, flush_any.get(shift, False)) for shift, _ in notification]
             merged = self._merge_manual(merged, int(now_arr[-1]))
             self._last_notification = notification = merged
@@ -741,10 +741,10 @@ class SdrDevice:
             )
 
         if self.is_recording and not handle.get("skip_ddc"):
-            with record_function("session.ddc"):
+            with span("session.ddc"):
                 self._run_ddc(handle["iq_dev"], block_start_ms)
 
-        with record_function("session.spectrogram"):
+        with span("session.spectrogram"):
             if handle.get("skip_spectro"):
                 # an owner's banded accumulator: it feeds ingest_spectro at
                 # the send cadence

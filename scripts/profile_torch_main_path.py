@@ -19,8 +19,10 @@ and prints, per block:
 - the top kernels by device time, the device's busy share of the profiled
   window, and the host wall time.
 These run the step eagerly (its graphed step's ``.fn``): inside a captured
-CUDA graph the stage ranges are recorded once, at the capture. Then the
-same step graphed (``graph.donated_step``, or for a sharded step
+CUDA graph a stage's host range is recorded once, at the capture, and each
+replay shows the stage on the device between its two marker kernels
+(``utils/trace.py``; the benchmark's ``stage.*`` metrics read them, this
+script does not). Then the same step graphed (``graph.donated_step``, or for a sharded step
 ``graph.sharded_step``, as ``drivers`` and ``chip_smoke.TimeMesh`` build
 them, its state carried on from the eager blocks): host wall a block and
 the device's busy share of the profiled window, beside the eager split.

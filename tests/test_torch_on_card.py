@@ -994,3 +994,116 @@ def test_captures_beside_another_threads_work(dev):
     assert not worker.is_alive() and not errors, errors
     assert blocks[0] > 0
     torch.cuda.synchronize()
+
+
+def _device_trace(prof):
+    """(kernels as (name, start ns, end ns), every device operation's
+    (start, end)) of a profiled run, in start order."""
+    from torch.autograd import DeviceType
+
+    kernels, ops = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        kind = ev.activity_type() if hasattr(ev, "activity_type") else None
+        if kind == "gpu_user_annotation":
+            continue
+        s = ev.start_ns()
+        e = s + ev.duration_ns()
+        ops.append((s, e))
+        name = ev.name()
+        if kind == "kernel" or (kind is None and not name.startswith(("Memcpy", "Memset"))):
+            kernels.append((name, s, e))
+    return sorted(kernels, key=lambda k: k[1]), sorted(ops)
+
+
+def _union(intervals):
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(e, merged[-1][1]))
+        else:
+            merged.append((s, e))
+    return merged
+
+
+def test_graphed_step_replays_its_stage_markers_on_card(dev):
+    """``drivers.BandedBlocks``' graphed step at the wideband receiver's
+    geometry (24 bands of 45 frames of fft 131072, 2 slots at 32 kHz),
+    replayed under the profiler: each ``fused_step.STAGES`` enter/exit
+    marker pair once a replay, in ``STAGES`` order; every PSD kernel inside
+    ``scan.psd``, every selection kernel inside ``scan.detection``, every FIR
+    and matrix-product kernel inside ``ddc``; the stages plus the device's
+    busy time outside them within 2% of the busy time; the kernel wrappers'
+    launches as without markers."""
+    import math
+
+    from rtl_sdr_scanner_tpu_torch import drivers
+    from rtl_sdr_scanner_tpu_torch.utils.trace import marker_name
+
+    rate, nb, replays = 20_480_000, 24, 3
+    cfg = scan_pipeline.ScanConfig.create(rate, 45, Tunables())
+    ddc_cfg = ddc_pipeline.DdcConfig.create(rate, 32_000, 2, cfg.block_samples)
+    shifts = np.tile(np.array([[250_000, -3_000_000]], dtype=np.int64), (nb, 1))
+    blk = drivers.BandedBlocks(cfg, ddc_cfg, math.ceil(32_000 / cfg.step_hz), 64, nb, shifts, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    iq = torch.randint(-100, 100, (nb, 45, cfg.fft_size * cfg.decimator_factor, 2), dtype=torch.int8,
+                       device=dev, generator=gen)
+    for b in range(2):  # the capture, then a replay
+        blk.run_block(b, iq)
+    torch.cuda.synchronize()
+    wrappers = drivers.kernel_wrappers()
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for b in range(2, 2 + replays):
+            blk.run_block(b, iq)
+        torch.cuda.synchronize()
+    fir = ddc_cfg.num_chunks * len(drivers.fir_stages(ddc_cfg))
+    want_launches = {"psd_frames_int8": replays, "fused_selection": replays, "stage_apply_fir": fir * replays}
+    assert {name: fn.launches - before[name] for name, fn in wrappers.items()} == want_launches
+    kernels, ops = _device_trace(prof)
+    marks = [(name, s, e) for name, s, e in kernels if name.startswith("trace_")]
+    order = [marker_name(stage, edge) for stage in fused_step.STAGES for edge in ("enter", "exit")]
+    assert [name for name, _, _ in marks] == order * replays
+    spans = {}
+    for i in range(0, len(marks), 2):
+        stage = fused_step.STAGES[(i // 2) % len(fused_step.STAGES)]
+        spans.setdefault(stage, []).append((marks[i][2], marks[i + 1][1]))
+    owners = {"psd_": "scan.psd", "selection_": "scan.detection", "fir_decimate": "ddc", "gemm": "ddc"}
+    for name, s, e in kernels:
+        for part, stage in owners.items():
+            if part in name.lower():
+                assert any(lo <= s and e <= hi for lo, hi in spans[stage]), (name, stage)
+    busy = _union(ops)
+    staged = _union([iv for ivs in spans.values() for iv in ivs])
+    inside = sum(max(0, min(e, he) - max(s, hs)) for s, e in busy for hs, he in staged)
+    total = sum(e - s for s, e in busy)
+    stages = sum(sum(e - s for s, e in _union(ivs)) for ivs in spans.values())
+    unstaged = total - inside
+    assert abs(stages + unstaged - total) <= 0.02 * total, (stages, unstaged, total)
+
+
+def test_profiled_session_traces_the_markers_of_every_replay(dev, tmp_path):
+    """``Tunables.profile_dir`` on a graphed session (chip_smoke.py's runtime
+    capture, FM keyed 3-5 s): the trace it writes holds each scan stage's
+    markers once a scan replay and the DDC's once a DDC replay."""
+    import json
+
+    import chip_smoke
+
+    capture = tmp_path / "capture.cs8"
+    chip_smoke.write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    config = chip_smoke.runtime_config(capture, chip_smoke.RT_RATE, chip_smoke.RT_CENTER,
+                                       profile_dir=str(tmp_path / "trace"))
+    _, session, _, _ = chip_smoke.run_scanner(config, dev)
+    events = json.loads((tmp_path / "trace" / "trace_cuda.json").read_text())["traceEvents"]
+    count = lambda name: sum(1 for ev in events if ev.get("cat") == "kernel" and ev.get("name") == name)
+    replays = lambda step: sum(g.replays for g in step.graphs())
+    scans, ddcs = replays(session._scan_step), replays(session._ddc_step)
+    assert scans > 0 and ddcs > 0
+    for stage in ("scan.psd", "scan.noise", "scan.averager", "scan.smoothing", "scan.detection",
+                  "scan.spectrogram", "scan.pack"):
+        for edge in ("enter", "exit"):
+            assert count(f"trace_{edge}_{stage.replace('.', '_')}") == scans, stage
+    assert count("trace_enter_ddc") == count("trace_exit_ddc") == ddcs
