@@ -227,7 +227,7 @@ def bench_bands(
         outs = steps.run_block(b, iq)
         return [outs.packed, outs.recording]
 
-    per_block = {"psd_frames_int8": 1, "fused_selection": 1,
+    per_block = {"psd_frames_int8": 1, "fused_selection": 1, "history_vote": 1,
                  "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     rates = _time_blocks(dispatch, dev, seconds, per_block)
     return [r * block * n_bands for r in rates]
@@ -270,7 +270,7 @@ def bench_wideband(
         packed, rec = steps.run_block(b, ring[b % RING])
         return [*packed, *rec]
 
-    per_block = {"psd_frames_int8": 0, "fused_selection": 1,
+    per_block = {"psd_frames_int8": 0, "fused_selection": 1, "history_vote": 1,
                  "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     rates = _time_blocks(dispatch, dev, seconds, per_block)
     return [r * n_wide for r in rates]

@@ -34,7 +34,7 @@
 4. Path 2: the same step at an RTL-SDR deployment, 24 bands x 75 frames x
    fft 16384 (decim 2) at 2.4 Msps with 2 slots at the reference's default
    32 kHz: the v1 DDC, one decimation-only stage (1, 75) through the FIR
-   kernel, 2 chunks a block; group 219 takes the wide-window vote. Same
+   kernel, 2 chunks a block; a 219-bin vote window. Same
    checks, plus slot 0 of the signal band (tuned to the signal) >= 10 dB
    above slot 0 of a quiet band.
 5. Interpolating stages on the card (DDC only, 4 bands, 2 chunks): 2.0 Msps
@@ -84,7 +84,9 @@
    the record, ``runtime`` for the session's, the wideband phases' for the
    selection and the FIR; the
    top-level numbers are path 1's for PSD and selection, path 2's for the
-   FIR). ``ms`` is the wrapper's pace (CUDA events around back-to-back
+   FIR; the history vote kernel at the benchmark's hf20m48 block and
+   rtl2m048 scan and at each path's, held bit-equal to its plain version
+   first, top level hf20m48's). ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
@@ -132,9 +134,12 @@
    packed rows and recordings bit-equal to the matching shard of the
    one-process 2-shard form, the FM in channel 3 found by its owner only.
    (c) ``dryrun.dryrun_multichip(4)`` on 4 copies of the card. (d) The
-   gather vote form (``ops/detect.VOTE_FORM``): paths 1 and 2, 3 blocks,
-   in f32 and bf16 detection, packed outputs bit-equal to the code form's;
-   prints ``compact_detection``'s ms a block (CUDA events) of each form.
+   history vote kernel (``ops/cuda/vote_kernel``): paths 1 and 2, 3 blocks,
+   in f32 and bf16 detection, each block's votes bit-equal to each plain
+   lowering's (``ops/detect.VOTE_FORM``, the code and the gather form,
+   called on the same rows on the card) and to the packed output's; prints
+   ms a block (CUDA events) of ``compact_detection``, the kernel and each
+   plain lowering.
 12. Every fft the JAX package scans. (a) The kernels' forms beyond steps 2's
    shapes against their plain versions: the PSD's small-frame form at fft
    16-128 (decimations 1-4, odd frame counts up to 1801) and its
@@ -360,9 +365,14 @@ CHILD_TIMEOUT_S = 300
 # frames, 16 kHz recordings: the selection kernel's shape there)
 MH_SHARD = Geometry("multihost_session", "multi-host session (a process's 4 channels of 256 kHz)",
                     MH_RATE // MH_CHANNELS, 16, 16_000, 0, bands=MH_CHANNELS // MH_WORLD, slots=1)
-# step 11d: blocks a form; the noise learning (WIDE_LEARN_MS) ends inside
+# step 11d: blocks a run; the noise learning (WIDE_LEARN_MS) ends inside
 # block 0, so the signal keyed from block 1 clears the floor
 VOTE_BLOCKS = 3
+# the history vote kernel timed (step 9) at the benchmark's two shapes (key,
+# name, bands, frames, fft, group = ceil(32 kHz / bin)): the wideband
+# receiver's block (205-bin windows) and the dongle session's scan (129),
+# besides the paths'
+VOTE_TIMED = (("hf20m48", "hf20m48 block", 24, 45, 131072, 205), ("rtl2m048", "rtl2m048 session", 1, 16, 8192, 128))
 # step 12, every fft the JAX package scans: the kernels' small forms (fft <=
 # 128) and the PSD's scratch form at fft 2^21-2^22.
 # (fft, decim, frames): odd frame counts, decimations 1-4
@@ -900,6 +910,54 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
     return record
 
 
+def time_vote(geos, dev, card: str) -> dict:
+    """The history vote kernel at VOTE_TIMED's shapes and each path's (bf16
+    votes over f32 rows, as ``detection_bf16`` runs them), held bit-equal
+    to the plain version (the code form) and timed beside it and its bound;
+    the record's top level holds the first shape's."""
+    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
+    from rtl_sdr_scanner_tpu_torch.ops import detect
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import vote_kernel
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    level = torch.tensor(LEVEL, device=dev)
+    record = dict(
+        name="history_vote", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/vote_kernel.cu",
+        replaces=None, launches=None, max_abs_err=0,
+    )
+    shapes = list(VOTE_TIMED)
+    for geo in geos:
+        cfg, _, group = configs(geo)
+        shapes.append((geo.key, geo.name, geo.bands, geo.frames, cfg.fft_size, group))
+    depth, n_cand = 11, TOP_K + detect.K_SEP
+    for key, name, nb, frames, fft, group in shapes:
+        raw = torch.randn((nb, frames, fft), generator=gen, device=dev).mul_(3.0)
+        prev = torch.randn((nb, depth - 1, fft), generator=gen, device=dev).mul_(3.0)
+        cand = torch.randint(0, fft, (nb, frames, n_cand), generator=gen, device=dev, dtype=torch.int32)
+        args = (raw, prev, cand, group // 2, level, depth, True)
+        got = vote_kernel.history_vote(*args)
+        want = detect.history_vote_plain(*args)
+        bad = int((got != want).sum())
+        if bad:
+            raise RuntimeError(f"history_vote ({name}): {bad} votes differ from the plain version")
+        t = timings(lambda: vote_kernel.history_vote(*args), lambda: detect.history_vote_plain(*args), 20,
+                    "history_vote", 3)
+        # the history rows read once (f32), the candidates read and the votes written once
+        bound_ms, bound_by = bound(nb * (depth - 1 + frames) * fft * 4 + 2 * cand.numel() * 4, 0.0)
+        log(f"history vote [{nb}, {depth - 1} + {frames}, {fft}] window {2 * (group // 2) + 1}, {n_cand} "
+            f"candidates ({name}): {fmt(t)}, bound {bound_ms:.4g} ms ({bound_by}) on {card}")
+        record_time(record, key, **t, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del raw, prev, cand
+    return record
+
+
+def detection_launches(n) -> dict:
+    """Launch counts of ``n`` calls of ``compact_detection``: the selection
+    kernel and the history vote kernel, once each a call."""
+    return {"fused_selection": n, "history_vote": n}
+
+
 def geo_shifts(geo: Geometry) -> np.ndarray:
     """[bands, slots] slot shifts: slot 0 on the signal's offset, slot 1 at
     ``other_shift``, in every band."""
@@ -963,7 +1021,7 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
     log(f"launches over {geo.blocks} blocks: {launches}")
     want_launches = {
         "psd_frames_int8": 1,
-        "fused_selection": 1,
+        **detection_launches(1),
         "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
     }
     for name, per_block in want_launches.items():
@@ -1283,7 +1341,7 @@ def run_runtime(dev, card: str) -> dict:
         log(f"launches over the card run: {launches}")
         want = {
             "psd_frames_int8": blocks,
-            "fused_selection": blocks,
+            **detection_launches(blocks),
             "stage_apply_fir": clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
         }
         if launches != want or not all(launches.values()):
@@ -1472,7 +1530,7 @@ def run_wideband_step(dev, card: str) -> dict:
             if b % WIDE_RING == 1:
                 signal_rec = rec.cpu().numpy()
         counts = {name: fn.launches for name, fn in wrappers.items()}
-        want = {"psd_frames_int8": 0, "fused_selection": geo.blocks,
+        want = {"psd_frames_int8": 0, **detection_launches(geo.blocks),
                 "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
         log(f"{form}: launches over {geo.blocks} blocks: {counts} (the channels are f32 pairs: no PSD kernel)")
         if counts != want:
@@ -1610,7 +1668,7 @@ def run_wideband_runtime(dev, card: str) -> dict:
                 log(f"{WB_CHANNELS} channels of {cfg.sample_rate} sps: fft {cfg.fft_size} decim "
                     f"{cfg.decimator_factor} frames {cfg.frames_per_block}, {session.ddc_cfg.num_slots} slot(s) a "
                     f"channel, DDC stages {[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks")
-            want = {"psd_frames_int8": 0, "fused_selection": blocks * (WB_CHANNELS if form == "serial" else 1),
+            want = {"psd_frames_int8": 0, **detection_launches(blocks * (WB_CHANNELS if form == "serial" else 1)),
                     "stage_apply_fir": 0}
             log(f"{form}: launches over the card run: {counts} (the 128 kHz -> 32 kHz chain is one modulated-"
                 f"taps stage: no FIR kernel stage; f32 channels: no PSD kernel)")
@@ -1753,7 +1811,7 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
             hold_captures(form, [path.scan_step, path.ddc_step])
             replays = {k: hold_replays(form, [step], geo.blocks)
                        for k, step in (("scan", path.scan_step), ("DDC", path.ddc_step))}
-        want = {"psd_frames_int8": shards * geo.blocks, "fused_selection": shards * geo.blocks,
+        want = {"psd_frames_int8": shards * geo.blocks, **detection_launches(shards * geo.blocks),
                 "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
         if launches[form] != want:
@@ -1856,7 +1914,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
             counts = {name: fn.launches for name, fn in wrappers.items()}
             hold_captures(f"wideband {form}", [step.blocks.step] if fused else [step.blocks.wide_step,
                                                                                step.blocks.ddc_step])
-            want = {"psd_frames_int8": 0, "fused_selection": shards * MESH_BLOCKS,
+            want = {"psd_frames_int8": 0, **detection_launches(shards * MESH_BLOCKS),
                     "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
             if counts != want:
                 raise RuntimeError(f"wideband {form} over {shards} shard(s): launches {counts}, want {want}")
@@ -2195,7 +2253,7 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
                 f"s, pool {c['pool_bytes']} bytes ({c['pool_bytes'] / 2**20:.1f} MiB) on {card} (both processes on it)")
             counts = child[form]["launches"]
             ddc_cfg = child["ddc"]
-            want = {"psd_frames_int8": 0, "fused_selection": MESH_BLOCKS,
+            want = {"psd_frames_int8": 0, **detection_launches(MESH_BLOCKS),
                     "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1]}
             if counts != want:
                 raise RuntimeError(f"wideband {form}: process {rank} launches {counts}, want {want}")
@@ -2249,17 +2307,31 @@ def run_dryrun(dev, card: str) -> dict:
 
 def run_vote_forms(dev, card: str) -> dict:
     """Step 11d: paths 1 and 2 (VOTE_BLOCKS blocks, the signal from block 1)
-    through the fused step with the gather vote form and the code form, in
-    f32 and bf16 detection; the packed outputs must be bit-equal. Times
-    compact_detection with CUDA events. Returns {form: counts}."""
+    through the eager fused step in f32 and bf16 detection, the history vote
+    on its kernel. Each call of compact_detection is held against each plain
+    lowering of the vote (``ops/detect.VOTE_FORM``: the code and the gather
+    form, ``history_vote_plain`` called on the same rows on the card): the
+    voted bins bit-equal, and the packed output's votes are the kernel's.
+    Times compact_detection, the kernel alone and each plain lowering with
+    CUDA events. Returns {run: counts}."""
     from rtl_sdr_scanner_tpu_torch.drivers import KEY_SLOTS, LEVEL, BandedBlocks, kernel_wrappers
     from rtl_sdr_scanner_tpu_torch.models import scan_pipeline
     from rtl_sdr_scanner_tpu_torch.ops import detect
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.vote_kernel import history_vote
 
-    log("---- step 11d: the gather vote form against the code form")
+    log("---- step 11d: the history vote kernel against the plain lowerings")
     wrappers = kernel_wrappers()
     launches = {}
     real = scan_pipeline.compact_detection
+
+    def events_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     try:
         for geo in (PATH1, PATH2):
             g = dataclasses.replace(geo, blocks=VOTE_BLOCKS, signal_from_block=1)
@@ -2267,52 +2339,64 @@ def run_vote_forms(dev, card: str) -> dict:
             for bf16 in (False, True):
                 cfg = dataclasses.replace(path.cfg, detection_bf16=bf16, noise_learning_ms=WIDE_LEARN_MS)
                 dtype = "bf16" if bf16 else "f32"
-                runs = {}
-                for form in ("code", "gather"):
-                    detect.VOTE_FORM = form
-                    spans = []
+                calls = []
 
-                    def timed(*args, **kwargs):
-                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        out = real(*args, **kwargs)
-                        end.record()
-                        spans.append((start, end))
-                        return out
+                def timed(avg, raw, prev_tail, keys, valid_mask, start_level, group_size, top_k, bf16=False):
+                    out, ms = events_ms(lambda: real(avg, raw, prev_tail, keys, valid_mask, start_level,
+                                                     group_size, top_k, bf16=bf16))
+                    calls.append((raw, prev_tail, start_level, group_size, bf16, out, ms))
+                    return out
 
-                    scan_pipeline.compact_detection = timed
-                    path.blocks = BandedBlocks(cfg, path.ddc_cfg, path.group_size, TOP_K, g.bands, geo_shifts(g),
-                                               dev)
-                    # the eager step: compact_detection is timed around its
-                    # own launches, which a captured graph runs unseen
-                    path.blocks.step = path.blocks.step.fn
-                    torch.cuda.synchronize()
-                    for fn in wrappers.values():
-                        fn.launches = 0
-                    packed = [path.run_block(b).packed.cpu().numpy() for b in range(VOTE_BLOCKS)]
-                    launches[f"vote_{form}_{dtype}_{geo.key}"] = {name: fn.launches for name, fn in wrappers.items()}
-                    torch.cuda.synchronize()
-                    runs[form] = (packed, [s.elapsed_time(e) for s, e in spans])
-                    scan_pipeline.compact_detection = real
-                (code, code_ms), (gather, gather_ms) = runs["code"], runs["gather"]
-                for b, (x, y) in enumerate(zip(code, gather)):
-                    if not np.array_equal(x, y):
-                        raise RuntimeError(f"{geo.name}, {dtype} detection, block {b}: the gather form's packed output "
-                                           "differs from the code form's")
+                scan_pipeline.compact_detection = timed
+                path.blocks = BandedBlocks(cfg, path.ddc_cfg, path.group_size, TOP_K, g.bands, geo_shifts(g), dev)
+                # the eager step: compact_detection is timed around its own
+                # launches, which a captured graph runs unseen
+                path.blocks.step = path.blocks.step.fn
+                torch.cuda.synchronize()
+                for fn in wrappers.values():
+                    fn.launches = 0
+                packed = [path.run_block(b).packed.cpu().numpy() for b in range(VOTE_BLOCKS)]
+                launches[f"vote_kernel_{dtype}_{geo.key}"] = {name: fn.launches for name, fn in wrappers.items()}
+                scan_pipeline.compact_detection = real
+                ms = {"compact_detection": [], "history_vote": [], "code": [], "gather": []}
                 moved = live = 0
-                for p in gather:
+                for b, (raw, prev_tail, level, group_size, vote_bf16, out, call_ms) in enumerate(calls):
+                    args = (raw, prev_tail, out.cand_idx, group_size // 2, level.to(torch.float32),
+                            prev_tail.shape[1] + 1, vote_bf16)
+                    kernel, kernel_ms = events_ms(lambda: history_vote(*args))
+                    ms["compact_detection"].append(call_ms)
+                    ms["history_vote"].append(kernel_ms)
+                    if not torch.equal(kernel, out.cand_best):
+                        raise RuntimeError(f"{geo.name}, {dtype} detection, block {b}: the kernel's votes differ "
+                                           "from one call to the next")
+                    for form in ("code", "gather"):
+                        detect.VOTE_FORM = form
+                        plain, plain_ms = events_ms(lambda: detect.history_vote_plain(*args))
+                        ms[form].append(plain_ms)
+                        if not torch.equal(plain, out.cand_best):
+                            bad = int((plain != out.cand_best).sum())
+                            raise RuntimeError(f"{geo.name}, {dtype} detection, block {b}: the kernel's votes "
+                                               f"differ from the plain {form} form's at {bad} candidates")
+                    detect.VOTE_FORM = "code"
+                    best = out.cand_best.cpu().numpy()
                     for band in range(g.bands):
-                        idx, val, best = scan_pipeline.unpack_compact(p[band], g.frames, TOP_K, KEY_SLOTS)[:3]
-                        moved += int((best != idx).sum())
+                        idx, val, got = scan_pipeline.unpack_compact(packed[b][band], g.frames, TOP_K, KEY_SLOTS)[:3]
+                        if not np.array_equal(got, best[band]):
+                            raise RuntimeError(f"{geo.name}, {dtype} detection, block {b}, band {band}: the packed "
+                                               "votes are not the kernel's")
+                        moved += int((got != idx).sum())
                         live += int((val >= LEVEL).sum()) if band == g.signal_band else 0
                 if moved == 0 or live == 0:
                     raise RuntimeError(f"{geo.name}, {dtype} detection: no vote moved a candidate ({moved}) or no "
                                        f"candidate cleared the level in the signal's band ({live})")
-                log(f"{geo.name}, {dtype} detection: gather and code forms bit-equal over {VOTE_BLOCKS} blocks "
-                    f"({moved} candidates moved by their vote, {live} above {LEVEL} dB in band {g.signal_band}); "
-                    f"compact_detection ms a block (CUDA events, blocks "
-                    f"1..{VOTE_BLOCKS - 1}): gather {np.mean(gather_ms[1:]):.2f}, code {np.mean(code_ms[1:]):.2f} "
-                    f"on {card}")
+                mean = {k: np.mean(v[1:]) for k, v in ms.items()}
+                log(f"{geo.name}, {dtype} detection: the kernel's votes bit-equal to the code and gather forms' "
+                    f"over {VOTE_BLOCKS} blocks ({moved} candidates moved by their vote, {live} above {LEVEL} dB "
+                    f"in band {g.signal_band}); ms a block (CUDA events, blocks 1..{VOTE_BLOCKS - 1}): "
+                    f"compact_detection {mean['compact_detection']:.3f}, the vote kernel "
+                    f"{mean['history_vote']:.3f}, plain code form {mean['code']:.2f}, plain gather form "
+                    f"{mean['gather']:.2f} on {card}")
+                del calls
             del path
             free_card()
     finally:
@@ -2323,7 +2407,7 @@ def run_vote_forms(dev, card: str) -> dict:
 
 def run_multi_host(dev, card: str, root: Path) -> dict:
     """Step 11: the session and the wideband step over MH_WORLD processes,
-    the dry run on 4 copies of the card, the gather vote form. Returns
+    the dry run on 4 copies of the card, the history vote kernel. Returns
     {form: counts}."""
     free_card()
     launches = run_multihost_session(dev, card, root)
@@ -2509,7 +2593,7 @@ def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> d
         block_ms.append((time.perf_counter() - t0) * 1e3)
         card_out.append((outs.packed.cpu().numpy(), outs.recording.cpu().numpy()))
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    want = {"psd_frames_int8": geo.blocks, "fused_selection": geo.blocks,
+    want = {"psd_frames_int8": geo.blocks, **detection_launches(geo.blocks),
             "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     log(f"launches over {geo.blocks} blocks: {counts}")
     if counts != want:
@@ -2777,7 +2861,7 @@ def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
         runs[form] = timed_blocks(run, GRAPH_BLOCKS)
         counts[form] = {name: fn.launches for name, fn in wrappers.items()}
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
-    want = {"psd_frames_int8": GRAPH_BLOCKS, "fused_selection": GRAPH_BLOCKS,
+    want = {"psd_frames_int8": GRAPH_BLOCKS, **detection_launches(GRAPH_BLOCKS),
             "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     step = blocks_of["graphed"].step
     hold_outputs(geo.name, runs)
@@ -2831,7 +2915,7 @@ def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple
         counts[form] = {name: fn.launches for name, fn in wrappers.items()}
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     ddc_cfg = steps["graphed"].ddc_cfg
-    want = {"psd_frames_int8": 0, "fused_selection": shards * GRAPH_BLOCKS,
+    want = {"psd_frames_int8": 0, **detection_launches(shards * GRAPH_BLOCKS),
             "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     graphed = [getattr(steps["graphed"].blocks, attr) for attr in step_names]
     hold_outputs(name, runs)
@@ -2873,7 +2957,7 @@ def graph_time_mesh(dev, card: str) -> tuple:
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     graphed = meshes["graphed"]
     ddc_cfg, n = graphed.ddc_cfg, TMESH_SHARDS
-    want = {"psd_frames_int8": n * GRAPH_BLOCKS, "fused_selection": n * GRAPH_BLOCKS,
+    want = {"psd_frames_int8": n * GRAPH_BLOCKS, **detection_launches(n * GRAPH_BLOCKS),
             "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     steps = [graphed.scan_step, graphed.ddc_step]
     hold_outputs(name, runs)
@@ -3015,7 +3099,7 @@ def graph_session(dev, card: str, tmp: Path) -> tuple:
     blocks = g_clock.block
     if e_clock.block != blocks or g_clock.ddc_calls == 0:
         raise RuntimeError(f"session: {e_clock.block} blocks eager, {blocks} graphed, the DDC in {g_clock.ddc_calls}")
-    want = {"psd_frames_int8": blocks, "fused_selection": blocks,
+    want = {"psd_frames_int8": blocks, **detection_launches(blocks),
             "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
     counts = {"eager": e_counts, "graphed": g_counts}
     hold_counts("session", counts, want, steps)
@@ -3224,6 +3308,7 @@ def main() -> int:
     records = time_psd_and_selection(timed + (NARROW_RT, BAND_491, BAND_1966), dev, card, psd_err, sel_err,
                                      sel_only=wide + (NARROW_WIDE,))
     records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491, BAND_1966), PATH2, dev, card, fir_err))
+    records.append(time_vote(geos, dev, card))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the library's entry points (the launchers return
 # cudaGetLastError; the psd_ queries return a count, psd_scratch_bytes a
 # 64-bit one; trace_marks_load returns a CUDA error, trace_mark_count a
@@ -41,6 +42,7 @@ SIGNATURES = {
     "psd_max_active_clusters": [_I, _I],
     "fused_selection": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
     "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "history_vote": [_P, _I, _L, _L, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "trace_mark": [_I, _P],
     "trace_marks_load": [],
     "trace_mark_count": [],

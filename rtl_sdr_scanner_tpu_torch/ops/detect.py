@@ -7,8 +7,9 @@ reference's history vote per candidate (transmission.cpp:132-154, mode with
 the C++ median-of-ties rule, collection_utils.h:29-50) and a windowed argmax
 per tracked key. Bands are a leading batch dimension: rows are [NB, F, fft].
 
-The selection (top-K, margin winners, count) is ``ops/cuda/select_kernel``;
-this module holds the plain pieces its plain version is built from.
+The selection (top-K, margin winners, count) is ``ops/cuda/select_kernel``
+and the history vote ``ops/cuda/vote_kernel``; this module holds the plain
+pieces their plain versions are built from.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ import torch.nn.functional as F
 
 K_SEP = 16  # margin-separated candidate slots
 
-# History-vote form: "code" = the int8-code sliding table
-# (sliding_argmax_code + _vote_windows_code; the f32+i32 pair tables for
-# windows wider than 128 bins), "gather" = candidate-window gathers
-# (_vote_windows_gather: only the consumed cells, any width). Read at each
-# call; no config key selects it, as in the reference.
+# History-vote lowering of the plain version (history_vote_plain, the CPU's;
+# the card runs ops/cuda/vote_kernel at every width): "code" = the int8-code
+# sliding table (sliding_argmax_code + _vote_windows_code; the f32+i32 pair
+# tables for windows wider than 128 bins), "gather" = candidate-window
+# gathers (_vote_windows_gather: only the consumed cells, any width). Read at
+# each call; no config key selects it, as in the reference.
 VOTE_FORM = "code"
 
 # suppression sentinel of the margin greedy and the selection kernel
@@ -253,6 +255,42 @@ def _mode_median_ties_unrolled(
     return torch.where(any_valid, res, fallback)
 
 
+def history_vote_plain(
+    raw: torch.Tensor,
+    prev_tail: torch.Tensor,
+    cand_idx: torch.Tensor,
+    half: int,
+    level: torch.Tensor,
+    half_depth: int,
+    bf16: bool,
+) -> torch.Tensor:
+    """The reference's history vote (transmission.cpp:132-154): for each
+    candidate of frame k, the first-max argmax of each history row k..k+H-1
+    (rows of prev_tail [NB, H-1, fft] ++ raw [NB, F, fft]) over the clamped
+    window [c-half, c+half], valid where the window max (promoted to f32)
+    is >= level (f32); then the mode of the valid votes with the median-of-
+    ties rule, or the candidate where none is valid. cand_idx [NB, F, K]
+    -> cand_best [NB, F, K]. The history is voted in the rows' dtype, in
+    bf16 where ``bf16``. ``VOTE_FORM`` picks the lowering; every form gives
+    the same votes. This is the CPU's version of ``ops/cuda/vote_kernel``."""
+    # history vote: rows k-10..k (global) = hist[k : k+half_depth]
+    hist = torch.cat([prev_tail.to(raw.dtype), raw], dim=1)  # [NB, H-1+F, fft]
+    if bf16:
+        hist = hist.to(torch.bfloat16)
+    if VOTE_FORM == "gather":
+        idxs, votes_valid = _vote_windows_gather(hist, cand_idx, half, level, half_depth)
+    elif 2 * half + 1 <= 128:
+        code_tbl = sliding_argmax_code(hist, half, level)
+        codes = _vote_windows_code(code_tbl, cand_idx, half_depth)  # [NB, F, H, K]
+        votes_valid = codes >= 0
+        idxs = (cand_idx[:, :, None, :] - half) + codes.to(torch.int32)
+    else:
+        hist_val, hist_idx = sliding_argmax(hist, half)
+        vote_val, idxs = _vote_windows(hist_val, hist_idx, cand_idx, half_depth)
+        votes_valid = vote_val >= level
+    return _mode_median_ties_unrolled(idxs, votes_valid, cand_idx)
+
+
 def _windowed_argmax(rows: torch.Tensor, centers: torch.Tensor, half: int, fft: int):
     """First-max argmax of rows[..., :] in [center-half, center+half] clamped:
     rows [..., fft], centers [C] -> (values [..., C], indices [..., C] i32).
@@ -285,8 +323,9 @@ def compact_detection(
     bf16: bool = False,
 ) -> CompactOutputs:
     """bf16=True is the tolerance mode: the selection sweeps read bf16 copies
-    of the rows, every reported value stays f32. The selection always goes
-    through the hand-written kernel's wrapper (``ops/cuda/select_kernel``)."""
+    of the rows, every reported value stays f32. The selection and the
+    history vote always go through the hand-written kernels' wrappers
+    (``ops/cuda/select_kernel``, ``ops/cuda/vote_kernel``)."""
     nb, f, fft = avg.shape
     half = group_size // 2
     level = start_level.to(torch.float32)
@@ -309,23 +348,12 @@ def compact_detection(
     else:
         cand_val = torch.cat([top_val, sep_val], dim=1).reshape(nb, f, -1)
 
-    # history vote: rows k-10..k (global) = hist[k : k+half_depth]
-    hist = torch.cat([prev_tail.to(raw.dtype), raw], dim=1)  # [NB, H-1+F, fft]
-    if bf16:
-        hist = hist.to(torch.bfloat16)
-    half_depth = prev_tail.shape[1] + 1
-    if VOTE_FORM == "gather":
-        idxs, votes_valid = _vote_windows_gather(hist, cand_idx, half, level, half_depth)
-    elif 2 * half + 1 <= 128:
-        code_tbl = sliding_argmax_code(hist, half, level)
-        codes = _vote_windows_code(code_tbl, cand_idx, half_depth)  # [NB, F, H, K]
-        votes_valid = codes >= 0
-        idxs = (cand_idx[:, :, None, :] - half) + codes.to(torch.int32)
-    else:
-        hist_val, hist_idx = sliding_argmax(hist, half)
-        vote_val, idxs = _vote_windows(hist_val, hist_idx, cand_idx, half_depth)
-        votes_valid = vote_val >= level
-    cand_best = _mode_median_ties_unrolled(idxs, votes_valid, cand_idx)
+    # history vote: frame k votes over rows k..k+H-1 of prev_tail ++ raw.
+    # CPU rows take the plain version (history_vote_plain); on the card the
+    # wrapper launches the kernel or raises
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.vote_kernel import history_vote
+
+    cand_best = history_vote(raw, prev_tail, cand_idx, half, level, prev_tail.shape[1] + 1, bf16)
 
     key_val, key_idx = _windowed_argmax(avg, keys, half, fft)
 

@@ -122,7 +122,7 @@ def test_bf16_history_compares_in_f32(lowering, monkeypatch):
     assert (jvalid & ~got[1]).any()
 
 
-GROUPS = [103, 193]  # 193: w = 193 > 128, the pair tables' width
+GROUPS = [103, 193, 205]  # 193, 205: windows over 128 bins, the pair tables' width (205: the wideband receiver's)
 
 
 def _detection_inputs(seed: int):
