@@ -71,8 +71,8 @@ class Tunables:
     # tolerance mode: the selection sweeps read bf16 copies of the rows;
     # every reported value stays f32 (held to decision parity)
     detection_bf16: bool = True
-    # deeper tolerance mode: store the noise-subtracted rows in bf16. Not
-    # ported yet: a config that sets it is refused (ROADMAP.md)
+    # deeper tolerance mode: store the noise-subtracted rows (and the
+    # averager ring) in bf16
     power_bf16: bool = False
     # persist learned noise floors across restarts ("" = relearn like the
     # reference, noise_learner.cpp:69-72); path gets the device name appended
@@ -86,23 +86,27 @@ class Tunables:
     # stage of a replayed step between its two marker kernels
     # (trace_enter_<stage>, trace_exit_<stage>: utils/trace.py)
     profile_dir: str = ""
-    # multi-device (bands mesh), not ported yet: a non-zero value is refused
+    # multi-device bands mesh: a wideband device's channels in band shards
+    # over this many cards (-1: every visible card; 0: none), shrunk until it
+    # divides the channels
     mesh_bands: int = 0
-    # wideband mesh mode: fuse the banded DDC into the channelize+scan
-    # dispatch (wideband is not ported yet)
+    # wideband mode: fuse the banded DDC into the channelize+scan dispatch
     wideband_fused_dispatch: bool = False
-    # wideband front-end: 2 = a 2x-oversampled polyphase bank (not ported yet)
+    # wideband front-end: 1 = the critically sampled polyphase bank, 2 = a
+    # 2x-oversampled one
     channelizer_oversample: int = 1
-    # wideband tolerance mode: bf16 bank operands (not ported yet)
+    # wideband tolerance mode: bf16 bank operands, f32 accumulation
     channelizer_bf16: bool = False
     # live ingest ring overflow policy: drops are always logged and counted
     # (SoapySource.dropped_bytes); fatal stops the stream on the first drop
     ingest_overflow_fatal: bool = False
     # live ingest ring capacity in seconds of CF32 at the device sample rate
     ingest_ring_seconds: float = 2.0
-    # multi-host runtime, not ported yet: true is refused
+    # multi-host runtime: join the process group the JAX_COORDINATOR_ADDRESS
+    # / JAX_NUM_PROCESSES / JAX_PROCESS_ID environment names
     multihost: bool = False
-    # multi-device time mesh for one band, not ported yet: non-zero is refused
+    # multi-device time mesh: one band's block split over this many cards
+    # (0: none)
     mesh_time: int = 0
 
 # Module-level default instance; runtime code takes a Tunables argument and
