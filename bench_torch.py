@@ -228,7 +228,7 @@ def bench_bands(
         return [outs.packed, outs.recording]
 
     per_block = {"psd_frames_int8": 1, "fused_selection": 1, "history_vote": 1,
-                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
     rates = _time_blocks(dispatch, dev, seconds, per_block)
     return [r * block * n_bands for r in rates]
 
@@ -271,7 +271,7 @@ def bench_wideband(
         return [*packed, *rec]
 
     per_block = {"psd_frames_int8": 0, "fused_selection": 1, "history_vote": 1,
-                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+                 "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 1}
     rates = _time_blocks(dispatch, dev, seconds, per_block)
     return [r * n_wide for r in rates]
 

@@ -65,9 +65,10 @@
    split form (two), 5 blocks each. Noise learning ends inside block 0;
    ring block 1 carries an FM signal in channel 3, which must be detected
    there only and whose slot-0 rows must demodulate to its tone. Before it,
-   the channelizer is held against the CPU on 2^20 samples of that block
-   (two streamed halves) within 2e-5 (atol = rtol). Prints ms a block and
-   wideband samples/s.
+   the channelizer (on the card the analysis-bank kernel, one launch a
+   block) is held against the CPU and against the kernel's plain version
+   on the card on 2^20 samples of that block (two streamed halves) within
+   2e-5 (atol = rtol). Prints ms a block and wideband samples/s.
 8. The wideband session: an 8 s RTL-SDR capture at 2.048 Msps (cs8, two FM
    signals in channels 3 and 12 keyed 3-6 s) behind one replay device with
    ``"channels": 16`` (128 kHz channels: fft 512, decim 5, 16 frames), the
@@ -86,7 +87,9 @@
    top-level numbers are path 1's for PSD and selection, path 2's for the
    FIR; the history vote kernel at the benchmark's hf20m48 block and
    rtl2m048 scan and at each path's, held bit-equal to its plain version
-   first, top level hf20m48's). ``ms`` is the wrapper's pace (CUDA events around back-to-back
+   first, top level hf20m48's; the analysis bank at step 7's block, held
+   against its plain version there, the matmul form it replaced timed as
+   its ``library_ms``). ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
@@ -744,10 +747,12 @@ def time_psd_and_selection(geos, dev, card: str, psd_err: float, sel_err: float,
     psd = dict(
         name="psd_frames_int8", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/psd_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/psd_kernel.py:108", launches=None, max_abs_err=psd_err,
+        session_path="runtime",
     )
     sel = dict(
         name="fused_selection", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/select_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/select_kernel.py:189", launches=None, max_abs_err=sel_err,
+        session_path="runtime",
     )
     for geo in tuple(geos) + tuple(sel_only):
         cfg, _, group_size = configs(geo)
@@ -903,6 +908,7 @@ def time_fir(geos, timed: Geometry, dev, card: str, err: float) -> dict:
     record = dict(
         name="stage_apply_fir", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/fir_kernel.cu",
         replaces="rtl_sdr_scanner_tpu/ops/pallas/fir_kernel.py:98", launches=None, max_abs_err=err,
+        session_path="runtime",
     )
     for key in sorted(times, key=lambda k: k != timed.key):  # the timed path first: the top level
         geo, numbers = times[key]
@@ -925,6 +931,7 @@ def time_vote(geos, dev, card: str) -> dict:
     record = dict(
         name="history_vote", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/vote_kernel.cu",
         replaces=None, launches=None, max_abs_err=0,
+        session_path="runtime",
     )
     shapes = list(VOTE_TIMED)
     for geo in geos:
@@ -1343,9 +1350,10 @@ def run_runtime(dev, card: str) -> dict:
             "psd_frames_int8": blocks,
             **detection_launches(blocks),
             "stage_apply_fir": clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+            "analysis_bank": 0,
         }
-        if launches != want or not all(launches.values()):
-            raise RuntimeError(f"session launches {launches}, want {want} (all > 0)")
+        if launches != want or not (blocks and clock.ddc_calls):
+            raise RuntimeError(f"session launches {launches}, want {want} (blocks and DDC calls > 0)")
 
         cpu_payloads, _, cpu_s, _ = run_scanner(config, torch.device("cpu"))
         stats = compare_payloads(cpu_payloads, card_payloads)
@@ -1464,30 +1472,85 @@ def fm_tone(rec: np.ndarray, rate: int) -> float:
 
 
 def check_channelizer(ring: list, geo: Geometry, dev) -> float:
-    """The channelizer on the card against the same calls on the CPU, over
-    two streamed halves of WIDE_CHECK_SAMPLES of the signal block: within
-    CHAN_TOL (atol = rtol); returns the max |diff|."""
-    from rtl_sdr_scanner_tpu_torch.ops.channelizer import (
-        channelize_block_pairs, init_channelizer_state, plan_channelizer)
+    """The channelizer on the card (the analysis-bank kernel) against the
+    same calls on the CPU (the matmul form) and against the kernel's plain
+    version on the card, over two streamed halves of WIDE_CHECK_SAMPLES of
+    the signal block: within CHAN_TOL (atol = rtol); returns the max |diff|."""
+    from rtl_sdr_scanner_tpu_torch.ops import channelizer as ch
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import channelizer_kernel
 
-    plan = plan_channelizer(geo.bands)
+    plan = ch.plan_channelizer(geo.bands)
     x = ring[1][:WIDE_CHECK_SAMPLES]
     half = WIDE_CHECK_SAMPLES // 2
-    outs = []
-    for d in (torch.device("cpu"), dev):
-        state, parts = init_channelizer_state(plan, d), []
+    taps, twiddles = ch._on_device(plan, dev, "bank tables", ch._make_bank_tables)
+
+    def bank(state, part):
+        return ch.channelize_block_pairs(plan, state, part)
+
+    def plain(state, part):
+        y, tail = channelizer_kernel.analysis_bank_plain(part.T, state.tail, taps, twiddles, plan.taps_per_branch)
+        return ch.ChannelizerState(tail=tail), y
+
+    def streamed(fn, d):
+        state, parts = ch.init_channelizer_state(plan, d), []
         for i in range(2):
-            state, ch = channelize_block_pairs(plan, state, x[i * half : (i + 1) * half].to(d))
-            parts.append(ch.cpu())
-        outs.append(torch.cat(parts, dim=1))
-    want, got = outs
+            state, y = fn(state, x[i * half : (i + 1) * half].to(d))
+            parts.append(y.cpu())
+        return torch.cat(parts, dim=1)
+
+    got = streamed(bank, dev)
+    err = 0.0
+    for name, ref in (("CPU", streamed(bank, torch.device("cpu"))),
+                      ("the plain version on the card", streamed(plain, dev))):
+        diff = (got - ref).abs()
+        err = max(err, diff.max().item())
+        log(f"channelizer [{WIDE_CHECK_SAMPLES}, 2] int8 -> {list(got.shape)} B={geo.bands}, the kernel vs {name} in "
+            f"two blocks: max |diff| {diff.max().item():.3g} (max |y| {ref.abs().max().item():.3g})")
+        if not (torch.isfinite(got).all() and bool((diff <= CHAN_TOL + CHAN_TOL * ref.abs()).all())):
+            raise RuntimeError(f"channelizer: the kernel and {name} differ by {diff.max().item()}")
+    return err
+
+
+def time_bank(dev, card: str) -> dict:
+    """The analysis-bank kernel at the wideband step's block (WIDE: 8
+    channels of 141,557,760 int8 samples), held against its plain version
+    there, timed beside it, its bound and the matmul form it replaced
+    (``_bank_mm`` with the int8 widening and the final stack: ``library_ms``)."""
+    from rtl_sdr_scanner_tpu_torch.ops import channelizer as ch
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import channelizer_kernel as ck
+
+    cfg, _, _ = configs(WIDE)
+    b, n = WIDE.bands, WIDE.bands * WIDE.frames * cfg.fft_size * cfg.decimator_factor
+    plan = ch.plan_channelizer(b)
+    state = ch.init_channelizer_state(plan, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    xs = random_cs8((n, 2), gen, dev).T
+    tail = torch.randn((plan.tail_len, 2), generator=gen, device=dev)
+    taps, tw = ch._on_device(plan, dev, "bank tables", ch._make_bank_tables)
+    t_ = plan.taps_per_branch
+    got, got_tail = ck.analysis_bank(xs, tail, taps, tw, t_)
+    want, want_tail = ck.analysis_bank_plain(xs, tail, taps, tw, t_)
     diff = (got - want).abs()
     err = diff.max().item()
-    log(f"channelizer [{WIDE_CHECK_SAMPLES}, 2] int8 -> {list(got.shape)} B={geo.bands}, card vs CPU in two "
-        f"blocks: max |diff| {err:.3g} (max |y| {want.abs().max().item():.3g})")
-    if not (torch.isfinite(got).all() and bool((diff <= CHAN_TOL + CHAN_TOL * want.abs()).all())):
-        raise RuntimeError(f"channelizer: card and CPU differ by {err}")
-    return err
+    if not (bool((diff <= CHAN_TOL + CHAN_TOL * want.abs()).all()) and torch.equal(got_tail, want_tail)):
+        raise RuntimeError(f"analysis_bank at [{n}, 2]: the kernel and its plain version differ by {err}")
+    del got, want, diff
+    t = timings(lambda: ck.analysis_bank(xs, tail, taps, tw, t_),
+                lambda: ck.analysis_bank_plain(xs, tail, taps, tw, t_), 20, "analysis_bank", 3)
+    library_ms = cuda_ms(lambda: torch.stack(ch._bank_mm(plan, state, ck.dequantize(xs))[1:], dim=-1), 5)
+    # the stream read once (int8), the channels written once (f32 pairs);
+    # B branch FIRs of T complex taps and a B-point FFT a channel sample time
+    bound_ms, bound_by = bound(n * (2 + 8), n // b * (b * t_ * 4 + 5 * b * math.log2(b)))
+    log(f"analysis bank [{n}, 2] int8 -> [{b}, {n // b}, 2] T={t_}: {fmt(t)}, the matmul form it replaced "
+        f"{library_ms:.3f} ms, bound {bound_ms:.4g} ms ({bound_by}) on {card}")
+    # the dongle's session runs no channelizer: the wideband session launches it
+    record = dict(name="analysis_bank", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/channelizer_kernel.cu",
+                  replaces=None, launches=None, session_path="wideband_runtime_serial", max_abs_err=err)
+    record_time(record, WIDE.key, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del xs, tail
+    free_card()
+    return record
 
 
 def run_wideband_step(dev, card: str) -> dict:
@@ -1531,7 +1594,8 @@ def run_wideband_step(dev, card: str) -> dict:
                 signal_rec = rec.cpu().numpy()
         counts = {name: fn.launches for name, fn in wrappers.items()}
         want = {"psd_frames_int8": 0, **detection_launches(geo.blocks),
-                "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+                "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+                "analysis_bank": geo.blocks}
         log(f"{form}: launches over {geo.blocks} blocks: {counts} (the channels are f32 pairs: no PSD kernel)")
         if counts != want:
             raise RuntimeError(f"wideband {form} launches {counts}, want {want}")
@@ -1669,7 +1733,7 @@ def run_wideband_runtime(dev, card: str) -> dict:
                     f"{cfg.decimator_factor} frames {cfg.frames_per_block}, {session.ddc_cfg.num_slots} slot(s) a "
                     f"channel, DDC stages {[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks")
             want = {"psd_frames_int8": 0, **detection_launches(blocks * (WB_CHANNELS if form == "serial" else 1)),
-                    "stage_apply_fir": 0}
+                    "stage_apply_fir": 0, "analysis_bank": blocks}
             log(f"{form}: launches over the card run: {counts} (the 128 kHz -> 32 kHz chain is one modulated-"
                 f"taps stage: no FIR kernel stage; f32 channels: no PSD kernel)")
             if counts != want:
@@ -1812,7 +1876,8 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
             replays = {k: hold_replays(form, [step], geo.blocks)
                        for k, step in (("scan", path.scan_step), ("DDC", path.ddc_step))}
         want = {"psd_frames_int8": shards * geo.blocks, **detection_launches(shards * geo.blocks),
-                "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+                "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+                "analysis_bank": 0}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
         if launches[form] != want:
             raise RuntimeError(f"{form} launches {launches[form]}, want {want}")
@@ -1915,7 +1980,8 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
             hold_captures(f"wideband {form}", [step.blocks.step] if fused else [step.blocks.wide_step,
                                                                                step.blocks.ddc_step])
             want = {"psd_frames_int8": 0, **detection_launches(shards * MESH_BLOCKS),
-                    "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+                    "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+                    "analysis_bank": shards * MESH_BLOCKS}
             if counts != want:
                 raise RuntimeError(f"wideband {form} over {shards} shard(s): launches {counts}, want {want}")
             key = f"wideband_step_{shards}_shards_{form}" if shards > 1 else f"wideband_step_one_card_{form}"
@@ -2254,7 +2320,7 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
             counts = child[form]["launches"]
             ddc_cfg = child["ddc"]
             want = {"psd_frames_int8": 0, **detection_launches(MESH_BLOCKS),
-                    "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1]}
+                    "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1], "analysis_bank": MESH_BLOCKS}
             if counts != want:
                 raise RuntimeError(f"wideband {form}: process {rank} launches {counts}, want {want}")
             launches[f"multihost_step_rank{rank}_{form}"] = counts
@@ -2466,7 +2532,7 @@ def run_narrow_wideband(dev, card: str, tmp: Path) -> dict:
         log(f"{form}: {NW_CHANNELS} channels of {cfg.sample_rate} sps, fft {cfg.fft_size} decim "
             f"{cfg.decimator_factor} frames {cfg.frames_per_block}; launches over the card run: {counts} (f32 "
             f"channels: no PSD kernel; 32 -> 16 kHz is one modulated-taps stage: no FIR stage)")
-        if counts["fused_selection"] == 0 or counts["psd_frames_int8"] != 0:
+        if counts["fused_selection"] == 0 or counts["psd_frames_int8"] != 0 or counts["analysis_bank"] == 0:
             raise RuntimeError(f"64-channel session {form} launches {counts}")
         launches[f"narrow_wideband_{form}"] = counts
         cpu_payloads, _, cpu_s, _ = run_wideband_scanner(config, torch.device("cpu"))
@@ -2594,7 +2660,7 @@ def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> d
         card_out.append((outs.packed.cpu().numpy(), outs.recording.cpu().numpy()))
     counts = {name: fn.launches for name, fn in wrappers.items()}
     want = {"psd_frames_int8": geo.blocks, **detection_launches(geo.blocks),
-            "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
     log(f"launches over {geo.blocks} blocks: {counts}")
     if counts != want:
         raise RuntimeError(f"{geo.name}: step launches {counts}, want {want}")
@@ -2862,7 +2928,7 @@ def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
         counts[form] = {name: fn.launches for name, fn in wrappers.items()}
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     want = {"psd_frames_int8": GRAPH_BLOCKS, **detection_launches(GRAPH_BLOCKS),
-            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
     step = blocks_of["graphed"].step
     hold_outputs(geo.name, runs)
     hold_counts(geo.name, counts, want, [step])
@@ -2916,7 +2982,8 @@ def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     ddc_cfg = steps["graphed"].ddc_cfg
     want = {"psd_frames_int8": 0, **detection_launches(shards * GRAPH_BLOCKS),
-            "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+            "analysis_bank": shards * GRAPH_BLOCKS}
     graphed = [getattr(steps["graphed"].blocks, attr) for attr in step_names]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, graphed)
@@ -2958,7 +3025,7 @@ def graph_time_mesh(dev, card: str) -> tuple:
     graphed = meshes["graphed"]
     ddc_cfg, n = graphed.ddc_cfg, TMESH_SHARDS
     want = {"psd_frames_int8": n * GRAPH_BLOCKS, **detection_launches(n * GRAPH_BLOCKS),
-            "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
     steps = [graphed.scan_step, graphed.ddc_step]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, steps)
@@ -3100,7 +3167,7 @@ def graph_session(dev, card: str, tmp: Path) -> tuple:
     if e_clock.block != blocks or g_clock.ddc_calls == 0:
         raise RuntimeError(f"session: {e_clock.block} blocks eager, {blocks} graphed, the DDC in {g_clock.ddc_calls}")
     want = {"psd_frames_int8": blocks, **detection_launches(blocks),
-            "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))}
+            "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
     counts = {"eager": e_counts, "graphed": g_counts}
     hold_counts("session", counts, want, steps)
     log(f"session, serial: {blocks} blocks, the DDC in {g_clock.ddc_calls}")
@@ -3309,6 +3376,7 @@ def main() -> int:
                                      sel_only=wide + (NARROW_WIDE,))
     records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491, BAND_1966), PATH2, dev, card, fir_err))
     records.append(time_vote(geos, dev, card))
+    records.append(time_bank(dev, card))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))
@@ -3318,8 +3386,8 @@ def main() -> int:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in launches.items()}
         if r["launches"] == 0:
             raise RuntimeError(f"{r['name']} never launched on the main paths")
-        if r["launches_by_path"]["runtime"] == 0:
-            raise RuntimeError(f"{r['name']} never launched by the runtime session")
+        if r["launches_by_path"][r["session_path"]] == 0:
+            raise RuntimeError(f"{r['name']} never launched by the {r['session_path']} session")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": records}))

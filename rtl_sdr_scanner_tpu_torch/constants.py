@@ -95,7 +95,8 @@ class Tunables:
     # wideband front-end: 1 = the critically sampled polyphase bank, 2 = a
     # 2x-oversampled one
     channelizer_oversample: int = 1
-    # wideband tolerance mode: bf16 bank operands, f32 accumulation
+    # wideband tolerance mode: bf16 bank operands, f32 accumulation (the
+    # CPU's matmul form; the bank kernel on the card is f32 in either mode)
     channelizer_bf16: bool = False
     # live ingest ring overflow policy: drops are always logged and counted
     # (SoapySource.dropped_bytes); fatal stops the stream on the first drop

@@ -11,14 +11,23 @@ Math (channel b, center +b*R/B, wrapped to +-R/2):
   with branch signals x_p[m] = x[mB + p] and branch filters
   h_p[j] = h[jB - p] of a prototype low-pass h (Kaiser, cutoff R/2B).
 
-Two forms, equal within f32 rounding:
-- the production form runs the bank as the DDC's modulated-taps stage 1
-  (``ops/ddc._modtap_stage1``): channel b is a decimate-by-B FIR over the
-  raw stream with complex taps G[b, t*B + p] = W[b, p] k[p, t], one
-  ``[.., C] @ [C, B*2*D*P]`` product (a plain f32 ``torch.bmm`` with TF32
-  off, as the JAX package leaves it to XLA's ``dot_general``);
-- the oracle form: a grouped ``F.conv1d`` (groups=B) then ``torch.fft.fft``
-  along the branch axis.
+Three forms, equal within f32 rounding (atol = rtol = 2e-5), chosen by
+``_bank`` from its arguments:
+- on the card (every CUDA tensor, every plan), one launch of the
+  hand-written kernel ``ops/cuda/channelizer_kernel.analysis_bank``: the
+  int8 stream in, branch FIRs then a B-point FFT (a direct DFT off its
+  powers of two) on chip, the channels out once as pairs, in f32 (the bf16
+  plan's rounding is of the products G below, which the kernel never
+  forms);
+- on the CPU, the modulated-taps form (``ops/ddc._modtap_stage1``), as the
+  JAX package computes it: channel b is a decimate-by-B FIR over the raw
+  stream with complex taps G[b, t*B + p] = W[b, p] k[p, t], one
+  ``[.., C] @ [C, B*2*D*P]`` product (a plain f32 ``torch.bmm``, bf16
+  operands in the bf16 plan, as the JAX package leaves it to XLA's
+  ``dot_general``);
+- on the CPU where the plan has no matmul form: the kernel's plain
+  version, a grouped ``F.conv1d`` (groups=B) then ``torch.fft.fft`` along
+  the branch axis.
 
 Streaming: an input-domain tail (overlap-save) carries across blocks, so
 block-streamed output equals offline filtering. Channels travel as f32
@@ -32,9 +41,9 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
+from rtl_sdr_scanner_tpu_torch.ops.cuda import channelizer_kernel
 from rtl_sdr_scanner_tpu_torch.ops.ddc import (
     StagePlan,
     _modtap_scatter_index,
@@ -53,8 +62,9 @@ class ChannelizerPlan(NamedTuple):
     mm_plan: object  # ops/ddc.StagePlan for (decim=B, r_rows=T) or None
     mm_g_pad: np.ndarray  # [B, 2, T*B + 1] f32 complex kernels (+ zero slot)
     mm_idx: np.ndarray  # [C, D*P] int32 scatter index
-    # tolerance mode (tunables.channelizer_bf16): bf16 OPERANDS in the bank's
-    # product, f32 accumulation (held to >= 45 dB SNR against f32)
+    # tolerance mode (tunables.channelizer_bf16): bf16 OPERANDS in the CPU's
+    # matmul form, f32 accumulation (held to >= 45 dB SNR against f32); the
+    # card's kernel is f32 in either mode
     bf16: bool = False
 
 
@@ -185,23 +195,23 @@ def _bank_mm(plan: ChannelizerPlan, state: ChannelizerState, xs: torch.Tensor):
     return ChannelizerState(tail=new_tail[0].T.contiguous()), y_re[0], y_im[0]
 
 
+def _make_bank_tables(plan: ChannelizerPlan, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's (and its plain version's) taps and twiddles on ``device``."""
+    return tuple(torch.from_numpy(t).to(device) for t in channelizer_kernel.host_tables(plan.branch_kernels))
+
+
 def _bank(plan: ChannelizerPlan, state: ChannelizerState, xs: torch.Tensor):
-    """xs [2, n] f32 components -> (state, y_re, y_im) [B, n // B]: the
-    production form when the plan has it, else the grouped-conv + FFT
-    oracle."""
-    b = plan.num_channels
+    """xs [2, n] components (f32, or int8 cs8 dequantized at 1/127.5; any
+    strides) -> (state, channels [B, n // B, 2] f32): the kernel on a CUDA
+    tensor, else the matmul form where the plan has it, else the oracle."""
     n = xs.shape[-1]
-    assert n % b == 0, (n, b)
-    if plan.mm_plan is not None:
-        return _bank_mm(plan, state, xs)
-    ext = torch.cat([state.tail.T, xs], dim=-1)  # [2, tail + n]
-    branches = ext.reshape(2, -1, b).transpose(1, 2)  # [2, B, M]: branch p of each part
-    kernels = _on_device(plan, xs.device, "branch kernels",
-                         lambda p, d: torch.from_numpy(p.branch_kernels).to(d)[:, None, :])  # [B, 1, T]
-    v = F.conv1d(branches, kernels, groups=b)  # [2, B, n // B] (re, im parts)
-    channels = torch.fft.fft(torch.complex(v[0], v[1]), dim=0).to(torch.complex64)
-    new_tail = ext[:, -plan.tail_len :].T.contiguous()
-    return ChannelizerState(tail=new_tail), channels.real, channels.imag
+    assert n % plan.num_channels == 0, (n, plan.num_channels)
+    if xs.device.type == "cuda" or plan.mm_plan is None:
+        taps, twiddles = _on_device(plan, xs.device, "bank tables", _make_bank_tables)
+        channels, new_tail = channelizer_kernel.analysis_bank(xs, state.tail, taps, twiddles, plan.taps_per_branch)
+        return ChannelizerState(tail=new_tail), channels
+    state, y_re, y_im = _bank_mm(plan, state, channelizer_kernel.dequantize(xs))
+    return state, torch.stack([y_re, y_im], dim=-1)
 
 
 def _components(x: torch.Tensor) -> torch.Tensor:
@@ -209,12 +219,9 @@ def _components(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.real, x.imag], dim=0)
 
 
-def _pair_components(x_pairs: torch.Tensor) -> torch.Tensor:
-    """[n, 2] f32 pairs or int8 cs8 (dequantized at 1/127.5, as
-    ``native.cs8_to_complex64``) -> [2, n] f32."""
-    if x_pairs.dtype == torch.int8:
-        x_pairs = x_pairs.to(torch.float32) * (1.0 / 127.5)
-    return x_pairs.T
+def _complex(channels: torch.Tensor) -> torch.Tensor:
+    """[..., 2] f32 pairs -> [...] complex64."""
+    return torch.complex(channels[..., 0], channels[..., 1])
 
 
 def channelize_block(
@@ -224,9 +231,10 @@ def channelize_block(
 
     Channel b is the sub-band centered at +b*R/B relative to the wideband
     center (b >= B/2 wraps negative). The production form when the plan has
-    it (``plan.mm_plan``), else the grouped-conv + FFT oracle."""
-    state, y_re, y_im = _bank(plan, state, _components(x))
-    return state, torch.complex(y_re, y_im)
+    it (``plan.mm_plan``), else the grouped-conv + FFT oracle; the kernel on
+    the card (``_bank``)."""
+    state, channels = _bank(plan, state, _components(x))
+    return state, _complex(channels)
 
 
 def _channelize_block_mm(
@@ -243,9 +251,9 @@ def channelize_block_pairs(
 ) -> Tuple[ChannelizerState, torch.Tensor]:
     """channelize_block with f32 (re, im) pairs at both boundaries: x_pairs
     [n, 2] f32 (or int8 cs8, dequantized at 1/127.5) -> channels
-    [B, n // B, 2] f32."""
-    state, y_re, y_im = _bank(plan, state, _pair_components(x_pairs))
-    return state, torch.stack([y_re, y_im], dim=-1)
+    [B, n // B, 2] f32. The pairs reach the bank as a [2, n] view: on the
+    card the kernel reads the int8 stream as it is."""
+    return _bank(plan, state, x_pairs.T)
 
 
 # -- 2x-oversampled analysis bank -------------------------------------------
@@ -257,24 +265,21 @@ def channelize_block_pairs(
 
 
 def _bank_2x(plan: ChannelizerPlan, state: Channelizer2xState, xs: torch.Tensor):
-    """xs [2, n] -> (state, y_re, y_im) [B, 2 * n // B] at twice the
-    critically-sampled channel rate."""
+    """xs [2, n] f32 components -> (state, channels [B, 2 * n // B, 2] f32)
+    at twice the critically-sampled channel rate."""
     b = plan.num_channels
     h = b // 2
     n = xs.shape[-1]
     assert n % b == 0, (n, b)
-    even_state, even_re, even_im = _bank(plan, state.even, xs)
+    even_state, even = _bank(plan, state.even, xs)
     # odd bank input: x delayed by B/2 (zeros before the first block)
     x_odd = torch.cat([state.carry.T, xs[:, : n - h]], dim=-1)
-    odd_state, odd_re, odd_im = _bank(plan, state.odd, x_odd)
-    signs = torch.where(torch.arange(b, device=xs.device) % 2 == 0, 1.0, -1.0)[:, None]
-    odd_re, odd_im = odd_re * signs, odd_im * signs
-    m = n // b
+    odd_state, odd = _bank(plan, state.odd, x_odd)
+    signs = torch.where(torch.arange(b, device=xs.device) % 2 == 0, 1.0, -1.0)[:, None, None]
     # odd sample y(tB - h) precedes even sample y(tB)
-    y_re = torch.stack([odd_re, even_re], dim=-1).reshape(b, 2 * m)
-    y_im = torch.stack([odd_im, even_im], dim=-1).reshape(b, 2 * m)
+    channels = torch.stack([odd * signs, even], dim=2).reshape(b, 2 * (n // b), 2)
     new = Channelizer2xState(even=even_state, odd=odd_state, carry=xs[:, n - h :].T.contiguous())
-    return new, y_re, y_im
+    return new, channels
 
 
 def channelize_block_2x(
@@ -283,8 +288,8 @@ def channelize_block_2x(
     """x: [n] complex64, n % B == 0 -> channels [B, 2 * n // B] complex64.
     The odd-phase bank consumes the stream delayed by B/2 (zero-primed on
     the first block, a zero-history filter start)."""
-    state, y_re, y_im = _bank_2x(plan, state, _components(x))
-    return state, torch.complex(y_re, y_im)
+    state, channels = _bank_2x(plan, state, _components(x))
+    return state, _complex(channels)
 
 
 def channelize_block_2x_pairs(
@@ -292,8 +297,7 @@ def channelize_block_2x_pairs(
 ) -> Tuple[Channelizer2xState, torch.Tensor]:
     """channelize_block_2x with f32 (re, im) pairs (or int8 cs8) at both
     boundaries: -> [B, 2 * n // B, 2] f32."""
-    state, y_re, y_im = _bank_2x(plan, state, _pair_components(x_pairs))
-    return state, torch.stack([y_re, y_im], dim=-1)
+    return _bank_2x(plan, state, channelizer_kernel.dequantize(x_pairs.T))
 
 
 def channel_center_offsets(plan: ChannelizerPlan, sample_rate: int) -> np.ndarray:

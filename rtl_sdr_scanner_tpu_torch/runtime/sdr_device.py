@@ -104,9 +104,12 @@ def _channel_rate(config: Config, spec: DeviceSpec) -> int:
 def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
     """A geometry of this device that a kernel on its card does not take:
     compact detection at an fft below ``detection_top_k`` (the JAX package's
-    top-k raises on it too), or an int8 fft above the PSD kernel's 2^24 (a
-    band above 4.194304 Gsps at 250 Hz bins; or of 1, a band below 250 sps). The
-    selection kernel takes every power-of-two fft, and every fft here is one."""
+    top-k raises on it too), an int8 fft above the PSD kernel's 2^24 (a
+    band above 4.194304 Gsps at 250 Hz bins; or of 1, a band below 250 sps),
+    or a wideband device of more channels than the analysis-bank kernel's
+    4096. The selection kernel takes every power-of-two fft, and every fft
+    here is one."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.channelizer_kernel import MAX_CHANNELS
     from rtl_sdr_scanner_tpu_torch.ops.cuda.psd_kernel import takes_fft as psd_takes_fft
 
     t = config.tunables
@@ -123,6 +126,8 @@ def _kernel_refusal(config: Config, spec: DeviceSpec) -> Optional[str]:
             f"device {spec.name}: fft {fft} at {rate} sps is outside the int8 PSD kernel's [2, 2^24] "
             "on the card; set tunables.int8_ingest=false"
         )
+    if spec.channels > MAX_CHANNELS:
+        return f"device {spec.name}: {spec.channels} channels, above the analysis-bank kernel's {MAX_CHANNELS} on the card"
     return None
 
 
@@ -156,9 +161,10 @@ def unported_path(
     """Why this config (and device, scanned on the torch ``device``) needs a
     path the port does not have, or a geometry its card's kernels do not
     take; None when it runs. Every path of the JAX package is ported, and
-    the kernels take every geometry the JAX package scans, so only compact
-    detection below ``detection_top_k`` (which the JAX package cannot run
-    either) and an int8 fft above 2^24 remain. The time and band shards of
+    the kernels take every geometry the JAX package scans but three:
+    compact detection below ``detection_top_k`` (which the JAX package
+    cannot run either), an int8 fft above 2^24 and a wideband device of
+    more than 4096 channels. The time and band shards of
     a mesh run the kernels at the device's own fft (a shard holds fewer
     frames or bands, never narrower rows), so the kernel check covers them
     too, on every process of a multi-host run."""

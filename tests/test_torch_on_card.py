@@ -15,7 +15,7 @@ from chip_smoke import SPLIT_SELECT_CASES, split_selection_rows
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.ops import ddc, detect
-from rtl_sdr_scanner_tpu_torch.ops.cuda import fir_kernel, psd_kernel, select_kernel
+from rtl_sdr_scanner_tpu_torch.ops.cuda import channelizer_kernel, fir_kernel, psd_kernel, select_kernel
 
 pytestmark = pytest.mark.cuda
 DECIM = 3
@@ -453,13 +453,22 @@ def test_session_on_card_matches_cpu(dev, tmp_path):
     assert n > 32_000 and abs(tone - chip_smoke.RT_TONE) < 40
 
 
+@pytest.mark.parametrize("size", ["ragged", "8192"])
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
 @pytest.mark.parametrize("oversample", [1, 2])
-@pytest.mark.parametrize("b", [8, 16])
-def test_channelizer_on_card_matches_cpu(b, oversample, dev):
-    """The bank on the card (a plain f32 bmm, TF32 off) against the same
-    calls on the CPU over three streamed int8 blocks: channels within 2e-5
-    (atol = rtol, tests/test_channelizer.py's bar between the bank's forms),
-    the carried tails exact."""
+@pytest.mark.parametrize("b", [2, 8, 12, 16, 64, 128])
+def test_channelizer_on_card_matches_cpu(b, oversample, dtype, size, dev):
+    """The bank on the card (the analysis-bank kernel, its FFT form for the
+    powers of two to 64 and its direct-DFT form for 12 and 128: from the
+    int8 or f32 pairs as they are, and from the [2, n] components of the 2x
+    bank's even and odd phases) against the same calls on the CPU (the
+    matmul form) over three streamed blocks of b * 8192 samples (many runs
+    of the kernel's grid) or of n not a multiple of the kernel's run:
+    channels within 2e-5 (atol = rtol, tests/test_channelizer.py's bar
+    between the bank's forms), the carried tails exact, one launch a bank;
+    the critically sampled bank of n not a multiple of the run also within
+    2e-5 of the numpy offline model (``offline_channelize``) over the whole
+    stream."""
     from rtl_sdr_scanner_tpu_torch.ops import channelizer as ch
 
     plan = ch.plan_channelizer(b, oversample=oversample)
@@ -467,18 +476,32 @@ def test_channelizer_on_card_matches_cpu(b, oversample, dev):
     init = ch.init_channelizer2x_state if oversample == 2 else ch.init_channelizer_state
     states = {d: init(plan, d) for d in ("cpu", dev)}
     rng = np.random.default_rng(b + oversample)
+    m = channelizer_kernel.run_length(b) + 77 if size == "ragged" else 8192
+    stream, outs_card = [], []
     for _ in range(3):
-        pairs = torch.from_numpy(rng.integers(-100, 100, size=(b * 8192, 2), dtype=np.int8))
+        pairs = torch.from_numpy(rng.integers(-100, 100, size=(b * m, 2), dtype=np.int8))
+        if dtype == "float32":
+            pairs = pairs.to(torch.float32) * (1.0 / 127.5)
         outs = {}
+        before = channelizer_kernel.analysis_bank.launches
         for d in ("cpu", dev):
             states[d], outs[d] = fn(plan, states[d], pairs.to(d))
         torch.cuda.synchronize()
+        assert channelizer_kernel.analysis_bank.launches == before + oversample
         got, want = outs[dev].cpu(), outs["cpu"]
-        assert got.shape == (b, oversample * 8192, 2)
+        assert got.shape == (b, oversample * m, 2)
         assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
-    tail = states[dev].even.tail if oversample == 2 else states[dev].tail
-    want_tail = states["cpu"].even.tail if oversample == 2 else states["cpu"].tail
-    assert torch.equal(tail.cpu(), want_tail)
+        tail = states[dev].even.tail if oversample == 2 else states[dev].tail
+        want_tail = states["cpu"].even.tail if oversample == 2 else states["cpu"].tail
+        assert torch.equal(tail.cpu(), want_tail) and want_tail.abs().max() > 0
+        stream.append(pairs.to(torch.float32) * (1.0 / 127.5 if dtype == "int8" else 1.0))
+        outs_card.append(got)
+    if oversample == 1 and size == "ragged":
+        x = torch.cat(stream).double().numpy()
+        ref = torch.from_numpy(ch.offline_channelize(plan, x[:, 0] + 1j * x[:, 1]))
+        want = torch.stack([ref.real, ref.imag], dim=-1)
+        got = torch.cat(outs_card, dim=1).double()
+        assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
 
 
 def _wideband_capture(tmp_path, seconds=6.0):
@@ -699,7 +722,8 @@ def _graph_against_eager(dev, make, blocks=4, n_state=None, segments=1):
     launches."""
     from rtl_sdr_scanner_tpu_torch.graph import _flatten
 
-    wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
+    wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir,
+                channelizer_kernel.analysis_bank)
     runs = {}
     for form in ("eager", "graphed"):
         step, state, args_of = make()
@@ -763,7 +787,7 @@ def test_graphed_fused_step_equals_eager_on_card(dev):
 
         return blk.step, blk.state, args_of
 
-    assert _graph_against_eager(dev, make) == [4, 4, 4]
+    assert _graph_against_eager(dev, make) == [4, 4, 4, 0]
 
 
 @pytest.mark.parametrize("rate,bw,frames", [(256_000, 16_000, 10), (240_000, 3_200, 75)], ids=["modtap", "v1"])
@@ -799,7 +823,7 @@ def test_graphed_session_steps_equal_eager_on_card(rate, bw, frames, dev):
 
     assert _graph_against_eager(dev, make_scan)[:2] == [4, 4]
     # the modulated-taps chain here has one stage: no FIR launch to count
-    assert _graph_against_eager(dev, make_ddc) == [0, 0, 4 * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))]
+    assert _graph_against_eager(dev, make_ddc) == [0, 0, 4 * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), 0]
 
 
 def test_graphed_wideband_fused_step_equals_eager_on_card(dev):
@@ -826,7 +850,7 @@ def test_graphed_wideband_fused_step_equals_eager_on_card(dev):
         return blk.step, [blk.chan, blk.scan, blk.acc, blk.ddc], args_of
 
     launches = _graph_against_eager(dev, make, n_state=4)
-    assert launches[0] == 0 and launches[1] == 4
+    assert launches[0] == 0 and launches[1] == 4 and launches[3] == 4
 
 
 def test_graphed_time_shards_equal_eager_on_card(dev):
@@ -884,7 +908,7 @@ def test_graphed_time_shards_equal_eager_on_card(dev):
 
     assert _graph_against_eager(dev, make_scan, n_state=1, segments=3 * n)[:2] == [4 * n, 4 * n]
     assert _graph_against_eager(dev, make_ddc, n_state=1, segments=n * len(ddc_cfg.plans)) == [
-        0, 0, 4 * n * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg))]
+        0, 0, 4 * n * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), 0]
     _graph_against_eager(dev, make_v1, n_state=0, segments=n * (len(v1_cfg.plans) + 2))
 
 
@@ -927,9 +951,10 @@ def test_graphed_band_shards_equal_eager_on_card(fused, dev):
 
     if fused:
         launches = _graph_against_eager(dev, lambda: make("fused"), n_state=4, segments=shards)
-        assert launches[0] == 0 and launches[1] == 4 * shards
+        assert launches[0] == 0 and launches[1] == 4 * shards and launches[3] == 4 * shards
     else:
-        assert _graph_against_eager(dev, lambda: make("wide"), n_state=3, segments=shards)[:2] == [0, 4 * shards]
+        launches = _graph_against_eager(dev, lambda: make("wide"), n_state=3, segments=shards)
+        assert launches[:2] == [0, 4 * shards] and launches[3] == 4 * shards
         _graph_against_eager(dev, lambda: make("ddc"), n_state=1, segments=shards)
 
 
@@ -1061,7 +1086,7 @@ def test_graphed_step_replays_its_stage_markers_on_card(dev):
         torch.cuda.synchronize()
     fir = ddc_cfg.num_chunks * len(drivers.fir_stages(ddc_cfg))
     want_launches = {"psd_frames_int8": replays, "fused_selection": replays, "history_vote": replays,
-                     "stage_apply_fir": fir * replays}
+                     "stage_apply_fir": fir * replays, "analysis_bank": 0}
     assert {name: fn.launches - before[name] for name, fn in wrappers.items()} == want_launches
     kernels, ops = _device_trace(prof)
     marks = [(name, s, e) for name, s, e in kernels if name.startswith("trace_")]

@@ -582,13 +582,16 @@ class _Idle:
 
 
 @pytest.mark.parametrize("case", ["select_fft_128", "wideband_select_fft_128", "psd_fft_128", "runs",
-                                  "psd_fft_2_23", "psd_fft_2_25", "select_below_top_k"])
+                                  "psd_fft_2_23", "psd_fft_2_25", "select_below_top_k", "bank_12_channels",
+                                  "bank_128_channels", "bank_4096_channels", "bank_8192_channels"])
 def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
     """On a CUDA device, unported_path names only what the JAX package
-    cannot run either (compact detection below detection_top_k) and an int8
-    fft above the PSD kernel's 2^24; the selection at fft 128 (a single
+    cannot run either (compact detection below detection_top_k), an int8
+    fft above the PSD kernel's 2^24 and a wideband device of more channels
+    than the analysis-bank kernel's 4096; the selection at fft 128 (a single
     32 kHz band, 64 channels of 2.048 Msps), the int8 PSD at fft 128 and at
-    fft 2^23 (a 2 Gsps direct-sampling band) run there. It reads only the
+    fft 2^23 (a 2 Gsps direct-sampling band), and banks of 12, 128 and 4096
+    channels (the kernel's direct-DFT form) run there. It reads only the
     config, so it launches nothing here. On the CPU the same configs run the
     plain versions."""
     from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
@@ -601,6 +604,10 @@ def test_unported_path_names_kernel_geometries_on_the_card(short_capture, case):
         "psd_fft_2_23": (2_000_000_000, 0, {}, None),  # fft 2^23: the cluster scratch form
         "psd_fft_2_25": (8_000_000_000, 0, {}, "int8 PSD kernel's [2, 2^24]"),  # fft 2^25
         "select_below_top_k": (8_000, 0, {}, "detection_top_k 64"),  # fft 32
+        "bank_12_channels": (3_072_000, 12, {}, None),  # 256 kHz channels
+        "bank_128_channels": (4_096_000, 128, {}, None),  # 32 kHz channels
+        "bank_4096_channels": (4096 * 32_000, 4096, {}, None),
+        "bank_8192_channels": (8192 * 32_000, 8192, {}, "analysis-bank kernel's 4096"),
     }[case]
     raw = _raw(short_capture, tunables=tunables)
     raw["devices"][0].update(sample_rate=rate, channels=channels)
