@@ -174,12 +174,7 @@
    the CPU run ((d) holds these stages card against CPU). Step 2 holds the
    PSD and the selection at (b)'s to (e)'s shapes too, and step 9
    times them there.
-13. ``bench_torch.py``'s functions (before step 9, whose profiler would
-   slow them): ``bench_bands`` at 24 bands and ``bench_wideband``'s fused
-   form at 8, windows cut to 0.5 s; each checks its kernels' launches over
-   its timed windows, and each JSON line must carry bench.py's keys; prints
-   both lines.
-14. The graphed steps against eager (before step 9): path 1, path 2 and the
+13. The graphed steps against eager (before step 9): path 1, path 2 and the
    491.52 Msps band (``drivers.BandedBlocks``), the fused wideband step
    (``drivers.WidebandBlocks``, one-card mesh), GRAPH_BLOCKS blocks each,
    slot 1 of the signal's band restarted on a new shift before block
@@ -233,22 +228,25 @@ import os
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+# the bars and scenes the CPU tests share live in tests/torch_checks.py
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_checks import (  # noqa: E402
+    MH_CENTER, MH_CHANNELS, MH_RATE, PSD_NEAR_DB, PSD_TOL_DB, RT_TONE, SPLIT_SELECT_CASES, band_of, compare_payloads,
+    payload_band, psd_agreement, psd_within_bar, recorded_tone, run_main, spawn_ranks, split_selection_rows,
+    write_capture,
+)
+
 TOP_K = 64
 CHECK_ROWS = 45 * 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
-PSD_TOL_DB = 0.02
-PSD_MEDIAN_TOL_DB = 1e-3
-PSD_NEAR_DB = 60.0  # the dB bars hold on the bins within this of their row's peak
-PSD_LINEAR_TOL = 1e-5  # |dP| over the row's peak power, on every bin
 FIR_REL_TOL = 2e-5
 PROFILE_TRIES = 3
 
@@ -286,7 +284,6 @@ RT_SECONDS = 8.2
 RT_CENTER = 145_000_000
 RT_SHIFT = 250_000
 RT_KEY = (3.0, 6.0)
-RT_TONE = 800.0
 # the session's kernel shapes (one band, 4 slots), timed beside the paths'
 RUNTIME = Geometry("runtime", "runtime session (one 2.4 Msps device, 4 slots at 32 kHz)", RT_RATE, 75, 32_000,
                    -600_000, bands=1, slots=4)
@@ -301,14 +298,6 @@ PSD_FORM_CASES = ((256, 1, 7), (16384, 3, 5), (32768, 3, 5), (131072, 1, 3), (26
 # (frames, fft, decim): the scratch forms timed at each size, 16 frames (the
 # 491.52 Msps block's count) at decim 4
 SCRATCH_PSD_TIMED = tuple((16, 1 << log, 4) for log in range(18, 25))
-# (rows, fft, top_k, k_sep, submargin): the selection's row-split form and the
-# boundary to the warp-a-row form (at most 384 rows of 2^17-2^24 split),
-# on rows with ties across every slice edge (split_selection_rows); its
-# widened leaves at [16, 2^23] (512 bins) and [16, 2^24] (1024)
-SPLIT_SELECT_CASES = ((1, 1 << 18, 64, 16, 64), (16, 1 << 21, 64, 16, 64), (45, 131072, 64, 16, 52),
-                      (45, 131072, 64, 16, 5000), (180, 131072, 64, 16, 52), (384, 131072, 64, 16, 52),
-                      (385, 131072, 64, 16, 52), (6, 1 << 22, 8, 4, 3), (16, 1 << 23, 64, 16, 64),
-                      (16, 1 << 24, 64, 16, 64))
 # (rows, fft, submargin): the selection timed beyond the paths' shapes (the
 # 1966.08 Msps block's [16, 2^23] is step 12e's)
 SPLIT_SELECT_TIMED = ((16, 1 << 24, 64),)
@@ -352,17 +341,13 @@ WIDE_SHARD = dataclasses.replace(WIDE, key="wideband_step_2_shards", bands=WIDE.
                                  name="wideband step over 2 band shards (4 channels a shard)")
 MESH_BLOCKS = 3  # the bands-sharded wideband step's blocks
 # step 11, the multi-host layer: MH_WORLD processes; the session's scene is
-# tests/test_multihost.py's (channel b's core is centered at (b mod 8) *
-# 256 kHz from the center: +500 kHz in channel 2, -750 kHz in channel 5)
+# tests/test_multihost.py's (its rate, channels and center: torch_checks'
+# MH_*; +500 kHz in channel 2, -750 kHz in channel 5)
 MH_WORLD = 2
-MH_RATE = 2_048_000
-MH_CHANNELS = 8
 MH_SECONDS = 8.0
-MH_CENTER = 145_000_000
 MH_SIGNALS = ((500_000, 800.0), (-750_000, 1200.0))
 MH_KEY = (3.0, 6.0)
 MH_RECORDING = {"max_noise_time_ms": 1000, "min_sample_rate": 16000, "min_time_ms": 1000, "step": 2500}
-ENV_CONTRACT = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
 CHILD_TIMEOUT_S = 300
 # a process's band shard in the session: 4 channels of 256 kHz (fft 1024, 16
 # frames, 16 kHz recordings: the selection kernel's shape there)
@@ -425,10 +410,7 @@ BAND_491_CPU_BLOCKS = 2
 BAND_1966 = Geometry("band_1966", "one band at 1966.08 Msps (fft 2^23, decim 4, 16 frames, 2 slots at 30 kHz)",
                      1_966_080_000, 16, 30_000, -100_000_000, bands=1, blocks=3, signal_band=0,
                      signal_offset_hz=50_000_000, signal_from_block=1)
-# step 13: bench_torch.py's functions, their windows cut to BENCH_SECONDS
-BENCH_BANDS = 24
-BENCH_SECONDS = 0.5
-# step 14: each one-card block step graphed against the same step eager,
+# step 13: each one-card block step graphed against the same step eager,
 # GRAPH_BLOCKS blocks a form, slot 1 of the signal's band restarted on a new
 # shift before block GRAPH_SLOT_BLOCK; the session on two ranges, so that it
 # hops (its noise learning cut to GRAPH_LEARN_MS, so that a range learns
@@ -440,13 +422,6 @@ GRAPH_SLOT_BLOCK = 3
 GRAPH_REPLAYS = 5
 GRAPH_RANGES = ((RT_CENTER - 1_000_000, RT_CENTER + 1_000_000), (RT_CENTER + 1_000_000, RT_CENTER + 3_000_000))
 GRAPH_LEARN_MS = 500
-# the keys of bench.py's JSON lines (tests/test_torch_bench.py holds them to bench.py's)
-BENCH_KEYS = {
-    "iq_samples_per_second_per_chip_scan_plus_ddc": ("metric", "value", "unit", "vs_baseline", "detection_dtype",
-                                                     "spread", "repeats"),
-    "iq_samples_per_second_per_chip_wideband_app_path": ("metric", "value", "unit", "vs_baseline", "spread",
-                                                         "repeats"),
-}
 
 
 def log(*args):
@@ -597,47 +572,6 @@ def selection_rows(fft: int, dtype, dev, n_rows: int = CHECK_ROWS) -> torch.Tens
     rows[4 * r + 4 : 5 * r, fft // 3 :] = -3.0e38
     rows[5 * r :, : fft // 2] = LEVEL  # exactly at the level
     return torch.from_numpy(rows).to(dev).to(dtype)
-
-
-def split_selection_rows(fft: int, n_rows: int, slice_bins: int, rng) -> np.ndarray:
-    """Rows for the selection's row-split form: ties across every slice edge
-    (equal maxima on both sides of it), exact ties everywhere, a masked
-    (-3.0e38) tail the top-K reaches into, fully masked rows (the
-    all-suppressed corner), values at the level, clusters straddling slice
-    edges."""
-    from rtl_sdr_scanner_tpu_torch.drivers import LEVEL
-
-    rows = rng.normal(0.0, 6.0, size=(max(n_rows, 6), fft)).astype(np.float32)
-    edges = np.arange(slice_bins, fft, slice_bins)
-    rows[0::6, edges - 1] = 60.0
-    rows[0::6, edges] = 60.0
-    rows[1::6] = np.round(rows[1::6] / 4.0)
-    rows[2::6, 40:] = -3.0e38
-    rows[3::6] = -3.0e38
-    rows[4::6, fft // 2 :] = LEVEL
-    for e in edges[::3]:
-        rows[5::6, e - 30 : e + 30] += 25.0
-    return rows[:n_rows]
-
-
-def psd_agreement(got_db: torch.Tensor, want_db: torch.Tensor) -> dict:
-    """Two PSD dB arrays [rows, fft] under the PSD bar: the max |diff| (dB)
-    on the bins within PSD_NEAR_DB of their row's peak, the median |diff|
-    and the max over every bin, and the largest |dP| over the row's peak
-    power on any bin (f32 FFTs that round differently agree in power; at a
-    deep null a dB difference has no bound)."""
-    got, want = got_db.double(), want_db.double()
-    diff = (got - want).abs()
-    peak = want.amax(dim=1, keepdim=True)
-    near = want >= peak - PSD_NEAR_DB
-    d_power = (torch.pow(10.0, got / 10) - torch.pow(10.0, want / 10)).abs()
-    return dict(max_db=diff[near].max().item(), median_db=diff.median().item(),
-                all_max_db=diff.max().item(), linear=(d_power / torch.pow(10.0, peak / 10)).max().item())
-
-
-def psd_within_bar(agreement: dict) -> bool:
-    return (agreement["max_db"] <= PSD_TOL_DB and agreement["median_db"] <= PSD_MEDIAN_TOL_DB
-            and agreement["linear"] <= PSD_LINEAR_TOL)
 
 
 def psd_form(fft: int) -> str:
@@ -973,8 +907,9 @@ def geo_shifts(geo: Geometry) -> np.ndarray:
 
 class MainPath:
     """One geometry at full width: configs, the step with default Tunables
-    and its carried state (``drivers.BandedBlocks``, as bench_torch.py
-    drives it), and a ring of synthetic cs8 on the card."""
+    and its carried state (``drivers.BandedBlocks``, as
+    ``benchmark/drivers/step.py`` drives it), and a ring of synthetic cs8
+    on the card."""
 
     def __init__(self, dev, geo: Geometry, ring=None, learn_ms: int = 0):
         """``ring``: blocks to copy to ``dev`` in place of a new ring;
@@ -1111,25 +1046,6 @@ def check_interpolating_stages(dev) -> None:
             raise RuntimeError(f"interpolating chain at {rate}: card and CPU differ by {diff.max()} LSB")
 
 
-def write_capture(path: Path, rate: int, seconds: float, shift, key, seed: int = 5) -> None:
-    """cs8 capture: 0.01 rms complex noise and, while key[0] <= t < key[1],
-    a 0.4-amplitude FM signal at ``shift`` Hz (an RT_TONE Hz tone at 3 kHz
-    deviation: band-wide, as the 21-bin smoothing needs), one second at a
-    time. ``shift`` may instead be a list of (shift, tone) signals."""
-    signals = [(shift, RT_TONE)] if np.isscalar(shift) else list(shift)
-    rng = np.random.default_rng(seed)
-    n = int(rate * seconds)
-    with open(path, "wb") as f:
-        for s0 in range(0, n, rate):
-            t = (s0 + np.arange(min(rate, n - s0))) / rate
-            x = 0.01 * (rng.standard_normal(t.size) + 1j * rng.standard_normal(t.size))
-            for sig_shift, tone in signals:
-                phase = 2 * np.pi * sig_shift * t + (3000.0 / tone) * (1 - np.cos(2 * np.pi * tone * t))
-                x += 0.4 * np.exp(1j * phase) * ((t >= key[0]) & (t < key[1]))
-            pairs = np.stack([x.real, x.imag], axis=-1) * 127.0
-            np.clip(np.round(pairs), -128, 127).astype(np.int8).tofile(f)
-
-
 def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, recording_rate: int = 32_000,
                    **tunables) -> dict:
     """One replay device parked on one range (width <= the hop split rate
@@ -1152,56 +1068,6 @@ def runtime_config(capture: Path, rate: int, center: int, channels: int = 0, rec
         "version": 2,
         "workers": 4,
     }
-
-
-def compare_payloads(want: list, got: list) -> dict:
-    """Two MQTT payload streams [(topic, bytes)]: the same topics in the same
-    order, equal transmission and spectrogram headers, IQ within 1 LSB and
-    spectrogram bins within 1. Raises AssertionError where they differ;
-    returns counts and the largest differences."""
-    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_spectrogram, decode_transmission
-
-    assert [t for t, _ in got] == [t for t, _ in want], "payload topics or their order differ"
-    stats = dict(payloads=len(want), transmissions=0, iq_samples=0, iq_differ=0, iq_max_lsb=0, spectro_max=0)
-    for i, ((topic, a), (_, b)) in enumerate(zip(want, got)):
-        if topic.endswith("/transmission/uint8"):
-            ha, hb = decode_transmission(a), decode_transmission(b)
-            assert ha[:4] == hb[:4] and ha[4].shape == hb[4].shape, f"payload {i}: header {ha[:4]} != {hb[:4]}"
-            d = np.abs(ha[4].astype(np.int32) - hb[4].astype(np.int32))
-            stats["transmissions"] += 1
-            stats["iq_samples"] += d.size
-            stats["iq_differ"] += int((d > 0).sum())
-            stats["iq_max_lsb"] = max(stats["iq_max_lsb"], int(d.max(initial=0)))
-        else:
-            ha, hb = decode_spectrogram(a), decode_spectrogram(b)
-            assert ha[:4] == hb[:4], f"payload {i}: spectrogram header {ha[:4]} != {hb[:4]}"
-            d = np.abs(ha[4].astype(np.int32) - hb[4].astype(np.int32))
-            stats["spectro_max"] = max(stats["spectro_max"], int(d.max(initial=0)))
-    assert stats["iq_max_lsb"] <= 1, f"IQ differs by {stats['iq_max_lsb']} LSB"
-    assert stats["spectro_max"] <= 1, f"spectrogram bins differ by {stats['spectro_max']}"
-    return stats
-
-
-def recorded_tone(payloads: list, frequency: int, rate: int, step: int = 2500):
-    """(recording center, its sample count, the FM-demodulated tone in Hz) of
-    the most-recorded transmission within one tuning step of ``frequency``."""
-    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_transmission
-
-    by_center = {}
-    for topic, p in payloads:
-        if topic.endswith("/transmission/uint8"):
-            _, start, stop, r, iq = decode_transmission(p)
-            assert r == rate, f"transmission at {r} Hz, want {rate}"
-            by_center.setdefault((start + stop) // 2, []).append(iq)
-    near = [c for c in by_center if abs(c - frequency) <= step]
-    assert near, f"no transmission within {step} Hz of {frequency}: {sorted(by_center)}"
-    center = max(near, key=lambda c: sum(len(x) for x in by_center[c]))
-    iq = np.concatenate(by_center[center])
-    z = iq[:, 0].astype(np.float32) + 1j * iq[:, 1].astype(np.float32)
-    z = z[len(z) // 4 :]
-    d = np.angle(z[1:] * np.conj(z[:-1]))
-    sp = np.abs(np.fft.rfft(d - d.mean()))
-    return center, len(iq), float(np.argmax(sp) / len(d) * rate)
 
 
 class SessionTimer:
@@ -1268,59 +1134,6 @@ def run_scanner(config: dict, device, timer: bool = False, on_made=None):
     if device.type == "cuda":
         torch.cuda.synchronize()
     return mqtt.published, scanner.device, time.perf_counter() - t0, clock
-
-
-def run_main(config_path: Path, device=None, timeout_s: float = 300.0, scanners: int = 1, on_made=None):
-    """``runtime.main.run(config)`` on a worker thread, as a user runs it;
-    stopped through ``main._is_running`` once its ``scanners`` scanners
-    (``Scanner`` or ``WidebandScanner``, a thread each) have drained their
-    replays. ``on_made(scanner)`` runs on each scanner before it starts.
-    Returns (rc, payloads)."""
-    from rtl_sdr_scanner_tpu_torch.runtime import main as rt_main
-    from rtl_sdr_scanner_tpu_torch.runtime.mqtt_client import NullMqtt
-
-    made, mqtts, result = [], [], []
-    real = {name: getattr(rt_main, name) for name in ("Scanner", "WidebandScanner", "make_mqtt")}
-
-    def watched(cls):
-        class Watched(cls):
-            def __init__(self, *args, **kwargs):
-                super().__init__(*args, **kwargs)
-                made.append(self)
-                if on_made is not None:
-                    on_made(self)
-
-        return Watched
-
-    def make_mqtt(config):
-        mqtt = NullMqtt()
-        mqtt.keep_payloads = True
-        mqtts.append(mqtt)
-        return mqtt
-
-    rt_main.Scanner, rt_main.WidebandScanner = watched(real["Scanner"]), watched(real["WidebandScanner"])
-    rt_main.make_mqtt = make_mqtt
-    rt_main._is_running = True
-    worker = threading.Thread(target=lambda: result.append(rt_main.run(str(config_path), device)), daemon=True)
-    try:
-        worker.start()
-        deadline = time.time() + timeout_s
-        drained = lambda: len(made) == scanners and all(
-            s._thread is not None and not s._thread.is_alive() for s in made)
-        while worker.is_alive() and not drained() and time.time() < deadline:
-            time.sleep(0.05)
-        if not drained():
-            raise RuntimeError(f"main.run: the scanners did not drain the replay in {timeout_s} s")
-    finally:
-        rt_main._is_running = False
-        worker.join(timeout=60)
-        for name, value in real.items():
-            setattr(rt_main, name, value)
-    if worker.is_alive() or not result:
-        raise RuntimeError("main.run did not return after main._is_running was cleared")
-    if any(s.failed for s in made):
-        raise RuntimeError("main.run: a scanner thread failed")
-    return result[0], mqtts[0].published
 
 
 def run_runtime(dev, card: str) -> dict:
@@ -2106,47 +1919,6 @@ def machine_cards() -> int:
     return sum(1 for line in out.stdout.splitlines() if line.startswith("GPU "))
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def spawn_ranks(argv_of, world: int, timeout_s: float, env_of=lambda rank: {}, cwd=None) -> list:
-    """``world`` processes, rank r running ``argv_of(r, port)`` (``port``: a
-    free localhost port for their process group) in this environment with
-    ``env_of(r)`` over it and the env contract taken out. Returns each
-    rank's (exit code, output). If they outlive ``timeout_s``, every child
-    is killed by its PID and this raises with their output."""
-    port = free_port()
-    procs, outs = [], [None] * world
-    try:
-        for rank in range(world):
-            env = dict(os.environ, **env_of(rank))
-            for name in ENV_CONTRACT:
-                env.pop(name, None)
-            procs.append(subprocess.Popen(
-                [str(a) for a in argv_of(rank, port)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=cwd,
-            ))
-        deadline = time.monotonic() + timeout_s
-        for rank, p in enumerate(procs):
-            outs[rank] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        logs = [out if out is not None else p.communicate()[0] for p, out in zip(procs, outs)]
-        raise RuntimeError(f"children outlived {timeout_s} s:\n" + "\n---\n".join(o[-4000:] for o in logs)) from None
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [(p.returncode, out) for p, out in zip(procs, outs)]
-
-
 def run_children(mode: str, root: Path, *args, timeout_s: float = CHILD_TIMEOUT_S) -> list:
     """MH_WORLD processes of this script in child ``mode`` (ranks 0..n-1,
     one process group), each rank on its own card where the machine has one
@@ -2165,20 +1937,6 @@ def run_children(mode: str, root: Path, *args, timeout_s: float = CHILD_TIMEOUT_
             if line.startswith("child "):
                 log(f"[rank {rank}] {line}")
     return outs
-
-
-def band_of(frequency: int) -> int:
-    """The multi-host scene's channel whose core holds ``frequency``."""
-    core = MH_RATE // MH_CHANNELS
-    return int(round((frequency - MH_CENTER) / core) % MH_CHANNELS)
-
-
-def payload_band(topic: str, payload: bytes) -> int:
-    from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_spectrogram, decode_transmission
-
-    decode = decode_transmission if topic.endswith("/transmission/uint8") else decode_spectrogram
-    _, s0, s1, _, _ = decode(payload)
-    return band_of((s0 + s1) // 2)
 
 
 def session_pace(walls: list, device_ms: list, block_samples: int) -> str:
@@ -2726,36 +2484,7 @@ def run_every_fft(dev, card: str) -> dict:
     return launches
 
 
-def run_bench(dev, card: str) -> dict:
-    """Step 13: bench_torch.py's functions on the card, their windows cut to
-    BENCH_SECONDS: the scan + DDC bench at BENCH_BANDS bands and the fused
-    wideband bench (8 channels). Each checks its kernels' launches over its
-    timed windows itself (the counts are read here too); each JSON line must
-    carry bench.py's keys. Returns {phase: counts}."""
-    import bench_torch
-
-    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
-
-    log("---- step 13: bench_torch.py's functions")
-    wrappers = kernel_wrappers()
-    launches = {}
-    for phase in ("bench_bands", "bench_wideband"):
-        t0 = time.perf_counter()
-        if phase == "bench_bands":
-            rates = bench_torch.bench_bands(BENCH_BANDS, BENCH_SECONDS, False)
-            result = bench_torch.bands_result(*bench_torch._median_spread(rates), len(rates), f32=False)
-        else:
-            result = bench_torch.wideband_result(bench_torch.bench_wideband(8, BENCH_SECONDS))
-        launches[phase] = {name: fn.launches for name, fn in wrappers.items()}
-        if tuple(result) != BENCH_KEYS.get(result["metric"]) or not result["value"] > 0:
-            raise RuntimeError(f"{phase}: JSON line {result} lacks bench.py's keys or a positive value")
-        log(f"{phase} ({time.perf_counter() - t0:.1f} s, windows of {BENCH_SECONDS} s): {json.dumps(result)}; "
-            f"launches over the timed windows {launches[phase]} on {card}")
-        free_card()
-    return launches
-
-
-# -- step 14: the graphed steps against eager ---------------------------------------
+# -- step 13: the graphed steps against eager ---------------------------------------
 
 
 def replay_ms(step, calls: int = 0) -> float:
@@ -3187,7 +2916,7 @@ def run_graphs(dev, card: str) -> tuple:
     fused wideband step, then the sharded forms (10a, 10b fused and split,
     10c, 11a), each eager and graphed. Returns ({phase: counts}, {path:
     report})."""
-    log("---- step 14: the steps graphed (CUDA graphs, donated state) against eager")
+    log("---- step 13: the steps graphed (CUDA graphs, donated state) against eager")
     launches, reports = {}, {}
     for key, geo, learn_ms in (("path1", PATH1, 0), ("path2", PATH2, 0), ("band_491", BAND_491, BAND_491_LEARN_MS)):
         counts, reports[key] = graph_banded(dev, card, geo, learn_ms)
@@ -3206,7 +2935,7 @@ def run_graphs(dev, card: str) -> tuple:
         key = f"wideband_{BAND_SHARDS}_shards_{'fused' if fused else 'split'}"
         counts, reports[key] = graph_wideband(dev, card, fused, BAND_SHARDS)
         launches.update({f"graphs_{form}_{key}": c for form, c in counts.items()})
-    log(f"step 14 ({card}): {json.dumps(reports)}")
+    log(f"step 13 ({card}): {json.dumps(reports)}")
     return launches, reports
 
 
@@ -3366,9 +3095,6 @@ def main() -> int:
         launches.update(run_multi_host(dev, card, root))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_every_fft(dev, card))
-        log(f"[{time.perf_counter() - t_start:.1f} s]")
-        # the bench before any timing with the profiler (it slows every later launch)
-        launches.update(run_bench(dev, card))
         log(f"[{time.perf_counter() - t_start:.1f} s]")
         launches.update(run_graphs(dev, card)[0])
         log(f"[{time.perf_counter() - t_start:.1f} s]")

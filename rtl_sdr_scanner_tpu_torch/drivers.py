@@ -1,14 +1,16 @@
-"""Block-step drivers shared by the port's bench (``bench_torch.py``) and its
-smoke run on the card (``chip_smoke.py``).
+"""The block-step drivers of the benchmark (``benchmark/drivers/``) and of
+the smoke run on the card (``chip_smoke.py``).
 
 Each holds one geometry's block step with everything a caller feeds it
 besides the IQ: the carried state, the DDC tables of its slot shifts, the
 detection keys (none pinned), the valid mask (every bin), the start level,
 the spectrogram keep, and the frame times of block b (made on the device).
-Both scripts build their steps here, so the bench times the step the smoke
+Both build their steps here, so the benchmark times the step the smoke
 run checks. The steps are graphed (``graph.donated_step``: one captured
 CUDA graph a geometry, the state carried in place; a wideband band mesh's
 ``graph.sharded_step``: one a band shard); ``.step.fn`` is the eager step.
+``kernel_wrappers`` is ``ops.cuda``'s registry, named here for the drivers'
+callers.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from rtl_sdr_scanner_tpu_torch.graph import donated_step, sharded_step
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.models.ddc_pipeline import DdcConfig
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanConfig
+from rtl_sdr_scanner_tpu_torch.ops.cuda import kernel_wrappers  # noqa: F401
 
 KEY_SLOTS = 16  # detection keys a band, none pinned (-1)
 LEVEL = 8.0  # start_recording_level, dB
@@ -36,21 +39,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def kernel_wrappers() -> dict:
-    """The hand-written kernels' wrappers by name; each counts its launches
-    in ``.launches``."""
-    from rtl_sdr_scanner_tpu_torch.ops.cuda import (
-        channelizer_kernel, fir_kernel, psd_kernel, select_kernel, vote_kernel)
-
-    return {
-        "psd_frames_int8": psd_kernel.psd_frames_int8,
-        "fused_selection": select_kernel.fused_selection,
-        "history_vote": vote_kernel.history_vote,
-        "stage_apply_fir": fir_kernel.stage_apply_fir,
-        "analysis_bank": channelizer_kernel.analysis_bank,
-    }
 
 
 def fir_stages(ddc_cfg: DdcConfig, shards: int = 1) -> list:

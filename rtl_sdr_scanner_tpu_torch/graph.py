@@ -84,6 +84,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
+from rtl_sdr_scanner_tpu_torch.ops.cuda import kernel_wrappers
 from rtl_sdr_scanner_tpu_torch.parallel.collectives import on, to
 from rtl_sdr_scanner_tpu_torch.utils import logger
 from rtl_sdr_scanner_tpu_torch.utils.trace import load_marks
@@ -142,8 +143,6 @@ def _describe(specs) -> str:
 
 
 def _kernel_counts() -> List[Tuple[Callable, int]]:
-    from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
-
     return [(fn, fn.launches) for fn in kernel_wrappers().values()]
 
 

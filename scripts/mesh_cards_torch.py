@@ -19,7 +19,7 @@ copied in from the cards they lie on):
    capture, the time mesh resolved to the visible cards, and a wideband
    session (2.048 Msps into 16 channels) with ``mesh_bands`` -1, fused and
    split, over the visible cards; each against the same config's CPU run
-   on as many copies of the CPU device (``chip_smoke.compare_payloads``).
+   on as many copies of the CPU device (``torch_checks.compare_payloads``).
 Prints every card's name and power limit, ms a block beside the one-card
 form, and the kernels' launch counts as JSON, last
 ``{"ok": true, ...}``. Needs at least 2 cards; run it from the repository
@@ -37,7 +37,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 
 def wideband_session(card: str, cards: int) -> dict:
@@ -45,13 +45,14 @@ def wideband_session(card: str, cards: int) -> dict:
     cards, fused and split, each against the CPU run on as many copies of
     the CPU. Returns {form: counts}."""
     import chip_smoke as cs
+    import torch_checks as checks
     from rtl_sdr_scanner_tpu_torch.drivers import kernel_wrappers
 
     wrappers = kernel_wrappers()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="mesh_cards_wb_") as tmp:
         capture = Path(tmp) / "wide.cs8"
-        cs.write_capture(capture, cs.WB_RATE, cs.WB_SECONDS, cs.WB_SIGNALS, cs.WB_KEY, seed=7)
+        checks.write_capture(capture, cs.WB_RATE, cs.WB_SECONDS, cs.WB_SIGNALS, cs.WB_KEY, seed=7)
         for form in ("split", "fused"):
             config = cs.runtime_config(capture, cs.WB_RATE, cs.WB_CENTER, channels=cs.WB_CHANNELS, mesh_bands=-1,
                                        wideband_fused_dispatch=form == "fused")
@@ -63,7 +64,7 @@ def wideband_session(card: str, cards: int) -> dict:
             shape = scanner._mesh.shape
             with cs.cpu_cards(cards):
                 cpu_payloads, cpu_scanner, cpu_s, _ = cs.run_wideband_scanner(config, torch.device("cpu"))
-            stats = cs.compare_payloads(cpu_payloads, payloads)
+            stats = checks.compare_payloads(cpu_payloads, payloads)
             found = cs.check_wideband_recordings(payloads)
             cs.log(f"wideband session {form}, mesh_bands -1 -> {shape} (CPU {cpu_scanner._mesh.shape}): launches "
                    f"{counts}; card vs CPU {stats} (CPU {cpu_s:.1f} s); recorded {found}; {wall_s:.2f} s wall for "

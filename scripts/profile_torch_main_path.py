@@ -61,9 +61,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 import chip_smoke as cs  # noqa: E402
+import torch_checks as checks  # noqa: E402
 
 
 def main() -> int:
@@ -208,7 +209,7 @@ def profile_session(card: str, blocks: int) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         capture = Path(tmp) / "capture.cs8"
-        cs.write_capture(capture, cs.RT_RATE, cs.RT_SECONDS, cs.RT_SHIFT, cs.RT_KEY)
+        checks.write_capture(capture, cs.RT_RATE, cs.RT_SECONDS, cs.RT_SHIFT, cs.RT_KEY)
         cfg = Config(json.loads(json.dumps(cs.runtime_config(capture, cs.RT_RATE, cs.RT_CENTER))))
         scanner = Scanner(cfg, cfg.devices[0], NullMqtt(), cfg.recorders_count(), device=torch.device("cuda", 0))
         for _ in range(3):  # warm up: allocator, pinned buffers, noise learning
@@ -253,7 +254,7 @@ def profile_wideband_session(card: str, blocks: int, form: str) -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         capture = Path(tmp) / "wide.cs8"
-        cs.write_capture(capture, cs.WB_RATE, cs.WB_SECONDS, cs.WB_SIGNALS, cs.WB_KEY, seed=7)
+        checks.write_capture(capture, cs.WB_RATE, cs.WB_SECONDS, cs.WB_SIGNALS, cs.WB_KEY, seed=7)
         raw = cs.runtime_config(capture, cs.WB_RATE, cs.WB_CENTER, channels=cs.WB_CHANNELS, **dict(cs.WB_FORMS)[form])
         cfg = Config(json.loads(json.dumps(raw)))
         scanner = WidebandScanner(cfg, cfg.devices[0], NullMqtt(), cfg.recorders_count(), device=torch.device("cuda", 0))

@@ -15,7 +15,7 @@ and their recordings within 1 LSB.
 Session level (``tests/test_mesh_banded_ddc.py``'s method): the port's
 ``WidebandScanner`` with ``mesh_bands=2`` over two shards against the JAX
 package's on two virtual devices, payload by payload
-(``chip_smoke.compare_payloads``), split and fused.
+(``torch_checks.compare_payloads``), split and fused.
 
 The step-level comparisons with the one-shard form and with the JAX
 package, and the session, run the port's steps eager and graphed
@@ -33,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_payloads
 from rtl_sdr_scanner_tpu.models import ddc_pipeline as jdp
 from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
 from rtl_sdr_scanner_tpu.ops import channelizer as jch
@@ -48,6 +47,7 @@ from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan as tss
 from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
 from rtl_sdr_scanner_tpu_torch.runtime import wideband as twideband
 from tests.test_torch_wideband import B, _raw, _scan, _scene, _write, captures  # noqa: F401
+from torch_checks import compare_payloads
 
 torch.set_num_threads(2)
 NB, SUB_RATE, FRAMES, SLOTS, GROUP_SIZE, TOP_K, KEYS = 8, 256_000, 12, 2, 64, 16, 16

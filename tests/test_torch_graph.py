@@ -14,7 +14,7 @@ captured graphs against eager on the card).
 - the session, whose scan and DDC steps are graphed: pipelined ingest
   across hops with slot starts, a ``power_bf16`` session that hops, and
   the noise snapshots written after hops, each against the JAX package's
-  payloads or files (``chip_smoke.compare_payloads``' bars).
+  payloads or files (``torch_checks.compare_payloads``' bars).
 """
 
 from typing import NamedTuple
@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_payloads
 from rtl_sdr_scanner_tpu.models import ddc_pipeline as jdp
 from rtl_sdr_scanner_tpu.models import fused_step as jfs
 from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
@@ -36,6 +35,7 @@ from rtl_sdr_scanner_tpu_torch.models import scan_pipeline as tsp
 from rtl_sdr_scanner_tpu_torch.ops.ddc import reset_slot2
 from tests.test_torch_fused_step import GEOMETRIES, LEVEL, NB, TOP_K, _compare, _configs, _now, _scene
 from tests.test_torch_runtime import CENTER, _fm, _noise, _raw, _scan, _write
+from torch_checks import compare_payloads
 
 torch.set_num_threads(2)
 BLOCKS = 6

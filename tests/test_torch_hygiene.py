@@ -15,13 +15,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "rtl_sdr_scanner_tpu_torch"
 CARD_SCRIPTS = [
     ROOT / "scripts" / "profile_torch_main_path.py", ROOT / "scripts" / "psd_phase_split.py",
-    ROOT / "scripts" / "mesh_cards_torch.py", ROOT / "bench_torch.py",
+    ROOT / "scripts" / "mesh_cards_torch.py",
 ]
 SCAN_FILE = ROOT / "scripts" / "scan_file_torch.py"
+CHECKS = ROOT / "tests" / "torch_checks.py"
 SOURCES = (
     sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS
-    + [SCAN_FILE]
+    + [SCAN_FILE, CHECKS]
 )
+# the layers under the drivers and the runtime: what they import stays below them
+LOWER_LAYERS = sorted(p for d in ("ops", "ops/cuda", "models", "parallel", "utils") for p in (PKG / d).glob("*.py")) + [
+    PKG / "graph.py"]
+UPPER_LAYERS = ("rtl_sdr_scanner_tpu_torch.drivers", "rtl_sdr_scanner_tpu_torch.runtime", "chip_smoke")
 
 
 def _modules():
@@ -225,12 +230,40 @@ def test_graph_layer_is_checked():
 @pytest.mark.parametrize("script", CARD_SCRIPTS, ids=lambda p: p.name)
 def test_card_scripts_use_only_names_chip_smoke_defines(script):
     """Every ``cs.X`` / ``chip_smoke.X`` a card script reads exists in
-    chip_smoke.py (a name moved to ``drivers`` leaves no script behind)."""
+    chip_smoke.py, and every ``checks.X`` in ``torch_checks`` (a name moved
+    to ``drivers`` or to the checks leaves no script behind)."""
     import ast
 
     import chip_smoke
+    import torch_checks
 
     for node in ast.walk(ast.parse(script.read_text())):
         if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):
             if node.value.id in ("cs", "chip_smoke"):
                 assert hasattr(chip_smoke, node.attr), f"{script.name}:{node.lineno} chip_smoke.{node.attr}"
+            if node.value.id == "checks":
+                assert hasattr(torch_checks, node.attr), f"{script.name}:{node.lineno} torch_checks.{node.attr}"
+
+
+@pytest.mark.parametrize("path", LOWER_LAYERS, ids=lambda p: str(p.relative_to(PKG)))
+def test_lower_layers_import_nothing_above_them(path):
+    """The kernels' wrappers, the ops, the models, the mesh layer, the
+    utilities and the graph layer import neither the drivers nor the
+    runtime, nor a card script (relative imports resolved)."""
+    import ast
+
+    package = ".".join(path.relative_to(ROOT).with_suffix("").parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")[: len(package.split(".")) - node.level + 1]
+                base = ".".join(parts + ([base] if base else []))
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert not any(name == u or name.startswith(u + ".") for u in UPPER_LAYERS), (
+                f"{path.relative_to(PKG)}:{node.lineno} imports {name}")

@@ -13,7 +13,7 @@ package's ``tests/test_multihost.py``.
   processes run ``runtime.main.run`` through the env contract; each
   publishes exactly the one-process run's payloads of its own bands, byte
   for byte, and the one-process run (8 CPU shards) publishes what the JAX
-  package's ``WidebandScanner`` does (``chip_smoke.compare_payloads``).
+  package's ``WidebandScanner`` does (``torch_checks.compare_payloads``).
 - ``main``'s two multihost warnings, word for word as the JAX package's,
   and the non-modulated-taps refusal.
 
@@ -49,10 +49,10 @@ CAPTURE_SECONDS = 8.0
 
 def run_children(mode: str, world: int, *args, device: str = "cpu", env=None, timeout: float = CHILD_TIMEOUT) -> list:
     """``world`` children of this file in ``mode``, ranks 0..world-1, joined
-    over a free localhost port (``chip_smoke.spawn_ranks``); returns their
+    over a free localhost port (``torch_checks.spawn_ranks``); returns their
     logs. A child that times out (every child's exact PID is killed) or
     exits non-zero fails the test."""
-    from chip_smoke import spawn_ranks
+    from torch_checks import spawn_ranks
 
     extra = dict(env or {})
     extra["PYTHONPATH"] = str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")
@@ -91,7 +91,7 @@ def _outcome(fn, args):
 
 @pytest.mark.parametrize("case", sorted(ENV_CASES))
 def test_initialize_env_contract_matches_jax(case, monkeypatch):
-    from chip_smoke import ENV_CONTRACT
+    from torch_checks import ENV_CONTRACT
     from rtl_sdr_scanner_tpu.parallel import multihost as jmh
     from rtl_sdr_scanner_tpu_torch.parallel import multihost as tmh
 
@@ -271,7 +271,7 @@ def write_runtime_config(tmp_path: Path, seconds: float = CAPTURE_SECONDS, **tun
 
 
 def _runtime_child(rank: int, world: int, port: int, device: str, config_path: str, out_path: str) -> str:
-    from chip_smoke import run_main
+    from torch_checks import run_main
 
     os.environ.update(JAX_COORDINATOR_ADDRESS=f"localhost:{port}", JAX_NUM_PROCESSES=str(world),
                       JAX_PROCESS_ID=str(rank))
@@ -288,7 +288,7 @@ def _runtime_child(rank: int, world: int, port: int, device: str, config_path: s
 
 
 def test_two_process_runtime_matches_one_process(tmp_path, monkeypatch):
-    from chip_smoke import MH_CENTER, MH_CHANNELS, MH_RATE, compare_payloads, payload_band
+    from torch_checks import MH_CENTER, MH_CHANNELS, MH_RATE, compare_payloads, payload_band
     from rtl_sdr_scanner_tpu.runtime.config import Config as JConfig
     from rtl_sdr_scanner_tpu.runtime.mqtt_client import NullMqtt as JNullMqtt
     from rtl_sdr_scanner_tpu.runtime.wideband import WidebandScanner as JWideband
@@ -400,7 +400,7 @@ def _warnings_of(pkg: str, config_path: Path, monkeypatch) -> list:
 
 @pytest.mark.parametrize("setup", ["no_wideband_device", "mesh_bands_0"])
 def test_main_warns_as_the_reference(setup, tmp_path, monkeypatch):
-    from chip_smoke import ENV_CONTRACT
+    from torch_checks import ENV_CONTRACT
 
     for name in ENV_CONTRACT:
         monkeypatch.delenv(name, raising=False)

@@ -5,7 +5,7 @@ form. The JAX ``Scanner`` and the port's ``Scanner(..., device="cpu")`` on
 the same cs8 replays of a single 32 kHz (fft 128) and 16 kHz (fft 64) band,
 compact and full-row, and the JAX ``WidebandScanner`` against the port's on
 a 2.048 Msps capture split into 64 channels of 32 kHz (fft 128), in the
-split form; payloads compared by ``chip_smoke.compare_payloads`` (the same
+split form; payloads compared by ``torch_checks.compare_payloads`` (the same
 topics in the same order, equal headers, IQ within 1 LSB, spectrogram bins
 within 1). Each scene keys a band-wide FM signal after the 2 s of noise
 learning (the verify skill's two pitfalls).
@@ -16,7 +16,6 @@ import json
 import pytest
 import torch
 
-from chip_smoke import compare_payloads, recorded_tone, write_capture
 from rtl_sdr_scanner_tpu.runtime import config as jconfig
 from rtl_sdr_scanner_tpu.runtime import mqtt_client as jmqtt
 from rtl_sdr_scanner_tpu.runtime import scanner as jscanner
@@ -25,6 +24,7 @@ from rtl_sdr_scanner_tpu_torch.runtime import config as tconfig
 from rtl_sdr_scanner_tpu_torch.runtime import mqtt_client as tmqtt
 from rtl_sdr_scanner_tpu_torch.runtime import scanner as tscanner
 from rtl_sdr_scanner_tpu_torch.runtime import wideband as twideband
+from torch_checks import compare_payloads, recorded_tone, write_capture
 
 torch.set_num_threads(2)
 CENTER = 145_000_000

@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SPLIT_SELECT_CASES, split_selection_rows
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
 from rtl_sdr_scanner_tpu_torch.ops import ddc, detect
 from rtl_sdr_scanner_tpu_torch.ops.cuda import channelizer_kernel, fir_kernel, psd_kernel, select_kernel
+from torch_checks import (
+    RT_TONE, SPLIT_SELECT_CASES, compare_payloads, psd_agreement, psd_within_bar, recorded_tone, run_main,
+    split_selection_rows, write_capture,
+)
 
 pytestmark = pytest.mark.cuda
 DECIM = 3
@@ -64,11 +67,9 @@ def test_psd_kernel_matches_plain(fft, decim, frames, dev):
 ])
 def test_psd_kernel_small_and_large_forms_match_plain(fft, decim, frames, dev):
     """The forms for fft <= 128 and 2^21-2^22 against the plain version under
-    the PSD bar (chip_smoke.psd_agreement: 0.02 dB within 60 dB of the
+    the PSD bar (psd_agreement: 0.02 dB within 60 dB of the
     frame's peak, a median of 1e-3 dB over every bin, |dP| <= 1e-5 of the
     peak power)."""
-    import chip_smoke
-
     rng = np.random.default_rng(fft + frames + decim)
     iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
     before = psd_kernel.psd_frames_int8.launches
@@ -77,8 +78,8 @@ def test_psd_kernel_small_and_large_forms_match_plain(fft, decim, frames, dev):
     assert psd_kernel.psd_frames_int8.launches == before + 1
     assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
     want = psd_kernel.psd_frames_int8_plain(iq, 256000.0, fft, decim)
-    agreement = chip_smoke.psd_agreement(got, want)
-    assert chip_smoke.psd_within_bar(agreement), agreement
+    agreement = psd_agreement(got, want)
+    assert psd_within_bar(agreement), agreement
 
 
 @pytest.mark.parametrize("fft,decim,frames", [
@@ -92,8 +93,6 @@ def test_psd_kernel_scratch_form_matches_plain(fft, decim, frames, dev):
     """The scratch form (fft 2^18-2^22: Stockham passes of 8192 points a
     block up to 1024-point sequences, 16384 for 2048) against the plain
     version under the PSD bar, at decimations 1-4 and odd frame counts."""
-    import chip_smoke
-
     rng = np.random.default_rng(fft // 1024 + frames + decim)
     iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
     before = psd_kernel.psd_frames_int8.launches
@@ -103,8 +102,8 @@ def test_psd_kernel_scratch_form_matches_plain(fft, decim, frames, dev):
     assert psd_kernel.form(fft) == "scratch form"
     assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
     want = psd_kernel.psd_frames_int8_plain(iq, 491.52e6, fft, decim)
-    agreement = chip_smoke.psd_agreement(got, want)
-    assert chip_smoke.psd_within_bar(agreement), agreement
+    agreement = psd_agreement(got, want)
+    assert psd_within_bar(agreement), agreement
 
 
 @pytest.mark.parametrize("fft,decim,frames", [
@@ -116,8 +115,6 @@ def test_psd_kernel_cluster_scratch_form_matches_plain(fft, decim, frames, dev):
     ones on two-block clusters) against the plain version under the PSD
     bar, at 16 frames of decim 4 (a direct-sampling band's block) and odd
     counts."""
-    import chip_smoke
-
     rng = np.random.default_rng(fft // 1024 + frames + decim)
     iq = torch.from_numpy(rng.integers(-100, 100, size=(frames, fft * decim, 2), dtype=np.int8)).to(dev)
     before = psd_kernel.psd_frames_int8.launches
@@ -127,8 +124,8 @@ def test_psd_kernel_cluster_scratch_form_matches_plain(fft, decim, frames, dev):
     assert psd_kernel.form(fft) == "cluster scratch form"
     assert got.shape == (frames, fft) and bool(torch.isfinite(got).all())
     want = psd_kernel.psd_frames_int8_plain(iq, 1.96608e9, fft, decim)
-    agreement = chip_smoke.psd_agreement(got, want)
-    assert chip_smoke.psd_within_bar(agreement), agreement
+    agreement = psd_agreement(got, want)
+    assert psd_within_bar(agreement), agreement
 
 
 def test_psd_kernel_takes_a_scratch_only_above_the_cluster_form(dev):
@@ -323,7 +320,7 @@ def test_selection_kernel_row_split_form_bit_exact(n_rows, fft, top_k, k_sep, su
     slice's 4096 bins, 384 rows) and the
     warp-a-row form at the boundary (385 rows), bit-exact against the plain
     version on rows with ties across every slice edge, masked tails and the
-    all-suppressed corner (chip_smoke.split_selection_rows)."""
+    all-suppressed corner (split_selection_rows)."""
     slices = select_kernel.row_slices(n_rows, fft)
     assert (slices > 0) == (n_rows <= select_kernel.SPLIT_MAX_ROWS)
     rows = split_selection_rows(fft, n_rows, fft // max(slices, 2), np.random.default_rng(n_rows + submargin))
@@ -435,22 +432,22 @@ def test_session_on_card_matches_cpu(dev, tmp_path):
     """The runtime session (Scanner over a replayed 6 s RTL-SDR capture,
     2.4 Msps cs8, 32 kHz recordings) on the card through all three kernels
     and on the CPU through their plain versions: the same payload stream
-    (chip_smoke.compare_payloads: topics and order, headers, IQ within 1
+    (compare_payloads: topics and order, headers, IQ within 1
     LSB, spectrogram bins within 1), the planted signal recorded."""
     import chip_smoke
 
     capture = tmp_path / "capture.cs8"
-    chip_smoke.write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
     config = chip_smoke.runtime_config(capture, chip_smoke.RT_RATE, chip_smoke.RT_CENTER)
     wrappers = (psd_kernel.psd_frames_int8, select_kernel.fused_selection, fir_kernel.stage_apply_fir)
     before = [fn.launches for fn in wrappers]
     card, _, _, _ = chip_smoke.run_scanner(config, dev)
     assert all(fn.launches > b for fn, b in zip(wrappers, before))
     cpu, _, _, _ = chip_smoke.run_scanner(config, torch.device("cpu"))
-    stats = chip_smoke.compare_payloads(cpu, card)
+    stats = compare_payloads(cpu, card)
     assert stats["transmissions"] > 0
-    _, n, tone = chip_smoke.recorded_tone(card, chip_smoke.RT_CENTER + chip_smoke.RT_SHIFT, 32_000)
-    assert n > 32_000 and abs(tone - chip_smoke.RT_TONE) < 40
+    _, n, tone = recorded_tone(card, chip_smoke.RT_CENTER + chip_smoke.RT_SHIFT, 32_000)
+    assert n > 32_000 and abs(tone - RT_TONE) < 40
 
 
 @pytest.mark.parametrize("size", ["ragged", "8192"])
@@ -508,7 +505,7 @@ def _wideband_capture(tmp_path, seconds=6.0):
     import chip_smoke
 
     capture = tmp_path / "wide.cs8"
-    chip_smoke.write_capture(capture, chip_smoke.WB_RATE, seconds, chip_smoke.WB_SIGNALS, (2.5, 5.0), seed=7)
+    write_capture(capture, chip_smoke.WB_RATE, seconds, chip_smoke.WB_SIGNALS, (2.5, 5.0), seed=7)
     return capture
 
 
@@ -516,7 +513,7 @@ def _wideband_capture(tmp_path, seconds=6.0):
 def test_wideband_session_on_card_matches_cpu(form, dev, tmp_path):
     """A wideband device (2.048 Msps into 16 channels of 128 kHz: fft 512,
     the selection kernel's 16-leaf table) on the card and on the CPU: the
-    same payloads (chip_smoke.compare_payloads), both transmissions
+    same payloads (compare_payloads), both transmissions
     recorded; the selection kernel launched, the PSD kernel not (the
     channels are f32 pairs)."""
     import chip_smoke
@@ -529,7 +526,7 @@ def test_wideband_session_on_card_matches_cpu(form, dev, tmp_path):
     assert select_kernel.fused_selection.launches > before[0] and psd_kernel.psd_frames_int8.launches == before[1]
     assert scanner.sessions[0].scan_cfg.fft_size == 512
     cpu, _, _, _ = chip_smoke.run_wideband_scanner(config, torch.device("cpu"))
-    assert chip_smoke.compare_payloads(cpu, card)["transmissions"] > 0
+    assert compare_payloads(cpu, card)["transmissions"] > 0
     chip_smoke.check_wideband_recordings(card)
 
 
@@ -546,7 +543,7 @@ def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
     from rtl_sdr_scanner_tpu_torch.runtime.scanner import Scanner
 
     plain_cap = tmp_path / "plain.cs8"
-    chip_smoke.write_capture(plain_cap, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    write_capture(plain_cap, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
     plain = chip_smoke.runtime_config(plain_cap, chip_smoke.RT_RATE, chip_smoke.RT_CENTER)
     wide = chip_smoke.runtime_config(_wideband_capture(tmp_path), chip_smoke.WB_RATE, chip_smoke.WB_CENTER,
                                      channels=chip_smoke.WB_CHANNELS)
@@ -554,7 +551,7 @@ def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
     both = dict(plain, devices=plain["devices"] + wide["devices"])
     path = tmp_path / "config.json"
     path.write_text(json.dumps(both))
-    rc, payloads = chip_smoke.run_main(path, dev, scanners=2)
+    rc, payloads = run_main(path, dev, scanners=2)
     assert rc == 0
 
     cfg = Config(json.loads(json.dumps(plain)))
@@ -566,33 +563,33 @@ def test_two_devices_on_one_card_match_their_single_runs(dev, tmp_path):
     single_wide, _, _, _ = chip_smoke.run_wideband_scanner(wide, dev)
     for serial, single in (("replay0", mqtt.published), ("replay1", single_wide)):
         mine = [(t, p) for t, p in payloads if t.startswith(f"sdr/replay_{serial}/")]
-        assert mine and chip_smoke.compare_payloads(single, mine)["transmissions"] > 0
+        assert mine and compare_payloads(single, mine)["transmissions"] > 0
 
 
 @pytest.mark.parametrize("form", ["split", "fused"])
 def test_64_channel_session_through_main_run_matches_cpu(form, dev, tmp_path):
     """main.run on a 2.048 Msps device split into 64 channels of 32 kHz (fft
     128: the selection kernel's register form) on the card, against the
-    same form's CPU run (chip_smoke.compare_payloads); both transmissions
+    same form's CPU run (compare_payloads); both transmissions
     recorded at their tones."""
     import json
 
     import chip_smoke
 
     capture = tmp_path / "wide64.cs8"
-    chip_smoke.write_capture(capture, chip_smoke.NW_RATE, 5.0, chip_smoke.NW_SIGNALS, (2.5, 4.5), seed=11)
+    write_capture(capture, chip_smoke.NW_RATE, 5.0, chip_smoke.NW_SIGNALS, (2.5, 4.5), seed=11)
     config = chip_smoke.runtime_config(capture, chip_smoke.NW_RATE, chip_smoke.WB_CENTER,
                                        channels=chip_smoke.NW_CHANNELS, recording_rate=chip_smoke.NARROW_REC_RATE,
                                        **dict(chip_smoke.NW_FORMS)[form])
     path = tmp_path / "config.json"
     path.write_text(json.dumps(config))
     before = select_kernel.fused_selection.launches
-    rc, card = chip_smoke.run_main(path, dev)
+    rc, card = run_main(path, dev)
     assert rc == 0 and select_kernel.fused_selection.launches > before
     cpu, _, _, _ = chip_smoke.run_wideband_scanner(config, torch.device("cpu"))
-    assert chip_smoke.compare_payloads(cpu, card)["transmissions"] > 0
+    assert compare_payloads(cpu, card)["transmissions"] > 0
     for shift, tone in chip_smoke.NW_SIGNALS:
-        _, n, got = chip_smoke.recorded_tone(card, chip_smoke.WB_CENTER + shift, chip_smoke.NARROW_REC_RATE)
+        _, n, got = recorded_tone(card, chip_smoke.WB_CENTER + shift, chip_smoke.NARROW_REC_RATE)
         assert n > chip_smoke.NARROW_REC_RATE and abs(got - tone) < 40
 
 
@@ -1119,7 +1116,7 @@ def test_profiled_session_traces_the_markers_of_every_replay(dev, tmp_path):
     import chip_smoke
 
     capture = tmp_path / "capture.cs8"
-    chip_smoke.write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
+    write_capture(capture, chip_smoke.RT_RATE, 6.2, chip_smoke.RT_SHIFT, (3.0, 5.0))
     config = chip_smoke.runtime_config(capture, chip_smoke.RT_RATE, chip_smoke.RT_CENTER,
                                        profile_dir=str(tmp_path / "trace"))
     _, session, _, _ = chip_smoke.run_scanner(config, dev)

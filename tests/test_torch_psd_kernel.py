@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import psd_agreement, psd_within_bar
 from rtl_sdr_scanner_tpu.models import scan_pipeline as jsp
 from rtl_sdr_scanner_tpu.ops.pallas.psd_kernel import psd_frames_int8_pallas
 from rtl_sdr_scanner_tpu.ops.psd import dequantize_cs8, frame_blocks, psd_frames
@@ -15,6 +14,7 @@ from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import scan_pipeline as tsp
 from rtl_sdr_scanner_tpu_torch.ops import psd as tps
 from rtl_sdr_scanner_tpu_torch.ops.cuda import psd_kernel as tpsd
+from torch_checks import psd_agreement, psd_within_bar
 
 torch.set_num_threads(2)
 DECIM = 3
@@ -22,7 +22,7 @@ RATE = 256000.0
 
 
 def _hold(got, want):
-    """The PSD bar (chip_smoke.psd_agreement): 0.02 dB on the bins within 60
+    """The PSD bar (torch_checks.psd_agreement): 0.02 dB on the bins within 60
     dB of their row's peak, a median of 1e-3 dB over every bin, |dP| <= 1e-5
     of the row's peak power on every bin. f32 FFTs in other summation orders
     (radix FFTs, the four-step matmul DFT) round a deep null of a noise

@@ -3,7 +3,7 @@ captures through the JAX ``Scanner`` and the port's ``Scanner(...,
 device="cpu")``, compared payload by payload, and the port's ``main.run``
 lifecycle.
 
-Tolerances (``chip_smoke.compare_payloads``): the same MQTT topics in the
+Tolerances (``torch_checks.compare_payloads``): the same MQTT topics in the
 same order, equal transmission and spectrogram headers, IQ within 1 LSB
 (the DDC's f32 sums differ in order) and spectrogram bins within 1 (the
 two FFTs differ by ~1e-4 dB, and a bin mean can sit on a truncation
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_payloads, psd_agreement, psd_within_bar, recorded_tone
 from rtl_sdr_scanner_tpu.runtime import config as jconfig
 from rtl_sdr_scanner_tpu.runtime import mqtt_client as jmqtt
 from rtl_sdr_scanner_tpu.runtime import scanner as jscanner
@@ -32,6 +31,7 @@ from rtl_sdr_scanner_tpu_torch.runtime import mqtt_client as tmqtt
 from rtl_sdr_scanner_tpu_torch.runtime import scanner as tscanner
 from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_spectrogram, decode_transmission
 from rtl_sdr_scanner_tpu_torch.runtime.sdr_device import SdrDevice, SpectroContainer
+from torch_checks import compare_payloads, psd_agreement, psd_within_bar, recorded_tone
 
 torch.set_num_threads(2)
 RATE = 256000
@@ -230,7 +230,7 @@ def test_pipelined_ingest(fm_captures):
 
 def test_debug_sinks_match_jax(fm_captures, tmp_path, monkeypatch):
     """The three debug raw dumps (full power forces full-row mode): the same
-    files, the power rows within the PSD bar (``chip_smoke.psd_agreement``:
+    files, the power rows within the PSD bar (``torch_checks.psd_agreement``:
     0.02 dB on every bin within 60 dB of its row's peak, a median of 1e-3
     dB over every bin, |dP| <= 1e-5 of the row's peak power on every bin;
     looser than a max |dB| only on bins more than 60 dB down; the two f32

@@ -4,7 +4,7 @@ tests/test_scan_file_cli.py's scene (256 kHz cf32, FM at +30 kHz keyed
 
 The JSON summaries must be equal but for the recording paths, and the
 recording files equal within 1 LSB an IQ sample (the DDC's f32 sums run in
-another order: chip_smoke.compare_payloads's bound).
+another order: torch_checks.compare_payloads's bound).
 """
 
 import json

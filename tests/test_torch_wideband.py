@@ -5,7 +5,7 @@ serial form (cf32, int8 cs8 ingest, 2x-oversampled bank) and the one-card
 batched forms (``mesh_bands=1``: split, fused, pipelined; JAX on conftest's
 virtual CPU devices, where mesh_bands=1 resolves to one device too).
 
-Tolerances (``chip_smoke.compare_payloads``): the same MQTT topics in the
+Tolerances (``torch_checks.compare_payloads``): the same MQTT topics in the
 same order, equal headers, IQ within 1 LSB and spectrogram bins within 1.
 Scenes: 1.024 Msps split into 4 channels of 256 kHz (fft 1024), band-wide
 FM signals keyed after the 2 s noise learning, 16 kHz recordings.
@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_payloads, recorded_tone
 from rtl_sdr_scanner_tpu.runtime import config as jconfig
 from rtl_sdr_scanner_tpu.runtime import mqtt_client as jmqtt
 from rtl_sdr_scanner_tpu.runtime import wideband as jwideband
@@ -28,6 +27,7 @@ from rtl_sdr_scanner_tpu_torch.runtime import main as tmain
 from rtl_sdr_scanner_tpu_torch.runtime import mqtt_client as tmqtt
 from rtl_sdr_scanner_tpu_torch.runtime import wideband as twideband
 from rtl_sdr_scanner_tpu_torch.runtime.data_controller import decode_transmission
+from torch_checks import compare_payloads, recorded_tone
 
 torch.set_num_threads(2)
 RATE = 1_024_000
