@@ -89,7 +89,13 @@
    rtl2m048 scan and at each path's, held bit-equal to its plain version
    first, top level hf20m48's; the analysis bank at step 7's block, held
    against its plain version there, the matmul form it replaced timed as
-   its ``library_ms``). ``ms`` is the wrapper's pace (CUDA events around back-to-back
+   its ``library_ms``; the modulated-taps stage-1 kernel at DDC_TIMED's
+   chunks (the step cells' 24 int8 bands and 8 f32 channels, the dongle
+   session's one band at M = 64, K = 4), held within 2e-6 of max|y| of
+   its plain version (today's chain before it: the matmul form with its
+   operand handling and the rotation) with the new tail exact, the
+   matmul form's ``bmm`` alone its ``library_ms``, top level hf20m48's).
+   ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
    kernel records), ``host_us`` the host time a wrapper call takes to
    enqueue. It comes last: once the profiler has traced, every later
@@ -315,6 +321,16 @@ WIDE_RING = 2
 WIDE_LEARN_MS = 500
 WIDE_CHECK_SAMPLES = 1 << 20  # the channelizer held card vs CPU on this much of a block
 CHAN_TOL = 2e-5  # atol = rtol, tests/test_channelizer.py's bar between the bank's forms
+# the modulated-taps stage 1 timed (key, name, bands, slots, decimation,
+# samples a chunk, int8): a chunk of the step cells' DDC (hf20m48's 24 int8
+# bands, wb163m84's 8 f32 channels) and the dongle session's one-stage chain
+# (rtl2m048: one chunk a block)
+DDC_TIMED = (
+    ("hf20m48", "24 int8 bands at 20.48 Msps", 24, 2, 20, 1_105_920, True),
+    ("wb163m84", "8 f32 channels at 20.48 Msps", 8, 2, 20, 1_105_920, False),
+    ("rtl2m048", "one int8 band at 2.048 Msps", 1, 4, 64, 655_360, True),
+)
+DDC_REL_TOL = 2e-6  # of max |y|: split TF32 against the f32 matmul form
 # the wideband session: an RTL-SDR at 2.048 Msps split into 16 channels of
 # 128 kHz (fft 512, decim 5, 16 frames: 0.32 s a block), two FM signals in
 # different channels keyed after the 2 s noise learning, 32 kHz recordings
@@ -893,6 +909,12 @@ def time_vote(geos, dev, card: str) -> dict:
     return record
 
 
+def modtap_launches(ddc_cfg, calls: int) -> int:
+    """Launches of the modulated-taps stage-1 kernel in ``calls`` DDC blocks
+    of one step: one a chunk on the modulated-taps path, none on v1."""
+    return calls * ddc_cfg.num_chunks if ddc_cfg.modtap else 0
+
+
 def detection_launches(n) -> dict:
     """Launch counts of ``n`` calls of ``compact_detection``: the selection
     kernel and the history vote kernel, once each a call."""
@@ -965,6 +987,7 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
         "psd_frames_int8": 1,
         **detection_launches(1),
         "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
+        "modtap_stage1": modtap_launches(ddc_cfg, 1),
     }
     for name, per_block in want_launches.items():
         if launches[name] != per_block * geo.blocks:
@@ -1164,6 +1187,7 @@ def run_runtime(dev, card: str) -> dict:
             **detection_launches(blocks),
             "stage_apply_fir": clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
             "analysis_bank": 0,
+            "modtap_stage1": modtap_launches(ddc_cfg, clock.ddc_calls),
         }
         if launches != want or not (blocks and clock.ddc_calls):
             raise RuntimeError(f"session launches {launches}, want {want} (blocks and DDC calls > 0)")
@@ -1366,6 +1390,67 @@ def time_bank(dev, card: str) -> dict:
     return record
 
 
+def time_ddc(dev, card: str) -> dict:
+    """The modulated-taps stage-1 kernel at DDC_TIMED's chunks, held against
+    its plain version (the matmul form with its operand handling and the
+    rotation: today's chain before the kernel) there and timed beside it,
+    its bound and the matmul form's ``bmm`` alone on its prepared operands
+    (``library_ms``); the record's top level holds the first chunk's."""
+    import torch.nn.functional as F
+
+    from rtl_sdr_scanner_tpu_torch.ops import ddc
+    from rtl_sdr_scanner_tpu_torch.ops.cuda import ddc_kernel as dk
+
+    ddc.no_tf32()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rate = 20_480_000
+    record = dict(name="modtap_stage1", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/ddc_kernel.cu",
+                  replaces=None, launches=None, session_path="wideband_runtime_serial", max_abs_err=0.0)
+    for key, name, nb, k, m, n, int8 in DDC_TIMED:
+        plan = ddc.plan_stage(1, m)
+        shifts = np.random.default_rng(m).integers(-rate // 2, rate // 2, size=(nb, k))
+        tables = ddc.make_mod_tables([plan], shifts, rate, n, dev)
+        if int8:
+            x = random_cs8((nb, n, 2), gen, dev)
+        else:
+            x = torch.rand((nb, n, 2), generator=gen, device=dev).mul_(1.6).sub_(0.8)
+        tail = torch.rand((nb, 2, plan.tail_len), generator=gen, device=dev).sub_(0.5)
+        phase = torch.rand((nb, k), generator=gen, device=dev).mul_(2 * math.pi)
+        args = (x, tail, phase, tables, plan)
+        got, got_tail = dk.modtap_stage1(*args)
+        want, want_tail = dk.modtap_stage1_plain(*args)
+        d, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not (torch.isfinite(got).all() and d <= DDC_REL_TOL * scale and torch.equal(got_tail, want_tail)):
+            raise RuntimeError(f"modtap_stage1 ({name}): max |diff| {d} against max |y| {scale}, or the tail differs")
+        record["max_abs_err"] = max(record["max_abs_err"], d)
+        del got, want
+        t = timings(lambda: dk.modtap_stage1(*args), lambda: dk.modtap_stage1_plain(*args), 20, "modtap_stage1", 5)
+        # the matmul form's product alone, on the operands it pads and chunks
+        c, dd, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
+        out = n // m
+        n_chunks = -(-out // (c // m)) + dd - 1
+        full = torch.cat([tail, torch.stack(ddc._components(x), dim=1)], dim=-1)
+        lhs = F.pad(full, (q - plan.tail_len, n_chunks * c - q - n)).reshape(nb, 2 * n_chunks, c)
+        library_ms = cuda_ms(lambda: torch.bmm(lhs, tables.w), 5)
+        del full, lhs
+        # the chunk read once (int8 or f32 pairs), y written once, the tails
+        # and B fragments; the tensor cores' passes (two on integers, three
+        # on f32) over each column group's 4R live columns of Z
+        r, groups, passes = plan.poly_rows, dk.groups(k), 2 if int8 else 3
+        bytes_moved = nb * n * 2 * x.element_size() + nb * k * 2 * out * 4 + 2 * nb * 2 * plan.tail_len * 4 \
+            + tables.frag.numel() * 4
+        flops = passes * 2.0 * nb * groups * (out + r - 1) * 2 * m * 4 * r
+        bound_ms, bound_by = bound(bytes_moved, flops, TF32_FLOPS)
+        log(f"modtap stage 1 [{nb}, {n}, 2] {x.dtype} M={m} K={k} R={r} ({name}): {fmt(t)}, the matmul form's bmm "
+            f"alone {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP TF32); max |diff| {d:.3g} ({d / scale:.3g} of max |y|) on {card}")
+        record_time(record, key, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del x, tail, tables
+    free_card()
+    return record
+
+
 def run_wideband_step(dev, card: str) -> dict:
     """The wideband step phase (docstring step 6): the channelizer held card
     vs CPU, then the fused and the split forms for WIDE.blocks blocks each,
@@ -1408,7 +1493,7 @@ def run_wideband_step(dev, card: str) -> dict:
         counts = {name: fn.launches for name, fn in wrappers.items()}
         want = {"psd_frames_int8": 0, **detection_launches(geo.blocks),
                 "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                "analysis_bank": geo.blocks}
+                "analysis_bank": geo.blocks, "modtap_stage1": modtap_launches(ddc_cfg, geo.blocks)}
         log(f"{form}: launches over {geo.blocks} blocks: {counts} (the channels are f32 pairs: no PSD kernel)")
         if counts != want:
             raise RuntimeError(f"wideband {form} launches {counts}, want {want}")
@@ -1545,8 +1630,13 @@ def run_wideband_runtime(dev, card: str) -> dict:
                 log(f"{WB_CHANNELS} channels of {cfg.sample_rate} sps: fft {cfg.fft_size} decim "
                     f"{cfg.decimator_factor} frames {cfg.frames_per_block}, {session.ddc_cfg.num_slots} slot(s) a "
                     f"channel, DDC stages {[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks")
+            # the modulated-taps kernel runs a chunk's launch for each DDC
+            # dispatch, whose count the session keeps to itself
+            ddc_runs = counts["modtap_stage1"]
+            if not session.ddc_cfg.modtap or ddc_runs == 0 or ddc_runs % session.ddc_cfg.num_chunks:
+                raise RuntimeError(f"wideband session {form}: {ddc_runs} modulated-taps launches")
             want = {"psd_frames_int8": 0, **detection_launches(blocks * (WB_CHANNELS if form == "serial" else 1)),
-                    "stage_apply_fir": 0, "analysis_bank": blocks}
+                    "stage_apply_fir": 0, "analysis_bank": blocks, "modtap_stage1": ddc_runs}
             log(f"{form}: launches over the card run: {counts} (the 128 kHz -> 32 kHz chain is one modulated-"
                 f"taps stage: no FIR kernel stage; f32 channels: no PSD kernel)")
             if counts != want:
@@ -1688,9 +1778,10 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
             hold_captures(form, [path.scan_step, path.ddc_step])
             replays = {k: hold_replays(form, [step], geo.blocks)
                        for k, step in (("scan", path.scan_step), ("DDC", path.ddc_step))}
+        # the time-sharded DDC keeps stage 1's matmul form
         want = {"psd_frames_int8": shards * geo.blocks, **detection_launches(shards * geo.blocks),
                 "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                "analysis_bank": 0}
+                "analysis_bank": 0, "modtap_stage1": 0 if form == "time_mesh" else modtap_launches(ddc_cfg, geo.blocks)}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
         if launches[form] != want:
             raise RuntimeError(f"{form} launches {launches[form]}, want {want}")
@@ -1794,7 +1885,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
                                                                                step.blocks.ddc_step])
             want = {"psd_frames_int8": 0, **detection_launches(shards * MESH_BLOCKS),
                     "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                    "analysis_bank": shards * MESH_BLOCKS}
+                    "analysis_bank": shards * MESH_BLOCKS, "modtap_stage1": modtap_launches(ddc_cfg, shards * MESH_BLOCKS)}
             if counts != want:
                 raise RuntimeError(f"wideband {form} over {shards} shard(s): launches {counts}, want {want}")
             key = f"wideband_step_{shards}_shards_{form}" if shards > 1 else f"wideband_step_one_card_{form}"
@@ -2078,7 +2169,8 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
             counts = child[form]["launches"]
             ddc_cfg = child["ddc"]
             want = {"psd_frames_int8": 0, **detection_launches(MESH_BLOCKS),
-                    "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1], "analysis_bank": MESH_BLOCKS}
+                    "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1], "analysis_bank": MESH_BLOCKS,
+                    "modtap_stage1": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[2]}
             if counts != want:
                 raise RuntimeError(f"wideband {form}: process {rank} launches {counts}, want {want}")
             launches[f"multihost_step_rank{rank}_{form}"] = counts
@@ -2418,7 +2510,8 @@ def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> d
         card_out.append((outs.packed.cpu().numpy(), outs.recording.cpu().numpy()))
     counts = {name: fn.launches for name, fn in wrappers.items()}
     want = {"psd_frames_int8": geo.blocks, **detection_launches(geo.blocks),
-            "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
+            "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
+            "modtap_stage1": modtap_launches(ddc_cfg, geo.blocks)}
     log(f"launches over {geo.blocks} blocks: {counts}")
     if counts != want:
         raise RuntimeError(f"{geo.name}: step launches {counts}, want {want}")
@@ -2657,7 +2750,8 @@ def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
         counts[form] = {name: fn.launches for name, fn in wrappers.items()}
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     want = {"psd_frames_int8": GRAPH_BLOCKS, **detection_launches(GRAPH_BLOCKS),
-            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
+            "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
+            "modtap_stage1": modtap_launches(ddc_cfg, GRAPH_BLOCKS)}
     step = blocks_of["graphed"].step
     hold_outputs(geo.name, runs)
     hold_counts(geo.name, counts, want, [step])
@@ -2712,7 +2806,7 @@ def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple
     ddc_cfg = steps["graphed"].ddc_cfg
     want = {"psd_frames_int8": 0, **detection_launches(shards * GRAPH_BLOCKS),
             "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-            "analysis_bank": shards * GRAPH_BLOCKS}
+            "analysis_bank": shards * GRAPH_BLOCKS, "modtap_stage1": modtap_launches(ddc_cfg, shards * GRAPH_BLOCKS)}
     graphed = [getattr(steps["graphed"].blocks, attr) for attr in step_names]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, graphed)
@@ -2754,7 +2848,8 @@ def graph_time_mesh(dev, card: str) -> tuple:
     graphed = meshes["graphed"]
     ddc_cfg, n = graphed.ddc_cfg, TMESH_SHARDS
     want = {"psd_frames_int8": n * GRAPH_BLOCKS, **detection_launches(n * GRAPH_BLOCKS),
-            "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
+            "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
+            "modtap_stage1": 0}  # the time-sharded DDC keeps stage 1's matmul form
     steps = [graphed.scan_step, graphed.ddc_step]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, steps)
@@ -2896,7 +2991,8 @@ def graph_session(dev, card: str, tmp: Path) -> tuple:
     if e_clock.block != blocks or g_clock.ddc_calls == 0:
         raise RuntimeError(f"session: {e_clock.block} blocks eager, {blocks} graphed, the DDC in {g_clock.ddc_calls}")
     want = {"psd_frames_int8": blocks, **detection_launches(blocks),
-            "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0}
+            "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
+            "modtap_stage1": modtap_launches(ddc_cfg, g_clock.ddc_calls)}
     counts = {"eager": e_counts, "graphed": g_counts}
     hold_counts("session", counts, want, steps)
     log(f"session, serial: {blocks} blocks, the DDC in {g_clock.ddc_calls}")
@@ -2999,7 +3095,7 @@ def child_main(argv) -> int:
                     if form == "eager":
                         for n, g in zip(names, graphed):
                             setattr(step.blocks, n, g.fn)
-                    result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)))
+                    result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)), int(step.ddc_cfg.modtap))
                     torch.cuda.synchronize()
                     for fn in wrappers.values():
                         fn.launches = 0
@@ -3103,6 +3199,7 @@ def main() -> int:
     records.append(time_fir(timed + (WIDE, WIDE_SHARD, BAND_491, BAND_1966), PATH2, dev, card, fir_err))
     records.append(time_vote(geos, dev, card))
     records.append(time_bank(dev, card))
+    records.append(time_ddc(dev, card))
     if args.kernels_only:
         log(card)
         log(json.dumps({"kernels": records}))

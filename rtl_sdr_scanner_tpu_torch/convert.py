@@ -17,7 +17,8 @@ import torch
 from rtl_sdr_scanner_tpu_torch.device import DeviceLike, resolve_device
 from rtl_sdr_scanner_tpu_torch.models.scan_pipeline import ScanState
 from rtl_sdr_scanner_tpu_torch.ops.averager import AveragerState
-from rtl_sdr_scanner_tpu_torch.ops.ddc import Ddc2State, DdcState, ModTables, NcoTables
+from rtl_sdr_scanner_tpu_torch.ops.cuda.ddc_kernel import mod_fragments
+from rtl_sdr_scanner_tpu_torch.ops.ddc import Ddc2State, DdcState, ModTables, NcoTables, StagePlan, modtap_taps
 from rtl_sdr_scanner_tpu_torch.ops.noise import NoiseState
 
 
@@ -94,7 +95,10 @@ def ddc2_state(
 
 
 def mod_tables(
-    w: np.ndarray, rot: Mapping[str, np.ndarray], device: DeviceLike = None
+    w: np.ndarray, rot: Mapping[str, np.ndarray], plan: StagePlan, device: DeviceLike = None
 ) -> ModTables:
-    """rot: coarse_re/coarse_im/fine_re/fine_im/step of the NCO tables."""
-    return ModTables(w=to_tensor(w, device), rot=nco_tables(**rot, device=device))
+    """rot: coarse_re/coarse_im/fine_re/fine_im/step of the NCO tables; plan:
+    stage 1's, whose modulated taps are read back out of w for the kernel's
+    B fragments."""
+    frag = mod_fragments(modtap_taps(w, plan), plan.decim, plan.poly_rows)
+    return ModTables(w=to_tensor(w, device), rot=nco_tables(**rot, device=device), frag=to_tensor(frag, device))

@@ -44,6 +44,7 @@ SIGNATURES = {
     "fir_decimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "history_vote": [_P, _I, _L, _L, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "analysis_bank": [_P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _P],
+    "modtap_stage1": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "trace_mark": [_I, _P],
     "trace_marks_load": [],
     "trace_mark_count": [],

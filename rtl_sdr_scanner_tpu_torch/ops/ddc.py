@@ -16,6 +16,8 @@ conv.
 Modulated taps: stage 1 filters the RAW input with complex taps
 g[j] = h[j] e^{-i inc j} and the NCO rotation runs at the decimated rate:
   y1[m] = e^{i(phi0 + inc M m)} sum_j (h[j] e^{-i inc j}) x[mM-j].
+Stage 1 and its rotation go to the modulated-taps kernel's wrapper
+(``ops/cuda/ddc_kernel``; on CPU tensors the chunked-matmul form below).
 Stages 2+ run through ``_stage_apply`` as in v1. A reset slot keeps the
 shared raw-x stage-1 history (see reset_slot2).
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtl_sdr_scanner_tpu_torch.ops.cuda.ddc_kernel import mod_fragments, modtap_stage1
 from rtl_sdr_scanner_tpu_torch.ops.cuda.fir_kernel import stage_apply_fir
 from rtl_sdr_scanner_tpu_torch.ops.window import kaiser
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_resamplers_factors
@@ -385,6 +388,7 @@ class ModTables(NamedTuple):
 
     w: torch.Tensor  # [NB, C, K*2*D*P] f32, column order (k, part, d*P + b)
     rot: NcoTables  # decimated-rate output rotation, leaves [NB, K, ...]
+    frag: torch.Tensor  # [NB, ceil(K/2), ceil(2M/8), 20, 32, 4] f32: the kernel's B (``ddc_kernel.mod_fragments``)
 
 
 def init_ddc2_state(
@@ -428,6 +432,22 @@ def _modtap_scatter_index(m: int, r_rows: int, tail_len: int, c: int, d: int, q:
     return idx.astype(np.int32)
 
 
+def modtap_taps(w: np.ndarray, plan: StagePlan) -> np.ndarray:
+    """The f32 modulated taps [..., K, 2, R*M] that ``make_mod_tables``
+    gathered into its matrix w [..., C, K*2*D*P] (each tap sits there at
+    least once; this reads its first place)."""
+    m, r_rows = plan.decim, plan.poly_rows
+    idx = _modtap_scatter_index(m, r_rows, plan.tail_len, plan.chunk_c, plan.chunk_d, plan.chunk_q)
+    taps, first = np.unique(idx.ravel(), return_index=True)
+    if not np.array_equal(taps[: r_rows * m], np.arange(r_rows * m)):
+        raise ValueError("modtap_taps: a tap has no place in the matrix")
+    rows, cols = np.divmod(first[: r_rows * m], idx.shape[1])
+    w = np.asarray(w)
+    k = w.shape[-1] // (2 * idx.shape[1])
+    w4 = np.moveaxis(w.reshape(*w.shape[:-2], plan.chunk_c, k, 2, idx.shape[1]), -4, -2)  # [..., K, 2, C, D*P]
+    return np.ascontiguousarray(w4[..., rows, cols], dtype=np.float32)
+
+
 def make_mod_tables(
     plans: Sequence[StagePlan],
     shifts: np.ndarray,
@@ -439,7 +459,8 @@ def make_mod_tables(
 
     Tap angles and the decimated-rate rotation come from int64 host math;
     the big weight matrix is gathered ON the device from the tiny
-    [..., K, 2, R*M] modulated-tap vectors."""
+    [..., K, 2, R*M] modulated-tap vectors, and the kernel's B fragments
+    are packed from the same f32 vectors on the host."""
     p0 = plans[0]
     if not (p0.interp == 1 and p0.chunk_c > 0):
         raise ValueError("modtap needs a chunked decimating stage 1")
@@ -453,9 +474,9 @@ def make_mod_tables(
     h_rev[:ntaps] = np.asarray(design_resampler_taps(p0.interp, p0.decim))[::-1]
     j = np.maximum(ntaps - 1 - np.arange(rm), 0)  # forward tap index
     ang = ((smod[..., None] * j) % sample_rate) * (2.0 * np.pi / sample_rate)
-    g = np.stack([h_rev * np.cos(ang), -h_rev * np.sin(ang)], axis=-2)  # [..., K, 2, RM]
-    pad = np.zeros(g.shape[:-1] + (1,))
-    g_pad = torch.from_numpy(np.concatenate([g, pad], axis=-1).astype(np.float32)).to(device)
+    g = np.stack([h_rev * np.cos(ang), -h_rev * np.sin(ang)], axis=-2).astype(np.float32)  # [..., K, 2, RM]
+    pad = np.zeros(g.shape[:-1] + (1,), dtype=np.float32)
+    g_pad = torch.from_numpy(np.concatenate([g, pad], axis=-1)).to(device)
 
     idx = _modtap_scatter_index(m, p0.poly_rows, p0.tail_len, p0.chunk_c, p0.chunk_d, p0.chunk_q)
     w = g_pad[..., torch.from_numpy(idx).long().to(device)]  # [..., K, 2, C, D*P]
@@ -464,7 +485,8 @@ def make_mod_tables(
     w = torch.movedim(w, -2, -4).reshape(*lead, p0.chunk_c, k * 2 * idx.shape[1])
 
     rot = make_nco_tables(-((smod * m) % sample_rate), sample_rate, chunk // m, device)
-    return ModTables(w=w.contiguous(), rot=rot)
+    frag = torch.from_numpy(mod_fragments(g, m, p0.poly_rows)).to(device)
+    return ModTables(w=w.contiguous(), rot=rot, frag=frag)
 
 
 def _modtap_stage1(
@@ -512,21 +534,12 @@ def ddc_chunk_modtap(
     plans: Sequence[StagePlan],
 ) -> Tuple[Ddc2State, torch.Tensor]:
     """Modulated-taps DDC chunk over all bands; returns int8 [NB, K, out, 2].
-    TF32 is off from ``init_ddc2_state`` or the step's build on."""
-    nb, chunk = iq.shape[0], iq.shape[1]
+    Stage 1 with its decimated-rate rotation e^{i(phi0 + inc M m)} is the
+    kernel's wrapper (one launch a chunk on the card). TF32 is off from
+    ``init_ddc2_state`` or the step's build on."""
+    nb = iq.shape[0]
     k = state.phase.shape[-1]
-    p0 = plans[0]
-    out1 = chunk // p0.decim
-
-    x = torch.stack(_components(iq), dim=1)  # [NB, 2, chunk]
-    y_re, y_im, new_x_tail = _modtap_stage1(x, state.x_tail, tables.w, p0, k)
-
-    # decimated-rate output rotation: e^{i(phi0 + inc M m)}
-    rt = tables.rot
-    rot_re, rot_im = _rotation(state.phase, rt, out1)  # [NB, K, out1]
-    y = torch.stack(
-        [y_re * rot_re - y_im * rot_im, y_re * rot_im + y_im * rot_re], dim=2
-    ).reshape(nb * k, 2, out1)
+    y, new_x_tail = modtap_stage1(iq, state.x_tail, state.phase, tables, plans[0])  # [NB*K, 2, out1]
 
     new_tails = []
     for plan, tail in zip(plans[1:], state.tails):
@@ -534,7 +547,7 @@ def ddc_chunk_modtap(
         new_tails.append(new_tail.reshape(nb, k, 2, -1))
 
     out = torch.clamp(torch.round(torch.movedim(y, 1, 2) * 127.0), -128, 127).to(torch.int8)
-    new_phase = torch.remainder(state.phase + rt.step, 2.0 * math.pi)
+    new_phase = torch.remainder(state.phase + tables.rot.step, 2.0 * math.pi)
     return (
         Ddc2State(phase=new_phase, x_tail=new_x_tail, tails=tuple(new_tails)),
         out.reshape(nb, k, -1, 2),

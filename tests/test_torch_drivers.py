@@ -18,7 +18,7 @@ from rtl_sdr_scanner_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(2)
 RATE, FRAMES, BANDS, SLOTS, TOP_K, BLOCKS = 256_000, 10, 2, 2, 64, 3
-KERNELS = ("psd_frames_int8", "fused_selection", "history_vote", "stage_apply_fir", "analysis_bank")
+KERNELS = ("psd_frames_int8", "fused_selection", "history_vote", "stage_apply_fir", "analysis_bank", "modtap_stage1")
 
 
 def _configs(bandwidth: int):

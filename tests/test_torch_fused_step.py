@@ -211,7 +211,7 @@ def test_banded_fused_step_matches_jax(rate, bw, frames, bf16):
             s, d, tb = npy(jstate), npy(jdstate), npy(jtab)
             if jddc.modtap:
                 dstate = convert.ddc2_state(d.phase, d.x_tail, d.tails, device="cpu")
-                tables = convert.mod_tables(tb.w, tb.rot._asdict(), device="cpu")
+                tables = convert.mod_tables(tb.w, tb.rot._asdict(), tddc.plans[0], device="cpu")
             else:
                 dstate = convert.ddc_state(d.phase, d.tails, device="cpu")
                 tables = convert.nco_tables(**tb._asdict(), device="cpu")

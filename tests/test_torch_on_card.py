@@ -1083,7 +1083,8 @@ def test_graphed_step_replays_its_stage_markers_on_card(dev):
         torch.cuda.synchronize()
     fir = ddc_cfg.num_chunks * len(drivers.fir_stages(ddc_cfg))
     want_launches = {"psd_frames_int8": replays, "fused_selection": replays, "history_vote": replays,
-                     "stage_apply_fir": fir * replays, "analysis_bank": 0}
+                     "stage_apply_fir": fir * replays, "analysis_bank": 0,
+                     "modtap_stage1": ddc_cfg.num_chunks * replays}
     assert {name: fn.launches - before[name] for name, fn in wrappers.items()} == want_launches
     kernels, ops = _device_trace(prof)
     marks = [(name, s, e) for name, s, e in kernels if name.startswith("trace_")]
