@@ -25,7 +25,8 @@
   X(scan_spectrogram)  \
   X(scan_pack)         \
   X(ddc)               \
-  X(channelize)
+  X(channelize)        \
+  X(ddc_stage1)
 
 #define TRACE_MARK_KERNELS(stage)                        \
   extern "C" __global__ void trace_enter_##stage() {}    \

@@ -40,6 +40,7 @@ from rtl_sdr_scanner_tpu_torch.ops.cuda.ddc_kernel import mod_fragments, modtap_
 from rtl_sdr_scanner_tpu_torch.ops.cuda.fir_kernel import stage_apply_fir
 from rtl_sdr_scanner_tpu_torch.ops.window import kaiser
 from rtl_sdr_scanner_tpu_torch.utils.radio_utils import get_resamplers_factors
+from rtl_sdr_scanner_tpu_torch.utils.trace import span
 
 # ---------------------------------------------------------------------------
 # Filter design (GR-compatible)
@@ -535,11 +536,12 @@ def ddc_chunk_modtap(
 ) -> Tuple[Ddc2State, torch.Tensor]:
     """Modulated-taps DDC chunk over all bands; returns int8 [NB, K, out, 2].
     Stage 1 with its decimated-rate rotation e^{i(phi0 + inc M m)} is the
-    kernel's wrapper (one launch a chunk on the card). TF32 is off from
-    ``init_ddc2_state`` or the step's build on."""
+    kernel's wrapper (one launch a chunk on the card), in the span
+    "ddc.stage1". TF32 is off from ``init_ddc2_state`` or the step's build on."""
     nb = iq.shape[0]
     k = state.phase.shape[-1]
-    y, new_x_tail = modtap_stage1(iq, state.x_tail, state.phase, tables, plans[0])  # [NB*K, 2, out1]
+    with span("ddc.stage1"):
+        y, new_x_tail = modtap_stage1(iq, state.x_tail, state.phase, tables, plans[0])  # [NB*K, 2, out1]
 
     new_tails = []
     for plan, tail in zip(plans[1:], state.tails):

@@ -38,6 +38,7 @@ MARKED = (
     "scan.pack",
     "ddc",
     "channelize",
+    "ddc.stage1",
 )
 EDGES = ("enter", "exit")
 

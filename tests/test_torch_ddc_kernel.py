@@ -36,13 +36,15 @@ RATE = 20_480_000
 # (decimation, slots, bands, stream dtype, chunk outputs): the step cells'
 # stage 1 on int8 (hf20m48) and on the bank's f32 channels (wb163m84), the
 # dongle session's one-stage chain (rtl2m048), and 256 kHz channels recorded
-# at 3.2 kHz (the band-shard scenes: the kernel's 64-row form); outputs a
-# chunk cover a few tiles and a ragged last one
+# at 3.2 kHz (the band-shard scenes: the kernel's 64-row form), and the
+# direct-sampling band's (ds491m52: M 8, 16 slots in 8 column groups);
+# outputs a chunk cover a few tiles and a ragged last one
 GEOMETRIES = {
     "m20k2_int8": (20, 2, 3, "int8", 1000),
     "m20k2_f32": (20, 2, 3, "float32", 1000),
     "m64k4_int8": (64, 4, 1, "int8", 600),
     "m80k2_f32": (80, 2, 2, "float32", 300),
+    "m8k16_int8": (8, 16, 1, "int8", 1000),
 }
 
 
@@ -261,7 +263,7 @@ def test_kernel_form_fits_and_the_geometry_is_taken(name):
     int8 = chunks[0].dtype == torch.int8
     form = dk.kernel_form(plan.decim, plan.poly_rows, int8)
     assert form == {"m20k2_int8": (4, True), "m20k2_f32": (4, True), "m64k4_int8": (4, False),
-                    "m80k2_f32": (2, False)}[name]
+                    "m80k2_f32": (2, False), "m8k16_int8": (4, True)}[name]
     assert all(dk.tile_rows(mt) >= dk.MAX_LAGS - 1 for mt, _ in dk.FORMS)
     assert dk.smem_bytes(plan.decim, plan.poly_rows, *form[:1], 1 if int8 else 4, form[1]) <= dk.MAX_SMEM
     dk.check_args(chunks[0], torch.zeros((phase.shape[0], 2, plan.tail_len)), phase, tables, plan)

@@ -68,7 +68,7 @@ def test_v1_stage_route_matches_jax(interp, decim):
     np.testing.assert_array_equal(ttail.numpy(), np.asarray(jtail))
 
 
-DECIMS = (8, 25, 32, 40, 75, 125)  # every decimation of a real chain (threshold 125)
+DECIMS = (8, 16, 25, 32, 40, 75, 120, 125)  # every decimation of a real chain (threshold 125)
 
 
 def test_kernel_geometry():

@@ -203,7 +203,7 @@ def _at_offset(a: np.ndarray, dev, offset: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("case", ["ragged", "short", "offset"])
-@pytest.mark.parametrize("decim", [8, 25, 32, 40, 75, 125, 151, 157, 400])
+@pytest.mark.parametrize("decim", [8, 16, 25, 32, 40, 75, 120, 125, 151, 157, 400])
 def test_fir_kernel_matches_plain(decim, case, dev):
     """<= 2e-5 * max against the plain version (f32 sum order), the new
     tail exact, over three calls carrying the tail, at every decimation of
@@ -1053,11 +1053,13 @@ def test_graphed_step_replays_its_stage_markers_on_card(dev):
     """``drivers.BandedBlocks``' graphed step at the wideband receiver's
     geometry (24 bands of 45 frames of fft 131072, 2 slots at 32 kHz),
     replayed under the profiler: each ``fused_step.STAGES`` enter/exit
-    marker pair once a replay, in ``STAGES`` order; every PSD kernel inside
+    marker pair once a replay, in ``STAGES`` order, with a ``ddc.stage1``
+    pair nested in ``ddc`` once a DDC chunk; every PSD kernel inside
     ``scan.psd``, every selection kernel inside ``scan.detection``, every FIR
-    and matrix-product kernel inside ``ddc``; the stages plus the device's
-    busy time outside them within 2% of the busy time; the kernel wrappers'
-    launches as without markers."""
+    and matrix-product kernel inside ``ddc``, every stage-1 kernel inside
+    ``ddc.stage1``; the stages plus the device's busy time outside them
+    within 2% of the busy time; the kernel wrappers' launches as without
+    markers."""
     import math
 
     from rtl_sdr_scanner_tpu_torch import drivers
@@ -1089,12 +1091,24 @@ def test_graphed_step_replays_its_stage_markers_on_card(dev):
     kernels, ops = _device_trace(prof)
     marks = [(name, s, e) for name, s, e in kernels if name.startswith("trace_")]
     order = [marker_name(stage, edge) for stage in fused_step.STAGES for edge in ("enter", "exit")]
+    stage1 = [marker_name("ddc.stage1", edge) for edge in ("enter", "exit")]
+    order = order[:-1] + stage1 * ddc_cfg.num_chunks + order[-1:]
     assert [name for name, _, _ in marks] == order * replays
-    spans = {}
-    for i in range(0, len(marks), 2):
-        stage = fused_step.STAGES[(i // 2) % len(fused_step.STAGES)]
-        spans.setdefault(stage, []).append((marks[i][2], marks[i + 1][1]))
+    spans, nested = {}, []
+    stack = []
+    for name, s, e in marks:  # each exit closes the span its stage entered last
+        if "_enter_" in name:
+            stack.append((name, e))
+            continue
+        entered, start = stack.pop()
+        stage = next(st for st in fused_step.STAGES + ("ddc.stage1",) if entered == marker_name(st, "enter"))
+        (nested if stage == "ddc.stage1" else spans.setdefault(stage, [])).append((start, s))
+    assert not stack and len(nested) == ddc_cfg.num_chunks * replays
     owners = {"psd_": "scan.psd", "selection_": "scan.detection", "fir_decimate": "ddc", "gemm": "ddc"}
+    stage1_kernels = [(s, e) for name, s, e in kernels if "modtap_stage1_kernel" in name]
+    assert len(stage1_kernels) == ddc_cfg.num_chunks * replays
+    for s, e in stage1_kernels:
+        assert any(lo <= s and e <= hi for lo, hi in nested), (s, e)
     for name, s, e in kernels:
         for part, stage in owners.items():
             if part in name.lower():

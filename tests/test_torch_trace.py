@@ -2,9 +2,10 @@
 the profiler range it always was and launches nothing outside a capture;
 inside one (a capturing stream stood in for here, the kernel library by a
 recorder) it writes its stage's enter and exit markers around the body,
-for every span a graphed step opens; a span without a marker raises there;
-the markers' table is the kernel file's list, and no marker's name is one
-the benchmark's rooflines select kernels by."""
+for every span a graphed step opens, the DDC's stage 1 nested in ``ddc``
+once a chunk; a span without a marker raises there; the markers' table is
+the kernel file's list, and no marker's name is one the benchmark's
+rooflines, or the stage-1 span's check on the card, select kernels by."""
 
 import re
 from pathlib import Path
@@ -16,6 +17,7 @@ import torch
 
 from rtl_sdr_scanner_tpu_torch.constants import Tunables
 from rtl_sdr_scanner_tpu_torch.models import ddc_pipeline, fused_step, scan_pipeline
+from rtl_sdr_scanner_tpu_torch.ops import ddc as ddc_ops
 from rtl_sdr_scanner_tpu_torch.ops.cuda import build
 from rtl_sdr_scanner_tpu_torch.parallel import sharded_scan
 from rtl_sdr_scanner_tpu_torch.runtime import sdr_device
@@ -25,6 +27,9 @@ PKG = Path(trace.__file__).resolve().parents[1]
 SLOTS = 2
 # the substrings the benchmark's roofline readers select kernels by
 ROOFLINE_PARTS = ("psd_", "selection_", "fir_decimate")
+# and the stage-1 kernel's, which the card's test finds inside ``ddc.stage1``
+KERNEL_PARTS = ROOFLINE_PARTS + ("modtap",)
+STAGE1 = [("enter", "ddc.stage1"), ("exit", "ddc.stage1")]
 
 
 class Recorder:
@@ -108,7 +113,7 @@ def test_captured_fused_step_marks_each_stage_in_order(capturing):
     opened = [n for n in _opened(lambda: step(*args)) if n in fused_step.STAGES]
     assert opened == list(fused_step.STAGES)
     want = [(edge, name) for name in fused_step.STAGES for edge in trace.EDGES]
-    assert capturing() == want
+    assert capturing() == want[:-1] + STAGE1 + want[-1:]  # the step's one DDC chunk
 
 
 def test_captured_session_ddc_step_marks_ddc(capturing):
@@ -118,7 +123,18 @@ def test_captured_session_ddc_step_marks_ddc(capturing):
     tables = ddc_pipeline.make_tables(cfg, np.array([1000, -2000], dtype=np.int64), device="cpu")
     _, rec = step(state, torch.zeros((1 << 13, 2), dtype=torch.int8), tables)
     assert rec.shape == (SLOTS, cfg.out_per_block, 2)
-    assert capturing() == [("enter", "ddc"), ("exit", "ddc")]
+    assert capturing() == [("enter", "ddc"), *STAGE1, ("exit", "ddc")]
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_captured_ddc_marks_stage1_once_a_chunk_inside_ddc(capturing, chunks):
+    cfg = ddc_pipeline.DdcConfig.create(256_000, 16000, SLOTS, 1 << 13, chunk_target=(1 << 13) // chunks)
+    assert cfg.modtap and cfg.num_chunks == chunks
+    step = ddc_pipeline.make_ddc_step(cfg, device="cpu")
+    state = ddc_pipeline.init_state(cfg, device="cpu")
+    tables = ddc_pipeline.make_tables(cfg, np.array([1000, -2000], dtype=np.int64), device="cpu")
+    step(state, torch.zeros((1 << 13, 2), dtype=torch.int8), tables)
+    assert capturing() == [("enter", "ddc"), *STAGE1 * chunks, ("exit", "ddc")]
 
 
 def test_nested_spans_mark_inside_out(capturing):
@@ -147,7 +163,7 @@ def _span_names(path: Path) -> set:
     return set(re.findall(r'\bspan\(\s*"([^"]+)"', path.read_text()))
 
 
-@pytest.mark.parametrize("module", [fused_step, scan_pipeline, ddc_pipeline, sharded_scan],
+@pytest.mark.parametrize("module", [fused_step, scan_pipeline, ddc_pipeline, sharded_scan, ddc_ops],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_every_span_a_step_opens_has_a_marker(module):
     names = _span_names(Path(module.__file__))
@@ -172,7 +188,7 @@ def test_marker_names_hold_no_roofline_kernels_name(name):
     for edge in trace.EDGES:
         marker = trace.marker_name(name, edge)
         assert re.fullmatch(r"trace_(enter|exit)_\w+", marker) and "." not in marker
-        assert not any(part in marker for part in ROOFLINE_PARTS), marker
+        assert not any(part in marker for part in KERNEL_PARTS), marker
 
 
 def test_marker_names_are_distinct():
