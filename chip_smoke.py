@@ -90,11 +90,14 @@
    first, top level hf20m48's; the analysis bank at step 7's block, held
    against its plain version there, the matmul form it replaced timed as
    its ``library_ms``; the modulated-taps stage-1 kernel at DDC_TIMED's
-   chunks (the step cells' 24 int8 bands and 8 f32 channels, the dongle
-   session's one band at M = 64, K = 4), held within 2e-6 of max|y| of
-   its plain version (today's chain before it: the matmul form with its
-   operand handling and the rotation) with the new tail exact, the
-   matmul form's ``bmm`` alone its ``library_ms``, top level hf20m48's).
+   chunks (the step cells' 24 int8 bands, 8 f32 channels and one band at
+   M = 8, K = 16, the dongle session's one band at M = 64, K = 4, step
+   12c's at M = 2, K = 4, two shapes of the form rule at K = 4 and 8), in
+   the form the shape takes and each form alone where it fits, each held
+   within 2e-6 of max|y| of its plain version (today's chain before it:
+   the matmul form with its operand handling and the rotation) with the
+   new tail exact, the matmul form's ``bmm`` alone its ``library_ms``,
+   top level hf20m48's).
    ``ms`` is the wrapper's pace (CUDA events around back-to-back
    calls), ``device_ms`` the kernel's own device time (torch.profiler's
    kernel records), ``host_us`` the host time a wrapper call takes to
@@ -323,14 +326,25 @@ WIDE_CHECK_SAMPLES = 1 << 20  # the channelizer held card vs CPU on this much of
 CHAN_TOL = 2e-5  # atol = rtol, tests/test_channelizer.py's bar between the bank's forms
 # the modulated-taps stage 1 timed (key, name, bands, slots, decimation,
 # samples a chunk, int8): a chunk of the step cells' DDC (hf20m48's 24 int8
-# bands, wb163m84's 8 f32 channels) and the dongle session's one-stage chain
-# (rtl2m048: one chunk a block)
+# bands, wb163m84's 8 f32 channels, ds491m52's one band at M 8 with 16
+# slots), the dongle session's one-stage chain (rtl2m048: one chunk a
+# block), step 12c's 32 kHz session (M 2, K 4, the folded form), and two
+# shapes at the form rule's edges: wb163m84's channels with 4 slots (M 20,
+# K 4: the lag form) and 24 int8 bands with 8 slots at M 16 (the folded
+# form's largest M at K 8). Each in the form its shape takes, and both
+# forms where each fits; the form taken may take at most FORM_SLACK more
+# device time than the other, unless a call's host time paces both
 DDC_TIMED = (
     ("hf20m48", "24 int8 bands at 20.48 Msps", 24, 2, 20, 1_105_920, True),
     ("wb163m84", "8 f32 channels at 20.48 Msps", 8, 2, 20, 1_105_920, False),
+    ("ds491m52", "one int8 band at 491.52 Msps", 1, 16, 8, 1_966_080, True),
     ("rtl2m048", "one int8 band at 2.048 Msps", 1, 4, 64, 655_360, True),
+    ("narrow_session", "one int8 band at 32 kHz", 1, 4, 2, 10_240, True),
+    ("m20k4_f32", "8 f32 channels at 20.48 Msps, 4 slots", 8, 4, 20, 1_105_920, False),
+    ("m16k8_int8", "24 int8 bands, 8 slots at M 16", 24, 8, 16, 1_105_920, True),
 )
 DDC_REL_TOL = 2e-6  # of max |y|: split TF32 against the f32 matmul form
+FORM_SLACK = 0.15  # the stage-1 form taken against the other form's kernel device time
 # the wideband session: an RTL-SDR at 2.048 Msps split into 16 channels of
 # 128 kHz (fft 512, decim 5, 16 frames: 0.32 s a block), two FM signals in
 # different channels keyed after the 2 s noise learning, 32 kHz recordings
@@ -909,10 +923,20 @@ def time_vote(geos, dev, card: str) -> dict:
     return record
 
 
-def modtap_launches(ddc_cfg, calls: int) -> int:
+def modtap_launches(ddc_cfg, calls: int) -> dict:
     """Launches of the modulated-taps stage-1 kernel in ``calls`` DDC blocks
-    of one step: one a chunk on the modulated-taps path, none on v1."""
-    return calls * ddc_cfg.num_chunks if ddc_cfg.modtap else 0
+    of one step: one a chunk on the modulated-taps path, none on v1; its
+    folded form's count the same where the shape folds, else none."""
+    n = calls * ddc_cfg.num_chunks if ddc_cfg.modtap else 0
+    return {"modtap_stage1": n, "modtap_stage1_fold": n if n and stage1_folds(ddc_cfg) else 0}
+
+
+def stage1_folds(ddc_cfg) -> bool:
+    """Whether the DDC's stage 1 runs the kernel's folded form."""
+    from rtl_sdr_scanner_tpu_torch.ops.cuda.ddc_kernel import folds
+
+    p = ddc_cfg.plans[0]
+    return bool(ddc_cfg.modtap) and folds(p.decim, p.poly_rows, ddc_cfg.num_slots)
 
 
 def detection_launches(n) -> dict:
@@ -987,7 +1011,7 @@ def run_path(dev, card: str, geo: Geometry) -> dict:
         "psd_frames_int8": 1,
         **detection_launches(1),
         "stage_apply_fir": ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-        "modtap_stage1": modtap_launches(ddc_cfg, 1),
+        **modtap_launches(ddc_cfg, 1),
     }
     for name, per_block in want_launches.items():
         if launches[name] != per_block * geo.blocks:
@@ -1187,7 +1211,7 @@ def run_runtime(dev, card: str) -> dict:
             **detection_launches(blocks),
             "stage_apply_fir": clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
             "analysis_bank": 0,
-            "modtap_stage1": modtap_launches(ddc_cfg, clock.ddc_calls),
+            **modtap_launches(ddc_cfg, clock.ddc_calls),
         }
         if launches != want or not (blocks and clock.ddc_calls):
             raise RuntimeError(f"session launches {launches}, want {want} (blocks and DDC calls > 0)")
@@ -1390,12 +1414,16 @@ def time_bank(dev, card: str) -> dict:
     return record
 
 
-def time_ddc(dev, card: str) -> dict:
-    """The modulated-taps stage-1 kernel at DDC_TIMED's chunks, held against
+def time_ddc(dev, card: str, rows=DDC_TIMED) -> dict:
+    """The modulated-taps stage-1 kernel at each row's chunk, held against
     its plain version (the matmul form with its operand handling and the
     rotation: today's chain before the kernel) there and timed beside it,
     its bound and the matmul form's ``bmm`` alone on its prepared operands
-    (``library_ms``); the record's top level holds the first chunk's."""
+    (``library_ms``); the form the shape takes (``form``) and each form's
+    kernel device time through its own entry point where it fits
+    (``lag_device_ms``, ``fold_device_ms``: a small chunk's pace is the
+    host's), each held as the wrapper is; the record's top level holds the
+    first row's."""
     import torch.nn.functional as F
 
     from rtl_sdr_scanner_tpu_torch.ops import ddc
@@ -1407,8 +1435,9 @@ def time_ddc(dev, card: str) -> dict:
     rate = 20_480_000
     record = dict(name="modtap_stage1", route="cuda", source="rtl_sdr_scanner_tpu_torch/csrc/ddc_kernel.cu",
                   replaces=None, launches=None, session_path="wideband_runtime_serial", max_abs_err=0.0)
-    for key, name, nb, k, m, n, int8 in DDC_TIMED:
+    for key, name, nb, k, m, n, int8 in rows:
         plan = ddc.plan_stage(1, m)
+        r = plan.poly_rows
         shifts = np.random.default_rng(m).integers(-rate // 2, rate // 2, size=(nb, k))
         tables = ddc.make_mod_tables([plan], shifts, rate, n, dev)
         if int8:
@@ -1418,14 +1447,37 @@ def time_ddc(dev, card: str) -> dict:
         tail = torch.rand((nb, 2, plan.tail_len), generator=gen, device=dev).sub_(0.5)
         phase = torch.rand((nb, k), generator=gen, device=dev).mul_(2 * math.pi)
         args = (x, tail, phase, tables, plan)
-        got, got_tail = dk.modtap_stage1(*args)
         want, want_tail = dk.modtap_stage1_plain(*args)
-        d, scale = (got - want).abs().max().item(), want.abs().max().item()
-        if not (torch.isfinite(got).all() and d <= DDC_REL_TOL * scale and torch.equal(got_tail, want_tail)):
-            raise RuntimeError(f"modtap_stage1 ({name}): max |diff| {d} against max |y| {scale}, or the tail differs")
+        scale = want.abs().max().item()
+
+        def held(got, got_tail, form) -> float:
+            d = (got - want).abs().max().item()
+            if not (torch.isfinite(got).all() and d <= DDC_REL_TOL * scale and torch.equal(got_tail, want_tail)):
+                raise RuntimeError(f"modtap_stage1 ({name}, {form}): max |diff| {d} against max |y| {scale}, or the "
+                                   f"tail differs")
+            return d
+
+        form = "fold" if dk.folds(m, r, k) else "lag"
+        d = held(*dk.modtap_stage1(*args), form)
         record["max_abs_err"] = max(record["max_abs_err"], d)
-        del got, want
-        t = timings(lambda: dk.modtap_stage1(*args), lambda: dk.modtap_stage1_plain(*args), 20, "modtap_stage1", 5)
+        t = timings(lambda: dk.modtap_stage1(*args), lambda: dk.modtap_stage1_plain(*args), 20, "modtap", 5)
+        # each form through its own entry point, its B in that form's layout
+        g = ddc.modtap_taps(tables.w.cpu().numpy(), plan)
+        fits = {"lag": dk.kernel_form(m, r, int8) is not None,
+                "fold": dk.fold_ntiles(k) <= dk.FOLD_MAX_NTILES and any(
+                    dk.fold_smem_bytes(m, r, k, mt, 1 if int8 else 4) <= dk.MAX_SMEM for mt in dk.FOLD_FORMS)}
+        forms_ms = {}
+        for each, entry, b, kernel in (("lag", "modtap_stage1", dk.mod_b, "modtap_stage1_kernel"),
+                                       ("fold", "modtap_fold", dk.mod_b_fold, "modtap_fold_kernel")):
+            if not fits[each]:
+                forms_ms[f"{each}_device_ms"] = None
+                continue
+            forced = tables._replace(frag=torch.from_numpy(dk.pack_fragments(b(g, m, r))).to(dev))
+            fargs = (entry, x, tail, phase, forced, plan)
+            record["max_abs_err"] = max(record["max_abs_err"], held(*dk.launch(*fargs), each))
+            forms_ms[f"{each}_device_ms"] = device_ms(lambda: dk.launch(*fargs), 20, kernel)
+            del forced
+        del want
         # the matmul form's product alone, on the operands it pads and chunks
         c, dd, q = plan.chunk_c, plan.chunk_d, plan.chunk_q
         out = n // m
@@ -1436,18 +1488,30 @@ def time_ddc(dev, card: str) -> dict:
         del full, lhs
         # the chunk read once (int8 or f32 pairs), y written once, the tails
         # and B fragments; the tensor cores' passes (two on integers, three
-        # on f32) over each column group's 4R live columns of Z
-        r, groups, passes = plan.poly_rows, dk.groups(k), 2 if int8 else 3
+        # on f32): the lag form's over each column group's 4R live columns
+        # of Z, the folded form's over the 2K live columns of its R 2M deep
+        # product
+        passes = 2 if int8 else 3
         bytes_moved = nb * n * 2 * x.element_size() + nb * k * 2 * out * 4 + 2 * nb * 2 * plan.tail_len * 4 \
             + tables.frag.numel() * 4
-        flops = passes * 2.0 * nb * groups * (out + r - 1) * 2 * m * 4 * r
+        if form == "fold":
+            flops = passes * 2.0 * nb * out * r * 2 * m * 2 * k
+        else:
+            flops = passes * 2.0 * nb * dk.groups(k) * (out + r - 1) * 2 * m * 4 * r
         bound_ms, bound_by = bound(bytes_moved, flops, TF32_FLOPS)
-        log(f"modtap stage 1 [{nb}, {n}, 2] {x.dtype} M={m} K={k} R={r} ({name}): {fmt(t)}, the matmul form's bmm "
-            f"alone {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP TF32); max |diff| {d:.3g} ({d / scale:.3g} of max |y|) on {card}")
-        record_time(record, key, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        paces = ", ".join(f"{f} {v:.4f} ms" for f, v in forms_ms.items() if v is not None)
+        both = [v for v in forms_ms.values() if v is not None]
+        # a chunk whose kernels take less device time than a call's host time is paced by the host: the forms tie
+        if max(both) * 1e3 >= t["host_us"] and min(both) * (1 + FORM_SLACK) < forms_ms[f"{form}_device_ms"]:
+            raise RuntimeError(f"modtap_stage1 ({name}): the {form} form taken is the slower: {paces}")
+        log(f"modtap stage 1 [{nb}, {n}, 2] {x.dtype} M={m} K={k} R={r} ({name}), {form} form: {fmt(t)}; each form "
+            f"alone {paces}; the matmul form's bmm alone {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP TF32); max |diff| {d:.3g} ({d / scale:.3g} of "
+            f"max |y|) on {card}")
+        record_time(record, key, **t, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, form=form,
+                    **forms_ms)
         del x, tail, tables
-    free_card()
+        free_card()
     return record
 
 
@@ -1493,7 +1557,7 @@ def run_wideband_step(dev, card: str) -> dict:
         counts = {name: fn.launches for name, fn in wrappers.items()}
         want = {"psd_frames_int8": 0, **detection_launches(geo.blocks),
                 "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                "analysis_bank": geo.blocks, "modtap_stage1": modtap_launches(ddc_cfg, geo.blocks)}
+                "analysis_bank": geo.blocks, **modtap_launches(ddc_cfg, geo.blocks)}
         log(f"{form}: launches over {geo.blocks} blocks: {counts} (the channels are f32 pairs: no PSD kernel)")
         if counts != want:
             raise RuntimeError(f"wideband {form} launches {counts}, want {want}")
@@ -1636,7 +1700,8 @@ def run_wideband_runtime(dev, card: str) -> dict:
             if not session.ddc_cfg.modtap or ddc_runs == 0 or ddc_runs % session.ddc_cfg.num_chunks:
                 raise RuntimeError(f"wideband session {form}: {ddc_runs} modulated-taps launches")
             want = {"psd_frames_int8": 0, **detection_launches(blocks * (WB_CHANNELS if form == "serial" else 1)),
-                    "stage_apply_fir": 0, "analysis_bank": blocks, "modtap_stage1": ddc_runs}
+                    "stage_apply_fir": 0, "analysis_bank": blocks,
+                    **modtap_launches(session.ddc_cfg, ddc_runs // session.ddc_cfg.num_chunks)}
             log(f"{form}: launches over the card run: {counts} (the 128 kHz -> 32 kHz chain is one modulated-"
                 f"taps stage: no FIR kernel stage; f32 channels: no PSD kernel)")
             if counts != want:
@@ -1781,7 +1846,7 @@ def run_time_mesh(dev, card: str, devices=None) -> dict:
         # the time-sharded DDC keeps stage 1's matmul form
         want = {"psd_frames_int8": shards * geo.blocks, **detection_launches(shards * geo.blocks),
                 "stage_apply_fir": shards * geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                "analysis_bank": 0, "modtap_stage1": 0 if form == "time_mesh" else modtap_launches(ddc_cfg, geo.blocks)}
+                "analysis_bank": 0, **modtap_launches(ddc_cfg, 0 if form == "time_mesh" else geo.blocks)}
         log(f"{form}: launches over {geo.blocks} blocks: {launches[form]}")
         if launches[form] != want:
             raise RuntimeError(f"{form} launches {launches[form]}, want {want}")
@@ -1885,7 +1950,7 @@ def run_band_shards(dev, card: str, devices=None) -> dict:
                                                                                step.blocks.ddc_step])
             want = {"psd_frames_int8": 0, **detection_launches(shards * MESH_BLOCKS),
                     "stage_apply_fir": shards * MESH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-                    "analysis_bank": shards * MESH_BLOCKS, "modtap_stage1": modtap_launches(ddc_cfg, shards * MESH_BLOCKS)}
+                    "analysis_bank": shards * MESH_BLOCKS, **modtap_launches(ddc_cfg, shards * MESH_BLOCKS)}
             if counts != want:
                 raise RuntimeError(f"wideband {form} over {shards} shard(s): launches {counts}, want {want}")
             key = f"wideband_step_{shards}_shards_{form}" if shards > 1 else f"wideband_step_one_card_{form}"
@@ -2170,7 +2235,8 @@ def run_multihost_step(dev, card: str, root: Path) -> dict:
             ddc_cfg = child["ddc"]
             want = {"psd_frames_int8": 0, **detection_launches(MESH_BLOCKS),
                     "stage_apply_fir": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[1], "analysis_bank": MESH_BLOCKS,
-                    "modtap_stage1": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[2]}
+                    "modtap_stage1": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[2],
+                    "modtap_stage1_fold": MESH_BLOCKS * ddc_cfg[0] * ddc_cfg[3]}
             if counts != want:
                 raise RuntimeError(f"wideband {form}: process {rank} launches {counts}, want {want}")
             launches[f"multihost_step_rank{rank}_{form}"] = counts
@@ -2416,11 +2482,15 @@ def run_narrow_session(dev, card: str, tmp: Path) -> dict:
         fn.launches = 0
     card_payloads, session, wall_s, clock = run_scanner(config, dev, timer=True)
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    cfg, blocks = session.scan_cfg, clock.block
+    cfg, ddc_cfg, blocks = session.scan_cfg, session.ddc_cfg, clock.block
     log(f"fft {cfg.fft_size} decim {cfg.decimator_factor} frames {cfg.frames_per_block}, DDC stages "
-        f"{[(p.interp, p.decim) for p in session.ddc_cfg.plans]}; {blocks} blocks; launches {counts}")
-    if counts["psd_frames_int8"] != blocks or counts["fused_selection"] != blocks:
-        raise RuntimeError(f"32 kHz session launches {counts}, want PSD and selection {blocks} each")
+        f"{[(p.interp, p.decim) for p in ddc_cfg.plans]} ({'folded' if stage1_folds(ddc_cfg) else 'lag'} stage-1 "
+        f"form), {ddc_cfg.num_slots} slots; {blocks} blocks, DDC dispatched in {clock.ddc_calls}; launches {counts}")
+    want = modtap_launches(ddc_cfg, clock.ddc_calls)
+    if (counts["psd_frames_int8"] != blocks or counts["fused_selection"] != blocks or not clock.ddc_calls
+            or {name: counts[name] for name in want} != want):
+        raise RuntimeError(f"32 kHz session launches {counts}, want PSD and selection {blocks} each and {want} "
+                           f"(DDC calls > 0)")
     cpu_payloads, _, cpu_s, _ = run_scanner(config, torch.device("cpu"))
     stats = compare_payloads(cpu_payloads, card_payloads)
     center, n_rec, tone = recorded_tone(card_payloads, RT_CENTER + NB_SHIFT, NARROW_REC_RATE)
@@ -2511,7 +2581,7 @@ def run_one_band(dev, card: str, step: str, geo: Geometry, cpu_blocks: int) -> d
     counts = {name: fn.launches for name, fn in wrappers.items()}
     want = {"psd_frames_int8": geo.blocks, **detection_launches(geo.blocks),
             "stage_apply_fir": geo.blocks * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
-            "modtap_stage1": modtap_launches(ddc_cfg, geo.blocks)}
+            **modtap_launches(ddc_cfg, geo.blocks)}
     log(f"launches over {geo.blocks} blocks: {counts}")
     if counts != want:
         raise RuntimeError(f"{geo.name}: step launches {counts}, want {want}")
@@ -2751,7 +2821,7 @@ def graph_banded(dev, card: str, geo: Geometry, learn_ms: int = 0) -> tuple:
         paces[form] = pace_ms(run, GRAPH_BLOCKS, GRAPH_BLOCKS)
     want = {"psd_frames_int8": GRAPH_BLOCKS, **detection_launches(GRAPH_BLOCKS),
             "stage_apply_fir": GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
-            "modtap_stage1": modtap_launches(ddc_cfg, GRAPH_BLOCKS)}
+            **modtap_launches(ddc_cfg, GRAPH_BLOCKS)}
     step = blocks_of["graphed"].step
     hold_outputs(geo.name, runs)
     hold_counts(geo.name, counts, want, [step])
@@ -2806,7 +2876,7 @@ def graph_wideband(dev, card: str, fused: bool = True, shards: int = 1) -> tuple
     ddc_cfg = steps["graphed"].ddc_cfg
     want = {"psd_frames_int8": 0, **detection_launches(shards * GRAPH_BLOCKS),
             "stage_apply_fir": shards * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)),
-            "analysis_bank": shards * GRAPH_BLOCKS, "modtap_stage1": modtap_launches(ddc_cfg, shards * GRAPH_BLOCKS)}
+            "analysis_bank": shards * GRAPH_BLOCKS, **modtap_launches(ddc_cfg, shards * GRAPH_BLOCKS)}
     graphed = [getattr(steps["graphed"].blocks, attr) for attr in step_names]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, graphed)
@@ -2849,7 +2919,7 @@ def graph_time_mesh(dev, card: str) -> tuple:
     ddc_cfg, n = graphed.ddc_cfg, TMESH_SHARDS
     want = {"psd_frames_int8": n * GRAPH_BLOCKS, **detection_launches(n * GRAPH_BLOCKS),
             "stage_apply_fir": n * GRAPH_BLOCKS * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
-            "modtap_stage1": 0}  # the time-sharded DDC keeps stage 1's matmul form
+            "modtap_stage1": 0, "modtap_stage1_fold": 0}  # the time-sharded DDC keeps stage 1's matmul form
     steps = [graphed.scan_step, graphed.ddc_step]
     hold_outputs(name, runs)
     hold_counts(name, counts, want, steps)
@@ -2992,7 +3062,7 @@ def graph_session(dev, card: str, tmp: Path) -> tuple:
         raise RuntimeError(f"session: {e_clock.block} blocks eager, {blocks} graphed, the DDC in {g_clock.ddc_calls}")
     want = {"psd_frames_int8": blocks, **detection_launches(blocks),
             "stage_apply_fir": g_clock.ddc_calls * ddc_cfg.num_chunks * len(fir_stages(ddc_cfg)), "analysis_bank": 0,
-            "modtap_stage1": modtap_launches(ddc_cfg, g_clock.ddc_calls)}
+            **modtap_launches(ddc_cfg, g_clock.ddc_calls)}
     counts = {"eager": e_counts, "graphed": g_counts}
     hold_counts("session", counts, want, steps)
     log(f"session, serial: {blocks} blocks, the DDC in {g_clock.ddc_calls}")
@@ -3095,7 +3165,8 @@ def child_main(argv) -> int:
                     if form == "eager":
                         for n, g in zip(names, graphed):
                             setattr(step.blocks, n, g.fn)
-                    result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)), int(step.ddc_cfg.modtap))
+                    result["ddc"] = (step.ddc_cfg.num_chunks, len(fir_stages(step.ddc_cfg)), int(step.ddc_cfg.modtap),
+                                     int(stage1_folds(step.ddc_cfg)))
                     torch.cuda.synchronize()
                     for fn in wrappers.values():
                         fn.launches = 0

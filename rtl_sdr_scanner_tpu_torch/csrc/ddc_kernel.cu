@@ -21,7 +21,10 @@
 // int8 samples a band) a launch must read 53.1 MB and write 21.2 MB: 0.022
 // ms at 3.35 TB/s. Its useful work is 13.9 GFLOP (8 a complex tap and
 // output), 0.208 ms at the 67 TFLOP/s f32 peak: the stage is bound by its
-// operations, so the product runs on the tensor cores:
+// operations, so the product runs on the tensor cores, in one of two forms
+// (the caller picks one from M, R and K: ops/cuda/ddc_kernel.folds).
+//
+// The lag form (modtap_stage1_kernel, entry modtap_stage1):
 //   - the complex product is one real product. A window row is the 2M
 //     interleaved floats (re, im) of M consecutive samples, and B is
 //     [2M, 4R] a column group: for each of its two slots the columns of
@@ -66,10 +69,48 @@
 // the passes' 28.9 GFLOP at the 495 TFLOP/s TF32 rate): mma.sync peaks near
 // half that rate, and the staging, Z stores and lag sums run a barrier apart
 // from the products (PERF.md §6).
+//
+// The folded form (modtap_fold_kernel, entry modtap_fold), for small M and
+// many slots (ds491m52: M = 8, K = 16, a 16-deep lag product, where the lag
+// form's Z stores, 34 lag sums an output and 8 stagings of each window for 8
+// column groups outweighed its product): the lags go into the product's depth,
+//   y[p] = sum over (q, 2r + c) of window[p + q][2r + c] * B_fold[(q, 2r + c)][(slot, re / im)],
+// A a Hankel read of the staged window tile (row p + q, at the same 4 mod 8
+// stride), B_fold [R 8 ceil(2M / 8), 8 ceil(2K / 8)] with a slot's y_re and
+// y_im in adjacent columns, so that a lane's accumulator pair holds one
+// output (ops/cuda/ddc_kernel.mod_b_fold, split and packed as above):
+//   - the same split TF32 passes, two on integers and three where f32
+//     values are in the window; the accumulators take one lag's k-steps,
+//     as the lag form's Z does, and the lags are added in f32 in ascending
+//     q (8 k-steps a register doubled the error against float64: the
+//     tensor cores' sums truncate);
+//   - eight warps along a tile's rows (4 m-tiles each: T = 512 outputs; 2
+//     where the window does not fit), every warp over all 2K columns, so
+//     that all K slots come from one staging of the window's T + R - 1
+//     rows; B_fold sits in shared memory once per band (139 KB at M = 8,
+//     K = 16), its copies issued with the first window's;
+//   - a block walks a run of consecutive outputs, as even as the grid
+//     makes them, in tiles within a band; a tile carries nothing to the
+//     next: no Z, no carried rows, no lag sums. The ring and the interior
+//     staging are the lag form's; a window at the tail or past x is staged
+//     an element at a time over the whole block;
+//   - the scale and the rotation straight from the accumulators, the
+//     rotation formed as the lag form forms it; each pair of m-tiles' table
+//     entries are loaded together before any is used (the epilogue is
+//     bound by those loads' latency);
+//   - its product has the lag form's multiply-adds where 2K is a multiple
+//     of 8 (ds491m52: 17.1 GFLOP of passes a chunk, 0.035 ms at 495 TFLOP/s,
+//     0.063 at mma.sync's 266-273), and the caller takes it only where they
+//     are no more (and B_fold fits beside an f32 window).
+// On an H100 it takes 0.141 ms for ds491m52's chunk (the lag form 0.400):
+// 45% of mma.sync's ceiling; of a block's cycles the products take about
+// 65% (at 86% of the instruction's rate), the epilogue 24%, the staging 6%
+// (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -89,6 +130,7 @@ constexpr int kFrag = kNTG * 32 * 4;    // floats of B fragments a k-step (hi, h
 constexpr int kMaxSmem = 232448;        // 227 KB, what one block may use
 constexpr int kMaxDevices = 64;
 constexpr float kCs8Scale = (float)(1.0 / 127.5);
+constexpr int kFoldMaxNT = 4;           // folded form: n-tiles of (slot, re / im) columns, 2K <= 32
 
 __host__ __device__ constexpr int tile_rows(int mt) { return kWM * mt * 16; }
 
@@ -112,6 +154,18 @@ __host__ __device__ inline size_t smem_bytes(int m, int nt_live, int mt, int esi
   return (size_t)(b_smem ? k_steps(m) * kFrag * 4 : 0) +
          (esize == 1 ? 2 * (size_t)ring_bytes(m, tr, esize) + tile : 2 * tile) +
          (size_t)(kZC + tr) * (8 * nt_live + 1) * 4;
+}
+
+// folded form: a tile's outputs, every warp along the rows (mt m-tiles each)
+__host__ __device__ constexpr int fold_tile_rows(int mt) { return kWarps * mt * 16; }
+
+// folded form: B_fold's split fragments, then (int8) two raw ring stages and
+// the f32 tile, (f32) two f32 tiles, each of the R - 1 + TR window rows a tile reads
+__host__ __device__ inline size_t fold_smem_bytes(int m, int r_rows, int nt, int mt, int esize) {
+  const int wr = fold_tile_rows(mt) + r_rows - 1;
+  const size_t tile = (size_t)wr * win_stride(m) * 4;
+  return (size_t)r_rows * k_steps(m) * nt * 512 +
+         (esize == 1 ? 2 * (size_t)ring_bytes(m, wr, esize) + tile : 2 * tile);
 }
 
 struct Geometry {
@@ -518,6 +572,291 @@ modtap_stage1_kernel(const T* __restrict__ x, const float* __restrict__ tail, co
   }
 }
 
+// The folded form's product over a tile's rows: y = A @ B_fold, A[p][(q, c)]
+// = the staged window's row p + q, column c (a Hankel read of the tile), B_fold
+// k-step q ks + kk and n-tile jj at bw[((q ks + kk) NT + jj) 32]. Split TF32
+// as tile_product has it (two passes on integers, three when `three`, x_lo
+// B_hi first); the accumulators take one lag's k-steps, as the lag form's Z
+// does, and the lags are added to sum in f32 in ascending q (tensor-core
+// sums truncate: 8 k-steps a register doubled the error against float64).
+template <int NT, int MT>
+__device__ __forceinline__ void fold_product(float (&sum)[MT][NT][4], const float4* bw, const float* wa, int ws,
+                                             int ks, int r_rows, bool three) {
+#pragma unroll 1
+  for (int q = 0; q < r_rows; ++q) {
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][jj][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < ks; ++kk) {
+      float4 b[NT];
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) b[jj] = bw[((q * ks + kk) * NT + jj) * 32];
+      const float* ap = wa + q * ws + kk * 8;
+      float a[MT][4];
+      uint32_t hi[MT][4];
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        a[j][0] = ap[j * 16 * ws];
+        a[j][1] = ap[(j * 16 + 8) * ws];
+        a[j][2] = ap[j * 16 * ws + 4];
+        a[j][3] = ap[(j * 16 + 8) * ws + 4];
+      }
+      if (three) {
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          uint32_t lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[j][e] = to_tf32(a[j][e]);
+            lo[e] = to_tf32(a[j][e] - __uint_as_float(hi[j][e]));
+          }
+#pragma unroll
+          for (int jj = 0; jj < NT; ++jj)
+            mma_tf32(acc[j][jj], lo, __float_as_uint(b[jj].x), __float_as_uint(b[jj].y));
+        }
+      } else {  // integers: exact in TF32
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hi[j][e] = __float_as_uint(a[j][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj)
+          mma_tf32(acc[j][jj], hi[j], __float_as_uint(b[jj].z), __float_as_uint(b[jj].w));
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj)
+          mma_tf32(acc[j][jj], hi[j], __float_as_uint(b[jj].x), __float_as_uint(b[jj].y));
+    }
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[j][jj][e] = __fadd_rn(sum[j][jj][e], acc[j][jj][e]);
+  }
+}
+
+// A folded tile's window where it reaches the tail or past x: stage_tile's
+// values, an element at a time over the whole block (a fold window is TR +
+// R - 1 = 545 rows, where stage_tile's edge path takes a warp a row).
+template <typename T>
+__device__ void stage_edge(float* win, const T* src, int shift, const float* tail_row, long long s0, int wr, int m,
+                           int ws, int t0, long long n, float tail_scale) {
+  const int w2 = 2 * m;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < wr * w2; e += kThreads) {
+    const int r = e / w2, c = e - r * w2;
+    const long long s = s0 + (long long)r * m + (c >> 1);
+    float v = 0.f;
+    if (s < t0) {
+      v = tail_row[(c & 1) * t0 + s] * tail_scale;
+    } else if (s - t0 < n) {
+      v = (float)src[shift + e];
+    }
+    win[r * ws + c] = v;
+  }
+}
+
+// A tile of the folded form: outputs [p0, p0 + rows) of one band, rows <= TR
+__device__ __forceinline__ void fold_tile(long long at, long long end, int out_len, int tr, int& band, int& p0,
+                                          int& rows) {
+  band = (int)(at / out_len);
+  p0 = (int)(at - (long long)band * out_len);
+  rows = (int)min((long long)min(tr, out_len - p0), end - at);
+}
+
+template <typename T, int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+modtap_fold_kernel(const T* __restrict__ x, const float* __restrict__ tail, const float* __restrict__ frag,
+                   const float* __restrict__ phase, const float* __restrict__ coarse_re,
+                   const float* __restrict__ coarse_im, const float* __restrict__ fine_re,
+                   const float* __restrict__ fine_im, float* __restrict__ y, float* __restrict__ new_tail,
+                   Geometry g) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr int TR = fold_tile_rows(MT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ks = k_steps(g.m), ws = win_stride(g.m), r_rows = g.r_rows;
+  const int wr = TR + r_rows - 1;  // window rows a tile reads
+  const int steps = r_rows * ks;   // k-steps of the folded depth
+  const int sb = ring_bytes(g.m, wr, (int)sizeof(T));
+  float* const bfrag = reinterpret_cast<float*>(smem);                       // [steps][NT][32][4]
+  unsigned char* const ring = smem + (size_t)steps * NT * 512;               // int8: [2][sb] bytes
+  float* const win = reinterpret_cast<float*>(ring + (kInt8 ? 2 * sb : 0));  // int8 [wr][ws], f32 [2][wr][ws]
+  const long long n = g.n, n2 = 2 * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wrow = warp * MT * 16;  // this warp's first row of a tile
+
+  // a band's B_fold into shared memory (cp.async, committed by the caller)
+  // and the phases of this lane's slots (n-tile jj: slot 4 jj + tig)
+  float ph_re[NT], ph_im[NT];
+  int cur_band = -1;
+  auto load_band = [&](int band) {
+    cur_band = band;
+    const float* src = frag + (size_t)band * steps * NT * 128;
+    for (int i = threadIdx.x; i < steps * NT * 32; i += kThreads) cp_async16(bfrag + 4 * i, src + 4 * i);
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      const int slot = jj * 4 + tig;
+      const float ph = slot < g.k ? phase[band * g.k + slot] : 0.f;
+      ph_re[jj] = cosf(ph);
+      ph_im[jj] = sinf(ph);
+    }
+  };
+
+  // this block's run: outputs [at, end) of the bands' outputs laid end to
+  // end, in tiles of up to TR within a band; a tile carries nothing to the
+  // next. The first band's B_fold and the first window come in together.
+  const long long total = (long long)g.nb * g.out_len;
+  long long at = total * blockIdx.x / gridDim.x;
+  const long long end = total * (blockIdx.x + 1) / gridDim.x;
+  // int8: the ring stage's shift; f32: whether the tile's copies are in flight
+  int shift0 = 0, shift1 = 0;
+  if (at < end) {
+    int band, p0, rows;
+    fold_tile(at, end, g.out_len, TR, band, p0, rows);
+    load_band(band);
+    const T* xrow = x + (long long)band * g.band_stride;
+    const long long s0 = (long long)p0 * g.m;
+    if (kInt8) {
+      shift0 = load_ring(reinterpret_cast<T*>(ring), xrow, 2 * (s0 - g.t0), wr * 2 * g.m, n2);
+    } else {
+      shift0 = copy_tile(win, reinterpret_cast<const float*>(xrow), s0, wr, g.m, ws, g.t0, n);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // the new tail, full[n : n + t0], spread over the grid, while the copies fly
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < (long long)g.nb * 2 * g.t0;
+       i += (long long)gridDim.x * kThreads) {
+    const long long row = i / g.t0;  // band * 2 + component
+    const long long s = n + (i - row * g.t0);
+    new_tail[i] = s < g.t0 ? tail[row * g.t0 + s]
+                           : scaled(x[(row >> 1) * g.band_stride + 2 * (s - g.t0) + (row & 1)]);
+  }
+
+  // the tiles' columns past 2M, zero for good
+  for (int i = threadIdx.x; i < (kInt8 ? 1 : 2) * wr * (ws - 2 * g.m); i += kThreads) {
+    const int r = i / (ws - 2 * g.m);
+    win[r * ws + 2 * g.m + (i - r * (ws - 2 * g.m))] = 0.f;
+  }
+
+  for (int it = 0; at < end; ++it) {
+    const int s = it & 1;
+    int band, p0, rows;
+    fold_tile(at, end, g.out_len, TR, band, p0, rows);
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();  // this tile's window has landed; the last tile's products are done
+    if (band != cur_band) {  // a new band (the last one's products are done)
+      load_band(band);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    const long long s0 = (long long)p0 * g.m;
+    const T* const xrow = x + (long long)band * g.band_stride;
+    float* const wt = kInt8 ? win : win + s * wr * ws;  // this tile's f32 window
+    const float* const tail_row = tail + (size_t)band * 2 * g.t0;
+    if (kInt8 && interior(s0, wr, g.m, g.t0, n)) {
+      stage_tile(win, reinterpret_cast<const T*>(ring + s * sb), s ? shift1 : shift0, tail_row, s0, wr, g.m, ws, g.t0,
+                 n, 127.5f);
+    } else if (kInt8) {
+      stage_edge(win, reinterpret_cast<const T*>(ring + s * sb), s ? shift1 : shift0, tail_row, s0, wr, g.m, ws, g.t0,
+                 n, 127.5f);
+    } else if (!(s ? shift1 : shift0)) {  // not copied: staged from the stream itself
+      stage_edge(wt, xrow + 2 * (s0 - g.t0), 0, tail_row, s0, wr, g.m, ws, g.t0, n, 1.f);
+    }
+    if (at + rows < end) {
+      int nband, np0, nrows;
+      fold_tile(at + rows, end, g.out_len, TR, nband, np0, nrows);
+      const T* nxrow = x + (long long)nband * g.band_stride;
+      const long long ns0 = (long long)np0 * g.m;
+      const int sh = kInt8 ? load_ring(reinterpret_cast<T*>(ring + (s ^ 1) * sb), nxrow, 2 * (ns0 - g.t0),
+                                       wr * 2 * g.m, n2)
+                           : copy_tile(win + (s ^ 1) * wr * ws, reinterpret_cast<const float*>(nxrow), ns0, wr,
+                                       g.m, ws, g.t0, n);
+      if (s) shift0 = sh; else shift1 = sh;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);  // B_fold in; the next window may fly
+    __syncthreads();  // the tile is staged
+
+    float sum[MT][NT][4];
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[j][jj][e] = 0.f;
+    if (wrow < rows) {
+      const bool three = !kInt8 || s0 < g.t0;  // f32 values in the window: split x too
+      fold_product<NT, MT>(sum, reinterpret_cast<const float4*>(bfrag) + lane, wt + (wrow + gid) * ws + tig, ws,
+                           ks, r_rows, three);
+    }
+
+    // the epilogue from the accumulators: lane (gid, tig) holds rows gid and
+    // gid + 8 of each m-tile, slot 4 jj + tig of each n-tile, (re, im) in a
+    // pair. Two m-tiles at a time, every lane first loads all their table
+    // entries (at a row and slot in range), so that the loads are in flight
+    // together, then rotates and stores what is in range.
+    static_assert(MT % 2 == 0, "the epilogue takes m-tiles in pairs");
+#pragma unroll
+    for (int j0 = 0; j0 < MT; j0 += 2) {
+      float co_re[2][2][NT], co_im[2][2][NT], f_re[2][2][NT], f_im[2][2][NT];  // [m-tile][h][n-tile]
+#pragma unroll
+      for (int jb = 0; jb < 2; ++jb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = p0 + min(wrow + (j0 + jb) * 16 + gid + 8 * h, rows - 1);
+          const int ci = p >> g.log2q, fi = p & ((1 << g.log2q) - 1);
+#pragma unroll
+          for (int jj = 0; jj < NT; ++jj) {
+            const size_t tab = (size_t)band * g.k + min(jj * 4 + tig, g.k - 1);
+            co_re[jb][h][jj] = coarse_re[tab * g.coarse_len + ci];
+            co_im[jb][h][jj] = coarse_im[tab * g.coarse_len + ci];
+            f_re[jb][h][jj] = fine_re[(tab << g.log2q) + fi];
+            f_im[jb][h][jj] = fine_im[(tab << g.log2q) + fi];
+          }
+        }
+      }
+#pragma unroll
+      for (int jb = 0; jb < 2; ++jb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wrow + (j0 + jb) * 16 + gid + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < NT; ++jj) {
+            const int slot = jj * 4 + tig;
+            if (r >= rows || slot >= g.k) continue;
+            float re = sum[j0 + jb][jj][2 * h], im = sum[j0 + jb][jj][2 * h + 1];
+            if (kInt8) {
+              re *= kCs8Scale;
+              im *= kCs8Scale;
+            }
+            // e^{i(phase + angle(p))}: (cos, sin)(phase) x coarse[p / Q], then x fine[p % Q]
+            const float cr = co_re[jb][h][jj], cm = co_im[jb][h][jj], fr = f_re[jb][h][jj], fm = f_im[jb][h][jj];
+            const float c_re = __fsub_rn(__fmul_rn(ph_re[jj], cr), __fmul_rn(ph_im[jj], cm));
+            const float c_im = __fadd_rn(__fmul_rn(ph_re[jj], cm), __fmul_rn(ph_im[jj], cr));
+            const float rot_re = __fsub_rn(__fmul_rn(c_re, fr), __fmul_rn(c_im, fm));
+            const float rot_im = __fadd_rn(__fmul_rn(c_re, fm), __fmul_rn(c_im, fr));
+            float* yr = y + ((size_t)band * g.k + slot) * 2 * g.out_len;
+            yr[p0 + r] = __fsub_rn(__fmul_rn(re, rot_re), __fmul_rn(im, rot_im));
+            yr[g.out_len + p0 + r] = __fadd_rn(__fmul_rn(re, rot_im), __fmul_rn(im, rot_re));
+          }
+        }
+      }
+    }
+    at += rows;
+  }
+}
+
 // The forms, in the order the launcher tries them: (element, m-tiles a
 // warp, B fragments in shared memory)
 using Launch = void (*)(int, size_t, cudaStream_t, const void*, const float*, const float*, const float*,
@@ -551,6 +890,38 @@ const Form* forms() {
   return table;
 }
 
+// The folded forms, in the order the launcher tries them for an (element,
+// n-tiles): m-tiles a warp 4 (512-row tiles), then 2 where the window does not fit
+struct FoldForm {
+  const void* kernel;
+  Launch launch;
+  int esize, nt, mt;
+};
+
+template <typename T, int NT, int MT>
+void launch_fold(int grid, size_t smem, cudaStream_t stream, const void* x, const float* tail, const float* frag,
+                 const float* phase, const float* coarse_re, const float* coarse_im, const float* fine_re,
+                 const float* fine_im, float* y, float* new_tail, const Geometry& g) {
+  modtap_fold_kernel<T, NT, MT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), tail, frag, phase, coarse_re, coarse_im, fine_re, fine_im, y, new_tail, g);
+}
+
+template <typename T, int NT, int MT>
+FoldForm folded() {
+  return FoldForm{reinterpret_cast<const void*>(modtap_fold_kernel<T, NT, MT>), launch_fold<T, NT, MT>,
+                  (int)sizeof(T), NT, MT};
+}
+
+constexpr int kFoldForms = 16;
+const FoldForm* fold_forms() {
+  static const FoldForm table[kFoldForms] = {
+      folded<int8_t, 1, 4>(), folded<int8_t, 1, 2>(), folded<int8_t, 2, 4>(), folded<int8_t, 2, 2>(),
+      folded<int8_t, 3, 4>(), folded<int8_t, 3, 2>(), folded<int8_t, 4, 4>(), folded<int8_t, 4, 2>(),
+      folded<float, 1, 4>(),  folded<float, 1, 2>(),  folded<float, 2, 4>(),  folded<float, 2, 2>(),
+      folded<float, 3, 4>(),  folded<float, 3, 2>(),  folded<float, 4, 4>(),  folded<float, 4, 2>()};
+  return table;
+}
+
 // Launch state, shared by every host thread that launches on a card: the
 // SM count and the attributes once per device, blocks per SM once per
 // (device, form, shared-memory size); all under one mutex.
@@ -564,8 +935,9 @@ int setup(int dev, int& sms) {
   if (!g_ready[dev]) {
     cudaError_t err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    for (int i = 0; i < kForms; ++i) {
-      err = cudaFuncSetAttribute(forms()[i].kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    for (int i = 0; i < kForms + kFoldForms; ++i) {
+      const void* kernel = i < kForms ? forms()[i].kernel : fold_forms()[i - kForms].kernel;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
       if (err != cudaSuccess) return (int)err;
     }
     g_ready[dev] = true;
@@ -574,6 +946,7 @@ int setup(int dev, int& sms) {
   return 0;
 }
 
+// form f: a lag form below kForms, folded form f - kForms above
 int blocks_per_sm(int dev, int f, size_t smem, int& nb) {
   std::lock_guard<std::mutex> lock(g_mutex);
   const auto key = std::make_tuple(dev, f, (int)smem);
@@ -582,7 +955,8 @@ int blocks_per_sm(int dev, int f, size_t smem, int& nb) {
     nb = found->second;
     return 0;
   }
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, forms()[f].kernel, kThreads, smem);
+  const void* kernel = f < kForms ? forms()[f].kernel : fold_forms()[f - kForms].kernel;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (nb < 1) return (int)cudaErrorInvalidConfiguration;
   g_blocks_per_sm[key] = nb;
@@ -652,6 +1026,63 @@ extern "C" int modtap_stage1(const void* x, int x_int8, long long band_stride, i
   if (e != 0) return e;
   int grid = sms * per_sm;
   if (grid > g.total_tiles) grid = g.total_tiles;  // every block gets a run of >= 1 tile
+  c.launch(grid, smem, (cudaStream_t)stream, x, (const float*)tail, (const float*)frag, (const float*)phase,
+           (const float*)coarse_re, (const float*)coarse_im, (const float*)fine_re, (const float*)fine_im, (float*)y,
+           (float*)new_tail, g);
+  return (int)cudaGetLastError();
+}
+
+// The folded form (the same arguments as modtap_stage1; frag: B_fold
+// [nb][R ceil(2m / 8)][ceil(2k / 8)][32][4] f32, ops/cuda/ddc_kernel.py
+// packs it). The caller chooses the form (ddc_kernel.folds); this launcher
+// takes any 2k <= 32 whose table and window fit a thread block.
+extern "C" int modtap_fold(const void* x, int x_int8, long long band_stride, int n, const void* tail,
+                           const void* frag, const void* phase, const void* coarse_re, const void* coarse_im,
+                           const void* fine_re, const void* fine_im, void* y, void* new_tail, int nb, int k, int t0,
+                           int m, int r_rows, int out_len, int q_len, int coarse_len, void* stream) {
+  const int nt = (2 * k + 7) / 8;
+  if (nb <= 0 || k <= 0 || nt > kFoldMaxNT || m <= 0 || t0 <= 0 || r_rows <= 0 || out_len <= 0 ||
+      (long long)out_len * m != n || band_stride < 0 || q_len <= 0 || (q_len & (q_len - 1)) != 0 ||
+      (long long)coarse_len * q_len != out_len) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int sms = 0;
+  const int rc = setup(dev, sms);
+  if (rc != 0) return rc;
+
+  Geometry g = {};
+  g.band_stride = band_stride;
+  g.n = n;
+  g.nb = nb;
+  g.k = k;
+  g.t0 = t0;
+  g.m = m;
+  g.r_rows = r_rows;
+  g.nt_live = nt;
+  g.out_len = out_len;
+  while ((1 << g.log2q) < q_len) ++g.log2q;
+  g.coarse_len = coarse_len;
+
+  const int esize = x_int8 ? 1 : 4;
+  int f = -1;
+  for (int i = 0; i < kFoldForms && f < 0; ++i) {
+    const FoldForm& c = fold_forms()[i];
+    if (c.esize == esize && c.nt == nt && fold_smem_bytes(m, r_rows, nt, c.mt, esize) <= (size_t)kMaxSmem) f = i;
+  }
+  if (f < 0) return (int)cudaErrorInvalidValue;  // B_fold and the window do not fit
+  const FoldForm& c = fold_forms()[f];
+  const size_t smem = fold_smem_bytes(m, r_rows, nt, c.mt, esize);
+  int per_sm = 0;
+  const int e = blocks_per_sm(dev, kForms + f, smem, per_sm);
+  if (e != 0) return e;
+  // runs of consecutive outputs, as even as the grid makes them, no more
+  // blocks than tiles
+  const long long tiles = ((long long)nb * out_len + fold_tile_rows(c.mt) - 1) / fold_tile_rows(c.mt);
+  const int grid = (int)std::min<long long>((long long)sms * per_sm, tiles);
   c.launch(grid, smem, (cudaStream_t)stream, x, (const float*)tail, (const float*)frag, (const float*)phase,
            (const float*)coarse_re, (const float*)coarse_im, (const float*)fine_re, (const float*)fine_im, (float*)y,
            (float*)new_tail, g);

@@ -15,4 +15,5 @@ def kernel_wrappers() -> dict:
         "stage_apply_fir": fir_kernel.stage_apply_fir,
         "analysis_bank": channelizer_kernel.analysis_bank,
         "modtap_stage1": ddc_kernel.modtap_stage1,
+        "modtap_stage1_fold": ddc_kernel.modtap_stage1_fold,
     }

@@ -389,7 +389,9 @@ class ModTables(NamedTuple):
 
     w: torch.Tensor  # [NB, C, K*2*D*P] f32, column order (k, part, d*P + b)
     rot: NcoTables  # decimated-rate output rotation, leaves [NB, K, ...]
-    frag: torch.Tensor  # [NB, ceil(K/2), ceil(2M/8), 20, 32, 4] f32: the kernel's B (``ddc_kernel.mod_fragments``)
+    # the kernel's B (``ddc_kernel.mod_fragments``), f32: [NB, ceil(K/2), ceil(2M/8), 20, 32, 4] (lag form)
+    # or B_fold [NB, R ceil(2M/8), ceil(2K/8), 32, 4] (folded form), as ``ddc_kernel.frag_shape`` gives
+    frag: torch.Tensor
 
 
 def init_ddc2_state(
